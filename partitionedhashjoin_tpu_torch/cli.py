@@ -5,11 +5,13 @@ src/main.cpp:141-293: parse flags → init logger → generate relations → run
 the join → render timing JSON.  The parser, flags, defaults and JSON schema
 are the JAX CLI's.
 
-Ported so far: ``--join sort-merge`` (the two-run kernel join).  Every other
-``--join``, the shuffle and multi-host flags, and ``--key-dtype int64`` are
-parsed and rejected with exit code 2 and "not yet ported (ROADMAP)".
-``--platform`` names the torch device, "cuda" (the default) or "cpu"; a
-missing card raises rather than falling back to the CPU.
+Ported: ``--join no-partitioning`` (the default), ``radix-partitioning``,
+``sort-merge`` and ``planned``, with ``--key-dtype int64`` for sort-merge
+only (the other joins exit with the JAX CLI's message).  ``--join shuffle``
+and the shuffle / multi-host flags are parsed and rejected with exit code 2
+and "not yet ported (ROADMAP)".  ``--platform`` names the torch device,
+"cuda" (the default) or "cpu"; a missing card raises rather than falling
+back to the CPU.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from typing import Optional, Sequence
 
 from partitionedhashjoin_tpu_torch.config import (
     Configuration,
+    JoinAlgorithmType,
     OutputType,
     validate_parsed_configuration,
 )
@@ -42,7 +45,7 @@ JOIN_CHOICES = (
 )
 
 #: Joins this package runs; the others are listed in ROADMAP.md.
-PORTED_JOINS = ("sort-merge",)
+PORTED_JOINS = ("no-partitioning", "radix-partitioning", "sort-merge", "planned")
 
 #: Flags that only the shuffle join or multi-host runs read.
 _UNPORTED_FLAGS = (
@@ -64,7 +67,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--skew", type=float, default=1.05,
                    help="Zipf skew of the secondary relation (0 = uniform)")
     p.add_argument("--join", choices=JOIN_CHOICES, default="no-partitioning",
-                   help="join algorithm (only sort-merge is ported)")
+                   help="join algorithm (shuffle is not ported yet)")
     p.add_argument("--partitions", type=int, default=None,
                    help="radix partition count (radix-partitioning only)")
     p.add_argument("--log", default="info", help="log severity level")
@@ -87,7 +90,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--pipeline-chunks", type=int, default=1,
                    help="shuffle join: probe exchange chunks (not yet ported)")
     p.add_argument("--key-dtype", default="int32", choices=("int32", "int64"),
-                   help="tuple id width (int64 not yet ported)")
+                   help="tuple id width; int64 matches the reference's "
+                   "Tuple::id (requires the sort-merge join)")
     p.add_argument("--no-warmup", action="store_true",
                    help="skip the untimed warmup run (timed phases then "
                    "include the one-time kernel build and CUDA start-up)")
@@ -114,12 +118,12 @@ def parse_arguments(argv: Optional[Sequence[str]] = None) -> "tuple[Configuratio
         if getattr(args, dest) != parser.get_default(dest):
             flag = "--" + dest.replace("_", "-")
             parser.error(f"{flag} is not yet ported (ROADMAP)")
-    if args.key_dtype != "int32":
-        parser.error(f"--key-dtype {args.key_dtype} is not yet ported (ROADMAP)")
     config = Configuration()
     config.primary_relation_size = args.primary
     config.secondary_relation_size = args.secondary
     config.skew_parameter = args.skew
+    if args.join in ("no-partitioning", "radix-partitioning"):
+        config.join_type = JoinAlgorithmType.from_string(args.join)
     config.logger_config.log_level = args.log
     config.output_format_config.format = config.output_format_config.format.from_string(args.format)
     config.output_format_config.time_unit = args.unit
@@ -129,6 +133,11 @@ def parse_arguments(argv: Optional[Sequence[str]] = None) -> "tuple[Configuratio
         config.radix_clustering_config.number_of_partitions = args.partitions
     config.seed = args.seed
     config.key_dtype = args.key_dtype
+    if args.key_dtype == "int64" and args.join != "sort-merge":
+        raise SystemExit(
+            "int64 keys are supported by the sort-merge join only "
+            "(hash-table kernels are 32-bit)."
+        )
     # cross-field check (src/Arguments.hpp:7-18): --partitions is only legal
     # with the radix join
     try:
@@ -152,20 +161,26 @@ def generate_tables(config: Configuration, log, device):
         sequential_table,
         zipf_table,
     )
+    import torch
+
     from partitionedhashjoin_tpu_torch.utils.device import sync
 
+    dtype = torch.int64 if config.key_dtype == "int64" else torch.int32
     log.info(
         "Generating primary (%d) and secondary (%d, skew %.2f) relations",
         config.primary_relation_size,
         config.secondary_relation_size,
         config.skew_parameter,
     )
-    table_a = sequential_table(config.primary_relation_size, device=device)
+    table_a = sequential_table(
+        config.primary_relation_size, dtype=dtype, device=device
+    )
     table_b = zipf_table(
         config.secondary_relation_size,
         alpha=config.skew_parameter,
         key_range=(1, config.primary_relation_size),
         seed=config.seed,
+        dtype=dtype,
         method="rejection",
         device=device,
     )
@@ -186,24 +201,61 @@ def _base_parameters(config: Configuration) -> Parameters:
     return params
 
 
+def _make_joiner(join_name: str, config: Configuration, args, params: Parameters):
+    """The selected joiner, with the join's own parameters set (the JAX
+    CLI's cli.py:210-246)."""
+    if join_name == "no-partitioning":
+        from partitionedhashjoin_tpu_torch.ops.no_partitioning import (
+            NoPartitioningHashJoiner,
+        )
+
+        params.set_parameter("Type", "NoPartitioning")
+        return NoPartitioningHashJoiner(
+            config.no_partitioning_config, seed=config.seed
+        )
+    if join_name == "radix-partitioning":
+        from partitionedhashjoin_tpu_torch.ops.radix_cluster import RadixHashJoiner
+
+        params.set_parameter(
+            "Type",
+            # the reference's enum literal is typo'd (main.cpp:127); tooling
+            # that diffs against its output can opt into byte parity
+            "RadixParitioning" if args.reference_spelling else "RadixPartitioning",
+        )
+        params.set_parameter(
+            "NumberOfPartitions",
+            str(config.radix_clustering_config.number_of_partitions),
+        )
+        return RadixHashJoiner(config.radix_clustering_config, seed=config.seed)
+    if join_name == "sort-merge":
+        from partitionedhashjoin_tpu_torch.ops.sort_merge import SortMergeJoiner
+
+        params.set_parameter("Type", "SortMerge")
+        return SortMergeJoiner()
+    if join_name == "planned":
+        from partitionedhashjoin_tpu_torch.ops.planner import PlannedJoiner
+
+        params.set_parameter("Type", "Planned")
+        return PlannedJoiner()
+    raise ValueError(f"--join {join_name} is not yet ported (ROADMAP)")
+
+
 def run_join(
     join_name: str, config: Configuration, args, table_a, table_b, log,
     warmup: bool = True,
 ):
     """Run the selected joiner (main.cpp:260-282) and return its timing."""
-    if join_name != "sort-merge":
-        raise ValueError(f"--join {join_name} is not yet ported (ROADMAP)")
-    from partitionedhashjoin_tpu_torch.ops.sort_merge import SortMergeJoiner
-
     params = _base_parameters(config)
-    params.set_parameter("Type", "SortMerge")
     timer = HashJoinTimer(params)
-    joiner = SortMergeJoiner()
+    joiner = _make_joiner(join_name, config, args, params)
     if warmup:
         # untimed, so the phases measure the join and not the one-time
         # kernel build and CUDA start-up
         joiner.run(table_a, table_b)
     count = joiner.run(table_a, table_b, timer)
+    if join_name == "planned":
+        # observability: which plan the stats routed to
+        params.set_parameter("Plan", joiner.last_plan or "")
     log.info("Join produced %d matches", count)
     return timer.get_result()
 

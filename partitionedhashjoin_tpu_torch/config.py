@@ -150,12 +150,16 @@ class NoPartitioningConfiguration:
     #: costs ~3 ns/row — ~30x cheaper than the gather probe — so its chunk
     #: bound engages only for relations ~10x past the benchmark scale
     #: (2B rows ≈ 6 s/program); int64 probes are never chunked (validity
-    #: masks are int32-path only, documented in merge_join.PreparedBuild)
+    #: masks are int32-path only, documented in merge_join.PreparedBuild).
+    #: The port ignores it: the windows exist for the TPU's watchdog, and
+    #: ops/no_partitioning.py probes in one call.
     vmem_probe_chunk_rows: int = 2_000_000_000
     #: global-structure layout: "vmem" = sorted build run probed by the
     #: Mosaic merge-probe kernel (zero HBM gathers), "chained" = chained
     #: hash table probed by HBM gathers (the literal table analogue),
-    #: "auto" = vmem when the kernel backend is available
+    #: "auto" = vmem when the kernel backend is available.  In the port
+    #: "vmem" is the sorted run probed by the CUDA merge-probe kernel,
+    #: "auto" is "vmem" on every device, and "chained" is not ported yet.
     mode: str = "auto"
 
 
@@ -183,6 +187,8 @@ class RadixClusteringConfiguration:
     #:             (the reference's exact structure, HashJoin.hpp:243-440)
     #:   "auto"    "vmem" when the Mosaic kernel runs on this backend,
     #:             else "chained"
+    #: In the port "auto" is "vmem" on every device and "chained" is not
+    #: ported yet (ops/radix_cluster.py).
     mode: str = "auto"
 
 

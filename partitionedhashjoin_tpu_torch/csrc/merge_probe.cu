@@ -1,17 +1,20 @@
-// Ranged merge-probe count kernel for Hopper (sm_90a).
+// Ranged merge-probe count kernels for Hopper (sm_90a), int32 and int64 keys.
 //
 // Replaces partitionedhashjoin_tpu/ops/pallas/merge_probe.py::
-// ranged_merge_count_prepared and its kernel body _ranged_count_kernel: the
-// number of rows of an ascending int32 probe run b whose key occurs in an
-// ascending int32 build run a.  With exclude_int32_max, only a[0, limit) is
-// searched, limit = lower_bound(a, INT32_MAX), so no INT32_MAX probe counts
-// (the validity protocol of ops/merge_join.py).
+// ranged_merge_count_prepared and its kernel body _ranged_count_kernel (K1,
+// int32), and _count_i64_planes_full / _count_i64_planes with their body
+// _ranged_count_kernel_i64 (K3, int64): the number of rows of an ascending
+// probe run b whose key occurs in an ascending build run a.  With
+// exclude_int32_max (int32 only), only a[0, limit) is searched,
+// limit = lower_bound(a, INT32_MAX), so no INT32_MAX probe counts (the
+// validity protocol of ops/merge_join.py).  The int64 count has no such flag:
+// it counts over the full int64 domain.
 //
 // What bounds it on this card: reads from device memory.  Every probe row is
-// read once (4 bytes) and the build run is read in the ranges the probe tiles
-// cover; the arithmetic is a few compares per row.  A row's binary search is
-// a chain of dependent loads, so latency, not bandwidth, is what a thread
-// waits on.
+// read once (4 or 8 bytes) and the build run is read in the ranges the probe
+// tiles cover; the arithmetic is a few compares per row.  A row's binary
+// search is a chain of dependent loads, so latency, not bandwidth, is what a
+// thread waits on.
 //
 // What the design does about it:
 // - One block per tile of kTile consecutive sorted probe rows.  Thread 0 finds
@@ -25,14 +28,16 @@
 // - Per-thread counts are summed by warp shuffles and shared memory, and one
 //   atomicAdd per block adds the block's count to a 64-bit total.
 //
-// What the TPU kernel needed and this one does not: lane-transposed build
-// tiles, a static flattened work list, scalar-prefetched ranges, a
-// run-start dedup and probe padding.  They existed because Mosaic has no
-// data-dependent loops and pads to (8, 128) tiles; here every row is searched
-// once in its own range, so no row can be counted twice or padded.
+// What the TPU kernels needed and these do not: lane-transposed build tiles,
+// a static flattened work list, scalar-prefetched ranges, a run-start dedup
+// and probe padding with its INT32_MAX / INT64_MAX correction.  They existed
+// because Mosaic has no data-dependent loops and pads to (8, 128) tiles; here
+// every row is searched once in its own range, so no row can be counted twice
+// or padded.  Nor the int64 kernel's (hi, lo) int32 plane split: Mosaic is
+// 32-bit, CUDA compares 64-bit keys natively.
 //
-// C interface for ctypes: phj_merge_probe_count returns cudaGetLastError()
-// after the launch, so a refused launch reaches the caller.
+// C interface for ctypes: each entry returns cudaGetLastError() after the
+// launch, so a refused launch reaches the caller.
 
 #include <cstdint>
 
@@ -47,9 +52,9 @@ constexpr int kWarps = kThreads / 32;
 constexpr int32_t kInt32Max = 2147483647;
 
 // First position in [lo, hi) whose key is >= q, or hi.
-__device__ __forceinline__ int64_t lower_bound(const int32_t* __restrict__ a,
-                                               int64_t lo, int64_t hi,
-                                               int32_t q) {
+template <typename Key>
+__device__ __forceinline__ int64_t lower_bound(const Key* __restrict__ a,
+                                               int64_t lo, int64_t hi, Key q) {
   while (lo < hi) {
     const int64_t mid = lo + ((hi - lo) >> 1);
     if (__ldg(a + mid) < q) {
@@ -62,9 +67,9 @@ __device__ __forceinline__ int64_t lower_bound(const int32_t* __restrict__ a,
 }
 
 // First position in [lo, hi) whose key is > q, or hi.
-__device__ __forceinline__ int64_t upper_bound(const int32_t* __restrict__ a,
-                                               int64_t lo, int64_t hi,
-                                               int32_t q) {
+template <typename Key>
+__device__ __forceinline__ int64_t upper_bound(const Key* __restrict__ a,
+                                               int64_t lo, int64_t hi, Key q) {
   while (lo < hi) {
     const int64_t mid = lo + ((hi - lo) >> 1);
     if (__ldg(a + mid) <= q) {
@@ -76,9 +81,12 @@ __device__ __forceinline__ int64_t upper_bound(const int32_t* __restrict__ a,
   return lo;
 }
 
+// Key is int (int32) or long long (int64), the types __ldg takes.
+// exclude_int32_max is only ever set for int32 keys.
+template <typename Key>
 __global__ void __launch_bounds__(kThreads)
-    ranged_count_kernel(const int32_t* __restrict__ a, int64_t n_a,
-                        const int32_t* __restrict__ b, int64_t n_b,
+    ranged_count_kernel(const Key* __restrict__ a, int64_t n_a,
+                        const Key* __restrict__ b, int64_t n_b,
                         int exclude_int32_max,
                         unsigned long long* __restrict__ total) {
   __shared__ int64_t range[2];
@@ -90,7 +98,8 @@ __global__ void __launch_bounds__(kThreads)
 
   if (threadIdx.x == 0) {
     const int64_t limit =
-        exclude_int32_max ? lower_bound(a, 0, n_a, kInt32Max) : n_a;
+        exclude_int32_max ? lower_bound(a, 0, n_a, static_cast<Key>(kInt32Max))
+                          : n_a;
     const int64_t lo = lower_bound(a, 0, limit, __ldg(b + tile_begin));
     range[0] = lo;
     range[1] = upper_bound(a, lo, limit, __ldg(b + tile_end - 1));
@@ -108,7 +117,7 @@ __global__ void __launch_bounds__(kThreads)
     const int64_t row =
         tile_begin + static_cast<int64_t>(k) * kThreads + threadIdx.x;
     if (row < tile_end) {
-      const int32_t q = __ldg(b + row);
+      const Key q = __ldg(b + row);
       const int64_t pos = lower_bound(a, lo, hi, q);
       found += (pos < hi && __ldg(a + pos) == q) ? 1u : 0u;
     }
@@ -136,6 +145,23 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+template <typename Key>
+int launch_count(const Key* a, int64_t n_a, const Key* b, int64_t n_b,
+                 int exclude_int32_max, unsigned long long* total,
+                 cudaStream_t stream) {
+  if (n_a <= 0 || n_b <= 0) {
+    return static_cast<int>(cudaSuccess);
+  }
+  const int64_t blocks = (n_b + kTile - 1) / kTile;
+  if (blocks > 0x7fffffffLL) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  ranged_count_kernel<Key><<<static_cast<unsigned int>(blocks), kThreads, 0,
+                             stream>>>(a, n_a, b, n_b, exclude_int32_max,
+                                       total);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -150,16 +176,16 @@ int phj_merge_probe_tile_rows() { return kTile; }
 int phj_merge_probe_count(const int32_t* a, int64_t n_a, const int32_t* b,
                           int64_t n_b, int exclude_int32_max,
                           unsigned long long* total, cudaStream_t stream) {
-  if (n_a <= 0 || n_b <= 0) {
-    return static_cast<int>(cudaSuccess);
-  }
-  const int64_t blocks = (n_b + kTile - 1) / kTile;
-  if (blocks > 0x7fffffffLL) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  ranged_count_kernel<<<static_cast<unsigned int>(blocks), kThreads, 0,
-                        stream>>>(a, n_a, b, n_b, exclude_int32_max, total);
-  return static_cast<int>(cudaGetLastError());
+  return launch_count<int>(a, n_a, b, n_b, exclude_int32_max, total, stream);
+}
+
+// The same count for ascending int64 runs, over the full int64 domain.
+int phj_merge_probe_count_i64(const int64_t* a, int64_t n_a, const int64_t* b,
+                              int64_t n_b, unsigned long long* total,
+                              cudaStream_t stream) {
+  return launch_count<long long>(reinterpret_cast<const long long*>(a), n_a,
+                                 reinterpret_cast<const long long*>(b), n_b, 0,
+                                 total, stream);
 }
 
 }  // extern "C"

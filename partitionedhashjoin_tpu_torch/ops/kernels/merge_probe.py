@@ -1,12 +1,19 @@
-"""Ranged merge-probe count: the port of the TPU kernel K1.
+"""Ranged merge-probe count: the port of the TPU kernels K1 and K3.
 
-Counterpart of ``partitionedhashjoin_tpu/ops/pallas/merge_probe.py::
-ranged_merge_count_prepared``.  ``ranged_merge_count_prepared`` counts the
-rows of an ascending int32 probe run whose key occurs in an ascending int32
-build run.  On a CUDA tensor it launches the hand-written kernel in
-``csrc/merge_probe.cu``; on a CPU tensor it runs ``ranged_merge_count_plain``,
-the plain PyTorch version of the same contract, which tests and
-``chip_smoke.py`` also hold the kernel against.
+Counterparts of ``partitionedhashjoin_tpu/ops/pallas/merge_probe.py``:
+
+- ``ranged_merge_count_prepared`` (K1, ``ranged_merge_count_prepared``)
+  counts the rows of an ascending int32 probe run whose key occurs in an
+  ascending int32 build run;
+- ``ranged_merge_count_i64`` (K3, ``ranged_merge_count_i64`` /
+  ``_count_i64_planes_full``) does the same for int64 runs, over the full
+  int64 domain.  The JAX package splits int64 keys into (hi, lo) int32
+  planes because Mosaic is 32-bit; the port compares int64 natively.
+
+On a CUDA tensor each launches its hand-written kernel in
+``csrc/merge_probe.cu``; on a CPU tensor it runs its plain PyTorch version
+(``ranged_merge_count_plain``, ``ranged_merge_count_i64_plain``), which tests
+and ``chip_smoke.py`` also hold the kernel against.
 """
 
 from __future__ import annotations
@@ -24,8 +31,10 @@ INT32_MAX = 2**31 - 1
 TILE_ROWS = 4096
 
 #: Kernel launches since the last reset (set to 0 to reset).  Only a launch of
-#: the CUDA kernel adds to it.
+#: the CUDA kernel adds to it: ``LAUNCHES`` for K1 (int32), ``LAUNCHES_I64``
+#: for K3 (int64).
 LAUNCHES = 0
+LAUNCHES_I64 = 0
 
 _SIGNATURES = {
     "phj_merge_probe_tile_rows": ((), ctypes.c_int),
@@ -36,6 +45,17 @@ _SIGNATURES = {
             ctypes.c_void_p,  # b
             ctypes.c_int64,  # n_b
             ctypes.c_int,  # exclude_int32_max
+            ctypes.c_void_p,  # total (uint64 counter)
+            ctypes.c_void_p,  # cudaStream_t
+        ),
+        ctypes.c_int,
+    ),
+    "phj_merge_probe_count_i64": (
+        (
+            ctypes.c_void_p,  # a
+            ctypes.c_int64,  # n_a
+            ctypes.c_void_p,  # b
+            ctypes.c_int64,  # n_b
             ctypes.c_void_p,  # total (uint64 counter)
             ctypes.c_void_p,  # cudaStream_t
         ),
@@ -76,12 +96,22 @@ def ranged_merge_count_plain(
     return (right > left).sum()
 
 
-def _check(a_sorted: torch.Tensor, b_sorted: torch.Tensor) -> None:
+def ranged_merge_count_i64_plain(
+    a_sorted: torch.Tensor, b_sorted: torch.Tensor
+) -> torch.Tensor:
+    """The plain PyTorch version of the int64 count (the same left/right
+    insertion-point test over the whole int64 domain).  Works on any device."""
+    return ranged_merge_count_plain(a_sorted, b_sorted)
+
+
+def _check(
+    a_sorted: torch.Tensor, b_sorted: torch.Tensor, dtype=torch.int32
+) -> None:
     for name, t in (("a_sorted", a_sorted), ("b_sorted", b_sorted)):
-        if t.dtype != torch.int32 or t.dim() != 1:
+        if t.dtype != dtype or t.dim() != 1:
             raise TypeError(
-                f"{name} must be a 1-D int32 tensor, got {t.dtype} of shape "
-                f"{tuple(t.shape)}"
+                f"{name} must be a 1-D {dtype} tensor, got {t.dtype} of "
+                f"shape {tuple(t.shape)}"
             )
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
@@ -103,23 +133,48 @@ def ranged_merge_count_prepared(
     """
     global LAUNCHES
     _check(a_sorted, b_sorted)
-    device = a_sorted.device
-    if device.type == "cpu":
+    if a_sorted.device.type == "cpu":
         return ranged_merge_count_plain(a_sorted, b_sorted, exclude_int32_max)
+    total, launched = _launch(
+        "phj_merge_probe_count", a_sorted, b_sorted, int(exclude_int32_max)
+    )
+    LAUNCHES += launched
+    return total
+
+
+def ranged_merge_count_i64(
+    a_sorted: torch.Tensor, b_sorted: torch.Tensor
+) -> torch.Tensor:
+    """Number of ``b_sorted`` rows whose key exists in ``a_sorted`` (both
+    ascending int64), over the full int64 domain, as a 0-dim int64 tensor on
+    the inputs' device.  A CUDA input launches the K3 kernel or raises."""
+    global LAUNCHES_I64
+    _check(a_sorted, b_sorted, torch.int64)
+    if a_sorted.device.type == "cpu":
+        return ranged_merge_count_i64_plain(a_sorted, b_sorted)
+    total, launched = _launch("phj_merge_probe_count_i64", a_sorted, b_sorted)
+    LAUNCHES_I64 += launched
+    return total
+
+
+def _launch(entry: str, a_sorted, b_sorted, *flags):
+    """(total, 1) after launching ``entry`` on the current stream, or
+    (zero, 0) when a side is empty; raises on a non-CUDA device or a
+    refused launch."""
+    device = a_sorted.device
     if device.type != "cuda":
         raise ValueError(f"unsupported device {device}")
     total = torch.zeros((), dtype=torch.int64, device=device)
     n_a, n_b = a_sorted.shape[0], b_sorted.shape[0]
     if n_a == 0 or n_b == 0:
-        return total
+        return total, 0
     lib = load_library()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.phj_merge_probe_count(
-            a_sorted.data_ptr(), n_a, b_sorted.data_ptr(), n_b,
-            int(exclude_int32_max), total.data_ptr(), stream,
+        err = getattr(lib, entry)(
+            a_sorted.data_ptr(), n_a, b_sorted.data_ptr(), n_b, *flags,
+            total.data_ptr(), stream,
         )
     if err != 0:
-        raise RuntimeError(f"merge_probe kernel launch failed: CUDA error {err}")
-    LAUNCHES += 1
-    return total
+        raise RuntimeError(f"{entry} launch failed: CUDA error {err}")
+    return total, 1

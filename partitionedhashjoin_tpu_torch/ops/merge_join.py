@@ -1,12 +1,13 @@
 """Two-run merge-count join: sort each relation once, then count with the
 merge-probe kernel.
 
-Counterpart of ``partitionedhashjoin_tpu/ops/merge_join.py`` (int32 keys):
+Counterpart of ``partitionedhashjoin_tpu/ops/merge_join.py``:
 
     order:  one unstable 1-key ``torch.sort`` per relation (the JAX package
             calls ``jax.lax.sort``, an XLA op outside any Pallas kernel)
-    probe:  ``ops/kernels/merge_probe.py`` — the CUDA kernel on the card,
-            its plain PyTorch version on the CPU
+    probe:  ``ops/kernels/merge_probe.py`` — K1 for int32 keys, K3 for
+            int64 keys: the CUDA kernel on the card, its plain PyTorch
+            version on the CPU
 
 Validity masks are supported exactly, by the JAX package's protocol:
 invalid rows are rewritten to INT32_MAX before the sort, the probe searches
@@ -14,9 +15,12 @@ only below the build side's first INT32_MAX key (``exclude_int32_max``), and
 genuine INT32_MAX matches are added back in closed form — sentinel-free over
 the full int32 domain.
 
+int64 keys take ``two_run_count_i64`` and an int64 ``PreparedBuild``; they
+have no validity masks, as in the JAX package.  ``two_run_count`` never
+truncates them: it raises ``TypeError``.
+
 Counts are 0-dim int64 tensors on the keys' device (the JAX package's are
-int32; the counts agree as Python ints).  int64 keys raise ``TypeError``:
-their kernel (the TPU's K3) is not ported yet.
+int32; the counts agree as Python ints).
 """
 
 from __future__ import annotations
@@ -29,20 +33,28 @@ import torch
 from partitionedhashjoin_tpu_torch.ops.kernels import merge_probe
 
 _I32_MAX = merge_probe.INT32_MAX
+_WIDE = (torch.int64, torch.uint64)
 
 
 def _as_i32(name: str, keys: torch.Tensor) -> torch.Tensor:
-    if keys.dtype in (torch.int64, torch.uint64):
+    if keys.dtype in _WIDE:
         # never silently truncate 64-bit keys (distinct keys would collide)
         raise TypeError(
             f"two_run_count is the int32 path ({name} is {keys.dtype}); "
-            "the int64 path is not ported yet"
+            "use two_run_count_i64 for 64-bit keys"
         )
     return keys.to(torch.int32)
 
 
+def _as_i64(name: str, keys: torch.Tensor) -> torch.Tensor:
+    if keys.dtype == torch.uint64:
+        # uint64 keys past INT64_MAX have no int64 value
+        raise TypeError(f"{name} is uint64; int64 keys are supported")
+    return keys.to(torch.int64)
+
+
 def _key_sort(keys: torch.Tensor) -> torch.Tensor:
-    """Unstable ascending 1-key int32 sort."""
+    """Unstable ascending 1-key sort."""
     return torch.sort(keys, stable=False).values
 
 
@@ -67,6 +79,21 @@ def _two_run_count(build_keys, probe_keys, build_valid=None, probe_valid=None):
         return torch.zeros((), dtype=torch.int64, device=build_keys.device)
     a_sorted, max_in_a = _prepare_build_i32(build_keys, build_valid)
     return _probe_prepared_i32(a_sorted, max_in_a, probe_keys, probe_valid)
+
+
+def two_run_count_i64(
+    build_keys: torch.Tensor, probe_keys: torch.Tensor
+) -> torch.Tensor:
+    """Get-semantics match count for int64 keys (the reference's Tuple::id
+    width, src/Common/Table.hpp:20-25): one unstable sort per relation, then
+    K3 over the full int64 domain.  No validity masks."""
+    build_keys = _as_i64("build_keys", build_keys)
+    probe_keys = _as_i64("probe_keys", probe_keys)
+    if build_keys.shape[0] == 0 or probe_keys.shape[0] == 0:
+        return torch.zeros((), dtype=torch.int64, device=build_keys.device)
+    return merge_probe.ranged_merge_count_i64(
+        _key_sort(build_keys), _key_sort(probe_keys)
+    )
 
 
 def sorted_runs_count(a_sorted: torch.Tensor, b_sorted: torch.Tensor) -> torch.Tensor:
@@ -118,26 +145,49 @@ class PreparedBuild:
     """Build once, probe many — the engine analogue of the reference's
     reusable built hash table (src/NoPartitioning/HashJoin.hpp: Build runs
     once at :60-103, Probe is then driven repeatedly).  Holds the sorted
-    build run and the INT32_MAX flag, paid for once; int32 keys only."""
+    build run, paid for once.
+
+    int32 keys also hold the INT32_MAX flag ``max_in_a`` and take validity
+    masks.  int64 keys keep only the sorted run (``max_in_a`` is None), are
+    probed by K3 and raise ``TypeError`` on validity masks, as in the JAX
+    package.
+    """
 
     def __init__(
         self, build_keys: torch.Tensor, build_valid: Optional[torch.Tensor] = None
     ) -> None:
-        keys = _as_i32("build_keys", build_keys)
-        self._n = int(keys.shape[0])
-        self.a_sorted, self.max_in_a = _prepare_build_i32(keys, build_valid)
+        self._n = int(build_keys.shape[0])
+        self._i64 = build_keys.dtype in _WIDE
+        if self._i64:
+            if build_valid is not None:
+                raise TypeError(
+                    "validity masks are int32-path only; rewrite invalid "
+                    "int64 keys before preparing the build"
+                )
+            self.a_sorted = _key_sort(_as_i64("build_keys", build_keys))
+            self.max_in_a = None
+        else:
+            keys = _as_i32("build_keys", build_keys)
+            self.a_sorted, self.max_in_a = _prepare_build_i32(keys, build_valid)
 
     @classmethod
     def from_numpy(cls, a_sorted, max_in_a, device) -> "PreparedBuild":
         """A prepared build from the state of a JAX ``PreparedBuild``:
-        ``np.asarray(pb.a_sorted)`` (ascending int32) and ``pb.max_in_a``."""
+        ``np.asarray(pb.a_sorted)`` (ascending int32 or int64) and
+        ``pb.max_in_a`` (None for int64)."""
         a = np.asarray(a_sorted)
-        if a.dtype != np.int32 or a.ndim != 1:
-            raise TypeError(f"a_sorted must be 1-D int32, got {a.dtype}{a.shape}")
+        if a.dtype not in (np.int32, np.int64) or a.ndim != 1:
+            raise TypeError(
+                f"a_sorted must be 1-D int32 or int64, got {a.dtype}{a.shape}"
+            )
         self = cls.__new__(cls)
         self._n = int(a.shape[0])
+        self._i64 = a.dtype == np.int64
         self.a_sorted = torch.tensor(a, device=device)
-        self.max_in_a = torch.tensor(bool(np.asarray(max_in_a)), device=device)
+        self.max_in_a = (
+            None if self._i64
+            else torch.tensor(bool(np.asarray(max_in_a)), device=device)
+        )
         return self
 
     def count(
@@ -145,7 +195,16 @@ class PreparedBuild:
     ) -> torch.Tensor:
         """Get-semantics match count of this probe against the prepared
         build — no build-side work happens here."""
-        probe_keys = _as_i32("probe_keys", probe_keys)
+        if self._i64:
+            if probe_valid is not None:
+                raise TypeError("validity masks are int32-path only")
+            probe_keys = _as_i64("probe_keys", probe_keys)
+        else:
+            probe_keys = _as_i32("probe_keys", probe_keys)
         if self._n == 0 or probe_keys.shape[0] == 0:
             return torch.zeros((), dtype=torch.int64, device=self.a_sorted.device)
+        if self._i64:
+            return merge_probe.ranged_merge_count_i64(
+                self.a_sorted, _key_sort(probe_keys)
+            )
         return _probe_prepared_i32(self.a_sorted, self.max_in_a, probe_keys, probe_valid)

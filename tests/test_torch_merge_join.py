@@ -110,13 +110,19 @@ def test_empty_sides():
 
 
 def test_int64_keys_raise():
+    """The int32 path never truncates 64-bit keys: two_run_count and an
+    int32 PreparedBuild raise on them (int64 keys take two_run_count_i64 and
+    an int64 PreparedBuild, tests/test_torch_merge_probe_i64.py), as do
+    validity masks on an int64 build and state of other dtypes."""
     k64 = torch.arange(4, dtype=torch.int64)
     k32 = torch.arange(4, dtype=torch.int32)
-    with pytest.raises(TypeError):
+    with pytest.raises(TypeError, match="two_run_count_i64"):
         mj.two_run_count(k64, k32)
-    with pytest.raises(TypeError):
+    with pytest.raises(TypeError, match="two_run_count_i64"):
         mj.two_run_count(k32, k64)
     with pytest.raises(TypeError):
-        mj.PreparedBuild(k64)
+        mj.PreparedBuild(k32).count(k64)
     with pytest.raises(TypeError):
-        mj.PreparedBuild.from_numpy(np.arange(4, dtype=np.int64), False, "cpu")
+        mj.PreparedBuild(k64, torch.ones(4, dtype=torch.bool))
+    with pytest.raises(TypeError):
+        mj.PreparedBuild.from_numpy(np.arange(4, dtype=np.int16), False, "cpu")

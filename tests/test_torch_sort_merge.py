@@ -52,9 +52,12 @@ def test_joiner_partial_matches_equal_jax():
 
 
 def test_count_rejects_other_key_types():
+    """int32 and int64 keys count (a side in int64 widens the other); other
+    key types are never cast."""
     k32 = torch.arange(4, dtype=torch.int32)
+    assert int(SortMergeJoiner.count(k32.to(torch.int64), k32)) == 4
     with pytest.raises(TypeError):
-        SortMergeJoiner.count(k32.to(torch.int64), k32)
+        SortMergeJoiner.count(k32.to(torch.uint64), k32)
     with pytest.raises(TypeError):
         SortMergeJoiner.count(k32, k32.to(torch.float32))
 
@@ -74,18 +77,21 @@ def test_cli_output_schema_matches_jax(capsys):
     assert doc["results"]["partition"] == doc["results"]["build"] == "0"
 
 
+# The four joins other than shuffle are ported, with int64 keys for
+# sort-merge (tests/test_torch_cli.py); what stays unported is the shuffle
+# join and the shuffle / multi-host flags, with any join.
 @pytest.mark.parametrize("extra", [
-    ["--join", "no-partitioning"],
-    ["--join", "radix-partitioning"],
+    ["--join", "no-partitioning", "--shards", "2"],
+    ["--join", "radix-partitioning", "--pipeline-chunks", "2"],
     ["--join", "shuffle"],
-    ["--join", "planned"],
+    ["--join", "planned", "--coordinator", "localhost:1234"],
     ["--join", "sort-merge", "--shards", "2"],
     ["--join", "sort-merge", "--local-join", "hash"],
     ["--join", "sort-merge", "--pipeline-chunks", "2"],
     ["--join", "sort-merge", "--coordinator", "localhost:1234"],
     ["--join", "sort-merge", "--num-processes", "2"],
     ["--join", "sort-merge", "--process-id", "1"],
-    ["--join", "sort-merge", "--key-dtype", "int64"],
+    ["--join", "sort-merge", "--key-dtype", "int64", "--local-join", "hash"],
 ])
 def test_cli_rejects_unported_paths(extra, capsys):
     with pytest.raises(SystemExit) as exc:
