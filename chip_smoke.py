@@ -13,11 +13,16 @@ and raises on the first failure:
 3. parity  — each kernel against its plain PyTorch version on the card,
              exactly, over edge cases and random runs of >= 1M rows:
              K1 (int32 merge-probe count, ``exclude_int32_max`` off and on),
-             K3 (int64 merge-probe count), K2 (fused merge count).  Then each
-             is timed with CUDA events at the main path's shapes (10M ⋈ 200M;
-             the 210M-row merged stream for K2), beside its plain version,
-             ``torch.isin(b, a).sum()`` (the one PyTorch call that computes
-             the K1/K3 count) and the sorts of the main path.
+             K3 (int64 merge-probe count), K2 (fused merge count), K4
+             (merge-probe payload) and K5 (stream compaction: densities 0,
+             0.01, 0.5 and 1, 1 to 6 columns, capacity overflow, ragged
+             lengths).  Then each is timed with CUDA events at the main
+             path's shapes (10M ⋈ 200M; the 210M-row merged stream for K2;
+             the 200M-row pass 2 of the pipeline's GROUP BY for K5, also at
+             ~8M kept rows), beside its plain version, the
+             nearest PyTorch call (``torch.isin(b, a).sum()`` for K1/K3,
+             ``torch.searchsorted`` for K4, ``col[keep]`` for K5) and the
+             sorts of the main path.
 4. library — at 10M ⋈ 200M: ``sort_merge_count`` and ``anti_count`` through
              K2, ``two_run_count_i64`` and an int64 ``PreparedBuild`` through
              K3, each exact.
@@ -28,7 +33,21 @@ and raises on the first failure:
              200,000,000, print the JAX CLI's parameters, and launch its
              kernel.
 
-Kernel launch counts are set to 0 just before each path of phases 4 and 5
+6. query   — at 10M ⋈ 200M with the probe payloads of
+             ``scripts/bench_pipeline.py`` (uniform in [0, 2^20)):
+             ``two_run_materialize`` (all match: keys ascending, pay_a ==
+             key ^ 0x5A17, pay_b sum kept) and again with uniform probe keys
+             over [1, 2·N_A] (half miss: K5 compacts the matches);
+             ``SortMergeJoiner.run_materialize`` inner and anti;
+             ``bench_pipeline.run_query`` for the ordered and the naive plan
+             (equal on every group field, count 200,000,000, groups equal to
+             a ``bincount`` / int64 ``scatter_add`` mod 2^32 oracle, and no
+             more groups than keys the Zipf sampler can reach from float32
+             uniforms); and
+             ``filter_sort_aggregate_staged`` with ``(p & 1) == 0`` against
+             ``filter_sort_aggregate``.  K4 and K5 must launch.
+
+Kernel launch counts are set to 0 just before each path of phases 4 to 6
 and read just after; a kernel's ``launches`` is the sum over the paths that
 run it.  Comparison launches in phase 3 are not counted.  The script prints
 one JSON line describing the kernels and, last, the ``"ok"`` line.  Without a
@@ -58,6 +77,9 @@ I32_MIN = -(2**31)
 I64_MAX = 2**63 - 1
 I64_MIN = -(2**63)
 PKG = "partitionedhashjoin_tpu_torch"
+SALT = 0x5A17
+#: GROUP BY capacity of the pipeline (scripts/bench_pipeline.py)
+GROUP_CAPACITY = 1 << 24
 PALLAS = "partitionedhashjoin_tpu/ops/pallas"
 #: The CLI paths of phase 5: (argv, expected parameters beyond the base set,
 #: kernel counter that must be non-zero or None).
@@ -98,11 +120,12 @@ def phase_device(torch) -> str:
 def phase_build() -> None:
     from partitionedhashjoin_tpu_torch.ops.kernels import (
         _build,
+        compact,
         merge_count,
         merge_probe,
     )
 
-    names = ("merge_probe", "merge_count")
+    names = ("merge_probe", "merge_count", "compact")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:
         paths = list(pool.map(_build.build, names))
@@ -110,6 +133,7 @@ def phase_build() -> None:
         f"{time.perf_counter() - t0:.2f} s (parallel nvcc)")
     merge_probe.load_library()  # loads each and checks its tile size
     merge_count.load_library()
+    compact.load_library()
     for path in paths:
         report = path.with_suffix(".log")
         if report.exists():
@@ -189,6 +213,30 @@ class Parity:
                 f"{want_plain}, oracle {want}"
             )
         log(f"[parity {self.tag}] {name}: {got} ok")
+
+    def check_tensors(self, name, kernel, plain, prefix=None):
+        """Each tensor the kernel returns equals the plain version's
+        exactly; ``prefix(outputs)`` limits the comparison to a leading
+        part of all but the first (where the rest is undefined)."""
+        got, want = kernel(), plain()
+        self.torch.cuda.synchronize()
+        n = None if prefix is None else prefix(want)
+        err = 0
+        for i, (g, w) in enumerate(zip(got, want)):
+            if n is not None and i > 0:
+                g, w = g[:n], w[:n]
+            if g.shape != w.shape:
+                raise AssertionError(
+                    f"[parity {self.tag}] {name}: output {i} has shape "
+                    f"{tuple(g.shape)}, plain {tuple(w.shape)}"
+                )
+            if g.numel():
+                err = max(err, int((g.to(self.torch.int64)
+                                    - w.to(self.torch.int64)).abs().max()))
+        self.max_err = max(self.max_err, err)
+        if err or len(got) != len(want):
+            raise AssertionError(f"[parity {self.tag}] {name}: max error {err}")
+        log(f"[parity {self.tag}] {name}: ok")
 
 
 # ---------------------------------------------------------------- K1 (int32)
@@ -490,24 +538,240 @@ def parity_k2(torch, device):
     }
 
 
+# ---------------------------------------------------------------- K4
+
+
+def parity_k4(torch, device):
+    import numpy as np
+
+    from partitionedhashjoin_tpu_torch.ops.kernels import merge_payload as mpay
+    from partitionedhashjoin_tpu_torch.ops.kernels import merge_probe as mp
+
+    par = Parity(torch, "K4")
+
+    def check(name, a_s, b_s, a_pay=None):
+        if a_pay is None:
+            a_pay = torch.arange(a_s.shape[0], dtype=torch.int32,
+                                 device=device) * 3 + 1
+        for ex in (False, True):
+            par.check_tensors(
+                f"{name} exclude={ex}",
+                lambda: mpay.ranged_merge_payload_prepared(a_s, a_pay, b_s, ex),
+                lambda: mpay.ranged_merge_payload_plain(a_s, a_pay, b_s, ex),
+            )
+
+    # K1's cases: duplicate runs across tiles, INT32_MIN/MAX keys, empty
+    # sides, n_b not a tile multiple
+    for name, a, b in _k1_cases(np, mp.TILE_ROWS):
+        check(name, _sorted_on(torch, a, np.int32, device),
+              _sorted_on(torch, b, np.int32, device))
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 4)
+    a = torch.sort(torch.randint(0, 3_000_000, (1_000_000,), generator=gen,
+                                 dtype=torch.int32, device=device)).values
+    b = torch.sort(torch.randint(-100, 3_000_100, (20_000_000,), generator=gen,
+                                 dtype=torch.int32, device=device)).values
+    check("random_1M_x_20M", a, b)
+    del a, b
+
+    # the main path's shapes: the sorted build of the pipeline and the
+    # sorted 200M Zipf probe
+    a, b = _reference_data(torch, device, torch.int32)
+    a_pay = a ^ SALT
+    b_sorted = torch.sort(b).values
+    del b
+    check(f"main {_shape()}", a, b_sorted, a_pay)
+    kernel_ms, plain_ms = _time_pair(
+        torch,
+        lambda: mpay.ranged_merge_payload_prepared(a, a_pay, b_sorted),
+        lambda: mpay.ranged_merge_payload_plain(a, a_pay, b_sorted),
+    )
+    library_ms = _time_ms(torch, lambda: torch.searchsorted(a, b_sorted), reps=3)
+    log(
+        f"[time K4] {_shape()} sorted int32: kernel {kernel_ms:.4f} ms "
+        f"({N_SECONDARY / (kernel_ms * 1e-3):.4e} probe rows/s), plain "
+        f"{plain_ms:.4f} ms, torch.searchsorted (no hit test, no payload) "
+        f"{library_ms:.4f} ms"
+    )
+    del a, a_pay, b_sorted
+    return {
+        "max_abs_err": par.max_err, "ms": kernel_ms, "plain_ms": plain_ms,
+        # reads a, a_payloads, b once; writes pay and pos
+        "bound_ms": _bound_ms((2 * N_PRIMARY + 3 * N_SECONDARY) * 4),
+        "library_ms": library_ms,
+    }
+
+
+# ---------------------------------------------------------------- K5
+
+
+def _pass2_columns(torch, keys, pay):
+    """The pass-2 inputs of ``aggregate_sorted(payload_sorted=True)`` over
+    the ordered materialized join: the run-start flags and the key,
+    payload, exclusive payload cumsum (int32, wrapping) and previous-payload
+    columns."""
+    from partitionedhashjoin_tpu_torch.ops import aggregate
+
+    is_start = torch.ones_like(keys, dtype=torch.bool)
+    is_start[1:] = keys[1:] != keys[:-1]
+    csx = aggregate._wrap(torch.cumsum(pay, 0, dtype=torch.int64) - pay, torch.int32)
+    maxprev = torch.cat([pay[:1], pay[:-1]])
+    return is_start, [keys, pay, csx, maxprev]
+
+
+def _k5_bytes(n, kept, n_cols):
+    """K5's compulsory bytes: ``keep`` read once, the kept rows of each
+    column read, the kept rows of each column and ``pos`` written."""
+    return n + kept * 4 * n_cols + kept * 4 * (n_cols + 1)
+
+
+def parity_k5(torch, device):
+    from partitionedhashjoin_tpu_torch.ops import merge_join
+    from partitionedhashjoin_tpu_torch.ops.kernels import compact as kc
+
+    par = Parity(torch, "K5")
+
+    def check_rows(name, keep, cols, out_len):
+        """``compact_rows`` as the port's operators call it (any n, no zero
+        fill) against the plain version, up to the kept count."""
+        par.check_tensors(
+            f"{name} compact_rows out_len={out_len}",
+            lambda: kc.compact_rows(keep, cols, out_len, zero_tail=False),
+            lambda: kc.compact_plain(keep, cols, out_len),
+            prefix=lambda want: min(int(want[0]), out_len),
+        )
+
+    def check(name, keep, cols, capacity=None):
+        n = keep.shape[0]
+        par.check_tensors(
+            f"{name} block_compact",
+            lambda: kc.block_compact(keep, *cols),
+            lambda: kc.compact_plain(keep, cols, n + kc.BLK),
+            prefix=lambda want: int(want[0]),  # undefined past the count
+        )
+        got = kc.compact_columns(keep, *cols, capacity=capacity)
+        cap_bound = got[2].shape[0]
+        want = kc.compact_plain(keep, cols, cap_bound)
+        if bool(got[1]) != (int(want[0]) <= cap_bound):
+            raise AssertionError(f"[parity K5] {name}: ok flag {bool(got[1])}")
+        par.check_tensors(f"{name} compact_columns cap={capacity}",
+                          lambda: (got[0],) + tuple(got[2:]), lambda: want)
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 5)
+    n = 128 * kc.BLK  # 1,048,576 rows
+    for density in (0.0, 0.01, 0.5, 1.0):
+        keep = torch.rand(n, generator=gen, device=device) < density
+        for n_cols in range(1, kc.MAX_COLS + 1):
+            cols = [torch.randint(-(2**31), 2**31 - 1, (n,), generator=gen,
+                                  dtype=torch.int32, device=device)
+                    for _ in range(n_cols)]
+            check(f"density {density} cols {n_cols}", keep, cols)
+        # capacity overflow (density 0.5 and 1) and slack (0 and 0.01)
+        check(f"density {density} capacity", keep, cols, capacity=5000)
+        # n not a multiple of BLK or of the kernel's tile, short outputs
+        ragged = n - 3 * kc.BLK - 77
+        for out_len in (ragged, 5001):
+            check_rows(f"density {density} ragged n={ragged}", keep[:ragged],
+                       [c[:ragged] for c in cols], out_len)
+    # kept rows on tile and warp edges
+    keep = torch.zeros(2 * kc.BLK, dtype=torch.bool, device=device)
+    t = kc.TILE_ROWS
+    keep[[0, 31, 32, 255, 256, t - 1, t, t + 1, 2 * t - 1, 2 * kc.BLK - 1]] = True
+    check("tile edges", keep, [torch.arange(2 * kc.BLK, dtype=torch.int32,
+                                            device=device)])
+    del keep, cols
+
+    # the main path's shapes: pass 2 of the ordered pipeline's GROUP BY,
+    # as aggregate_sorted calls K5 (group capacity + 1 outputs, no fill)
+    a_keys, a_pay, b_keys, b_pay = _query_relations(torch, device)
+    keys, _, pb, _ = merge_join.two_run_materialize(
+        a_keys, a_pay, b_keys, b_pay, probe_payload_sorted=True)
+    del a_keys, a_pay, b_keys, b_pay
+    is_start, cols = _pass2_columns(torch, keys, pb)
+    del keys, pb
+    groups = int(is_start.sum())
+    n = is_start.shape[0]
+    out_len = GROUP_CAPACITY + 1
+    check_rows(f"pipeline pass 2 ({groups:,} groups)", is_start, cols, out_len)
+    kernel_ms, plain_ms = _time_pair(
+        torch,
+        lambda: kc.compact_rows(is_start, cols, out_len, zero_tail=False),
+        lambda: kc.compact_plain(is_start, cols, out_len),
+    )
+    library_ms = _time_ms(torch, lambda: cols[0][is_start], reps=3)
+    n_bytes = _k5_bytes(n, groups, len(cols))
+    log(
+        f"[time K5] pass 2, {n:,} rows, {groups:,} groups, {len(cols)} "
+        f"columns: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"col[keep] (one column) {library_ms:.4f} ms; bound "
+        f"{n_bytes:,} B = {_bound_ms(n_bytes):.4f} ms"
+    )
+    # the same columns at ~8M kept rows: the distinct keys an exact
+    # Zipf(1.05) over 10M keys gives in 200M draws, which the float32
+    # sampler does not reach (see _zipf_reach)
+    keep = torch.rand(n, generator=gen, device=device) < 8e6 / n
+    kept = int(keep.sum())
+    check_rows(f"pass-2 columns at {kept:,} kept", keep, cols, out_len)
+    dense_ms, dense_plain_ms = _time_pair(
+        torch,
+        lambda: kc.compact_rows(keep, cols, out_len, zero_tail=False),
+        lambda: kc.compact_plain(keep, cols, out_len),
+    )
+    dense_lib_ms = _time_ms(torch, lambda: cols[0][keep], reps=3)
+    dense_bytes = _k5_bytes(n, kept, len(cols))
+    log(
+        f"[time K5] pass-2 columns, {n:,} rows, {kept:,} kept, {len(cols)} "
+        f"columns: kernel {dense_ms:.4f} ms, plain {dense_plain_ms:.4f} ms, "
+        f"col[keep] (one column) {dense_lib_ms:.4f} ms; bound "
+        f"{dense_bytes:,} B = {_bound_ms(dense_bytes):.4f} ms"
+    )
+    del is_start, cols, keep
+    # the staged filter's compaction: keys and payloads at half density
+    keys = torch.randint(0, N_PRIMARY, (N_SECONDARY,), generator=gen,
+                         dtype=torch.int32, device=device)
+    pay = torch.arange(N_SECONDARY, dtype=torch.int32, device=device)
+    keep = (pay & 1) == 0
+    check_rows("staged filter", keep, [keys, pay], N_SECONDARY)
+    staged_ms, staged_plain_ms = _time_pair(
+        torch,
+        lambda: kc.compact_rows(keep, [keys, pay], N_SECONDARY, zero_tail=False),
+        lambda: kc.compact_plain(keep, [keys, pay], N_SECONDARY),
+    )
+    kept = int(keep.sum())
+    staged_bytes = _k5_bytes(N_SECONDARY, kept, 2)
+    log(f"[time K5] staged filter, {N_SECONDARY:,} rows, {kept:,} kept, 2 "
+        f"columns: kernel {staged_ms:.4f} ms, plain {staged_plain_ms:.4f} ms; "
+        f"bound {staged_bytes:,} B = {_bound_ms(staged_bytes):.4f} ms")
+    del keys, pay, keep
+    return {
+        "max_abs_err": par.max_err, "ms": kernel_ms, "plain_ms": plain_ms,
+        "bound_ms": _bound_ms(n_bytes), "library_ms": library_ms,
+    }
+
+
 # ---------------------------------------------------------------- paths
 
 
 def _counters():
+    from partitionedhashjoin_tpu_torch.ops.kernels import compact as kc
     from partitionedhashjoin_tpu_torch.ops.kernels import merge_count as mc
+    from partitionedhashjoin_tpu_torch.ops.kernels import merge_payload as mpay
     from partitionedhashjoin_tpu_torch.ops.kernels import merge_probe as mp
 
-    return mp, mc
+    return mp, mc, mpay, kc
 
 
 def _reset_counts():
-    mp, mc = _counters()
-    mp.LAUNCHES = mp.LAUNCHES_I64 = mc.LAUNCHES = 0
+    mp, mc, mpay, kc = _counters()
+    mp.LAUNCHES = mp.LAUNCHES_I64 = mc.LAUNCHES = mpay.LAUNCHES = 0
+    kc.LAUNCHES = 0
 
 
 def _read_counts():
-    mp, mc = _counters()
-    return {"k1": mp.LAUNCHES, "k3": mp.LAUNCHES_I64, "k2": mc.LAUNCHES}
+    mp, mc, mpay, kc = _counters()
+    return {"k1": mp.LAUNCHES, "k3": mp.LAUNCHES_I64, "k2": mc.LAUNCHES,
+            "k4": mpay.LAUNCHES, "k5": kc.LAUNCHES}
 
 
 def phase_library(torch, device, launches):
@@ -606,6 +870,187 @@ def phase_main(torch, launches):
         )
 
 
+def _query_relations(torch, device):
+    """The pipeline's relations at 10M ⋈ 200M: build keys 1..N with payload
+    key ^ 0x5A17, Zipf(1.05) probe keys and probe payloads uniform in
+    [0, 2^20), from the seeds of scripts/bench_pipeline.py."""
+    from partitionedhashjoin_tpu_torch import bench_pipeline
+
+    return bench_pipeline.make_relations(N_PRIMARY, N_SECONDARY, device)
+
+
+def _check(name, ok, detail=""):
+    if not ok:
+        raise AssertionError(f"[query] {name}: {detail}")
+
+
+def _wrap_i32(x):
+    return ((x + 2**31) & 0xFFFFFFFF) - 2**31
+
+
+def _group_oracle(torch, b_keys, b_pay):
+    """Per distinct probe key, ascending: (keys, COUNT by bincount, SUM by
+    int64 scatter_add then mod 2^32, MIN, MAX by scatter_reduce)."""
+    counts = torch.bincount(b_keys, minlength=N_PRIMARY + 1)
+    present = counts > 0
+    idx = b_keys.to(torch.int64)
+    size = (N_PRIMARY + 1,)
+    sums = torch.zeros(size, dtype=torch.int64, device=b_keys.device)
+    sums.scatter_add_(0, idx, b_pay.to(torch.int64))
+    mins = torch.full(size, 2**31 - 1, dtype=torch.int32, device=b_keys.device)
+    mins.scatter_reduce_(0, idx, b_pay, "amin")
+    maxs = torch.full(size, -(2**31), dtype=torch.int32, device=b_keys.device)
+    maxs.scatter_reduce_(0, idx, b_pay, "amax")
+    keys = torch.nonzero(present).squeeze(1).to(torch.int32)
+    return {"keys": keys, "count": counts[present].to(torch.int32),
+            "sum": _wrap_i32(sums[present]).to(torch.int32),
+            "min": mins[present], "max": maxs[present]}
+
+
+def _zipf_reach(torch, device):
+    """(keys the Zipf sampler can draw at all, expected distinct keys of an
+    exact Zipf(SKEW) in N_SECONDARY draws): every float32 uniform in
+    [0, 1) through the sampler's inverse CDF, and the float64 law."""
+    from partitionedhashjoin_tpu_torch.ops import generators
+
+    u = torch.arange(1 << 24, dtype=torch.float32, device=device) * 2.0**-24
+    keys, _ = generators.zipf_candidates(u, torch.zeros_like(u), SKEW, N_PRIMARY)
+    reach = int(torch.unique(keys).numel())
+    k = torch.arange(1, N_PRIMARY + 1, dtype=torch.float64, device=device)
+    p = k ** -SKEW
+    p /= p.sum()
+    return reach, float((1 - torch.exp(-N_SECONDARY * p)).sum())
+
+
+def phase_query(torch, device, launches):
+    """The materializing joins and the JOIN → GROUP BY → top-10 pipeline at
+    10M ⋈ 200M; adds each path's K4/K5 launches."""
+    from partitionedhashjoin_tpu_torch import bench_pipeline
+    from partitionedhashjoin_tpu_torch.data.table import make_table
+    from partitionedhashjoin_tpu_torch.ops import aggregate, merge_join
+    from partitionedhashjoin_tpu_torch.ops.sort_merge import SortMergeJoiner
+
+    def run(name, fn, kernels):
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        counts = _read_counts()
+        for k in kernels:
+            _check(name, counts[k] > 0, f"{k} was never launched ({counts})")
+            launches[k] += counts[k]
+        log(f"[query] {name}: {wall_ms:.3f} ms host clock, launches "
+            f"{ {k: counts[k] for k in ('k4', 'k5')} }")
+        return out
+
+    a_keys, a_pay, b_keys, b_pay = _query_relations(torch, device)
+    keys, pa, pb, count = run(
+        "two_run_materialize (all match)",
+        lambda: merge_join.two_run_materialize(a_keys, a_pay, b_keys, b_pay),
+        ("k4",))
+    _check("two_run_materialize", int(count) == N_SECONDARY, f"count {int(count)}")
+    _check("two_run_materialize", bool((keys[1:] >= keys[:-1]).all()),
+           "keys not ascending")
+    _check("two_run_materialize", torch.equal(pa, keys ^ SALT), "pay_a")
+    _check("two_run_materialize",
+           int(pb.sum(dtype=torch.int64)) == int(b_pay.sum(dtype=torch.int64)),
+           "pay_b sum")
+    del keys, pa, pb
+    log(f"[query] two_run_materialize: {int(count):,} rows, keys ascending, "
+        f"pay_a == key ^ 0x5A17, pay_b sum kept: ok")
+
+    # half the probe keys miss: the compaction runs
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 6)
+    b_half = torch.randint(1, 2 * N_PRIMARY + 1, (N_SECONDARY,), generator=gen,
+                           dtype=torch.int32, device=device)
+    keys, pa, pb, count = run(
+        "two_run_materialize (half miss)",
+        lambda: merge_join.two_run_materialize(a_keys, a_pay, b_half, b_pay),
+        ("k4", "k5"))
+    hit = b_half <= N_PRIMARY
+    c = int(count)
+    _check("half miss", c == int(hit.sum()), f"count {c}")
+    _check("half miss", bool((keys[1:c] >= keys[: c - 1]).all())
+           and bool((keys[:c] <= N_PRIMARY).all()), "keys")
+    _check("half miss", torch.equal(pa[:c], keys[:c] ^ SALT), "pay_a")
+    _check("half miss", int(pb.sum(dtype=torch.int64))
+           == int(torch.where(hit, b_pay, 0).sum(dtype=torch.int64)), "pay_b")
+    _check("half miss", not keys[c:].any() and not pa[c:].any()
+           and not pb[c:].any(), "zero tail")
+    log(f"[query] two_run_materialize half miss: {c:,} of {N_SECONDARY:,} "
+        "rows, compacted, zero tail: ok")
+    del keys, pa, pb, b_half, hit
+
+    table_a, table_b = make_table(a_keys, a_pay), make_table(b_keys, b_pay)
+    joined = run("run_materialize inner (probe order)",
+                 lambda: SortMergeJoiner().run_materialize(table_a, table_b), ())
+    _check("run_materialize inner", int(joined.count) == N_SECONDARY
+           and torch.equal(joined.keys, b_keys)
+           and torch.equal(joined.payloads_a, b_keys ^ SALT)
+           and torch.equal(joined.payloads_b, b_pay), "rows")
+    del joined
+    joined = run("run_materialize anti (probe order)",
+                 lambda: SortMergeJoiner().run_materialize(
+                     table_a, table_b, join_type="anti"), ())
+    _check("run_materialize anti", int(joined.count) == 0
+           and not joined.keys.any(), f"count {int(joined.count)}")
+    del joined, table_a, table_b
+    log("[query] run_materialize inner (every probe row, in probe order) and "
+        "anti (none): ok")
+
+    rel = (a_keys, a_pay, b_keys, b_pay)
+    results = {}
+    for plan, ordered in (("ordered", True), ("naive", False)):
+        results[plan] = run(
+            f"pipeline {plan} plan",
+            lambda: bench_pipeline.run_query(*rel, GROUP_CAPACITY, ordered),
+            ("k4", "k5"))
+    (g1, hot1, c1), (g2, hot2, c2) = results.values()
+    _check("pipeline", int(c1) == int(c2) == N_SECONDARY, "counts")
+    _check("pipeline", bench_pipeline.plans_agree(g1, g2)
+           and torch.equal(hot1.keys, hot2.keys), "plans disagree")
+    want = _group_oracle(torch, b_keys, b_pay)
+    groups = want["keys"].shape[0]
+    _check("pipeline", int(g1.num_groups) == groups, f"{int(g1.num_groups)} groups")
+    for f, w in want.items():
+        _check("pipeline", torch.equal(getattr(g1, f)[:groups], w), f"oracle {f}")
+    top = torch.sort(want["count"], descending=True, stable=True).values[:10]
+    _check("pipeline", torch.equal(hot1.keys, top), "top-10 counts")
+    log(f"[query] pipeline: {groups:,} groups; ordered == naive on every "
+        f"field; == bincount / scatter_add mod 2^32 oracle; top-10 counts "
+        f"{hot1.keys.tolist()}")
+    reach, exact = _zipf_reach(torch, device)
+    _check("pipeline", groups <= reach, f"{groups} groups > {reach} keys")
+    log(f"[query] Zipf keys reachable from float32 uniforms: {reach:,}; "
+        f"expected distinct keys of an exact Zipf({SKEW}) in "
+        f"{N_SECONDARY:,} draws: {exact:,.1f}")
+    del results, g1, g2, hot1, hot2, want, rel
+
+    table = make_table(b_keys, torch.arange(N_SECONDARY, dtype=torch.int32,
+                                            device=device))
+    del a_keys, a_pay, b_pay
+
+    def even(k, p):
+        return (p & 1) == 0
+
+    staged, n_staged = run(
+        "filter_sort_aggregate_staged",
+        lambda: aggregate.filter_sort_aggregate_staged(
+            table, even, group_capacity=GROUP_CAPACITY), ("k5",))
+    fused, n_fused = run(
+        "filter_sort_aggregate",
+        lambda: aggregate.filter_sort_aggregate(
+            table, even, group_capacity=GROUP_CAPACITY), ("k5",))
+    _check("staged filter", int(n_staged) == int(n_fused) == N_SECONDARY // 2
+           and bench_pipeline.plans_agree(staged, fused), "staged != fused")
+    log(f"[query] staged filter aggregate == fused: {int(staged.num_groups):,}"
+        f" groups of {int(n_staged):,} rows: ok")
+
+
 def main() -> int:
     import torch
 
@@ -617,15 +1062,20 @@ def main() -> int:
         "merge_probe_count": parity_k1(torch, device),
         "merge_probe_count_i64": parity_k3(torch, device),
         "merge_count_sorted": parity_k2(torch, device),
+        "merge_probe_payload": parity_k4(torch, device),
+        "compact": parity_k5(torch, device),
     }
-    launches = {"k1": 0, "k2": 0, "k3": 0}
+    launches = {"k1": 0, "k2": 0, "k3": 0, "k4": 0, "k5": 0}
     phase_library(torch, device, launches)
     phase_main(torch, launches)
+    phase_query(torch, device, launches)
     described = (
         ("merge_probe_count", "k1", "merge_probe.cu", "merge_probe.py:292"),
         ("merge_probe_count_i64", "k3", "merge_probe.cu",
          "merge_probe.py:674"),
         ("merge_count_sorted", "k2", "merge_count.cu", "merge_count.py:90"),
+        ("merge_probe_payload", "k4", "merge_probe.cu", "merge_probe.py:487"),
+        ("compact", "k5", "compact.cu", "compact.py:131"),
     )
     kernels = []
     for name, key, source, replaces in described:

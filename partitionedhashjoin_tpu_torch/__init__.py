@@ -9,10 +9,16 @@ that each counterpart is easy to find:
 - ``utils.device``: explicit torch device selection and synchronisation.
 - ``data.table``: relations as dataclasses of tensors.
 - ``ops.generators``: the sequential and Zipf relation generators.
-- ``ops.merge_join`` / ``ops.sort_merge``: the two-run count join.
-- ``ops.kernels.merge_probe`` + ``csrc/merge_probe.cu``: the hand-written
-  CUDA merge-probe count kernel, built with nvcc at first use.
-- ``cli``: ``python -m partitionedhashjoin_tpu_torch``.
+- ``ops.merge_join`` / ``ops.sort_merge``: the count joins and the
+  materializing joins; ``ops.no_partitioning``, ``ops.radix_cluster``,
+  ``ops.planner``: the joiners of the CLI.
+- ``ops.aggregate``, ``ops.filter``, ``ops.sort``, ``ops.order_by``: the
+  sort-based GROUP BY and the relational operators.
+- ``ops.kernels`` + ``csrc/``: the hand-written CUDA kernels (K1–K5), each
+  beside its plain PyTorch version, built with nvcc at first use.
+- ``cli``: ``python -m partitionedhashjoin_tpu_torch``;
+  ``bench_pipeline``: the JOIN → GROUP BY → top-10 query;
+  ``profile_joins``: a device-time breakdown of each path.
 
 Importing the package builds no kernel.
 """

@@ -36,6 +36,25 @@
 // or padded.  Nor the int64 kernel's (hi, lo) int32 plane split: Mosaic is
 // 32-bit, CUDA compares 64-bit keys natively.
 //
+// The same file holds the merge-probe payload kernel, replacing
+// merge_probe.py::ranged_merge_payload_prepared and its body
+// _ranged_payload_kernel (K4): for each row i of an ascending int32 probe
+// run b, with lb = lower_bound(a[0, limit), b[i]) over the ascending build
+// run a, a hit is lb < limit && a[lb] == b[i]; then pos[i] = lb + 1 and
+// pay[i] = a_payloads[lb], else both are 0.  The LOWEST matching position
+// wins by construction of the lower bound, also for runs that cross tiles.
+// It shares K1's tiling and search: one block per kTile sorted probe rows,
+// the tile's build range from two searches by thread 0, then one search per
+// row inside the range.  It reads a, a_payloads and b and writes pay and pos
+// (all int32), each thread writing its strided rows, so a warp's stores are
+// coalesced.  What bounds it: bytes (b, pay and pos are 12 of the 12.4
+// bytes per probe row at 10M x 200M), but as for K1 the dependent loads of
+// the search set its time.  Unlike the count, a tile with an empty range
+// still writes its zeros.  Not carried over from the TPU kernel: its work
+// list, lane-transposed tiles, double-buffered DMAs, the "first visit"
+// overlay and the run-start test q > prev_last, all of which exist because
+// Mosaic has no data-dependent loops.
+//
 // C interface for ctypes: each entry returns cudaGetLastError() after the
 // launch, so a refused launch reaches the caller.
 
@@ -145,6 +164,46 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// K4: see the note at the top.  Every probe row of the tile is written.
+__global__ void __launch_bounds__(kThreads)
+    ranged_payload_kernel(const int32_t* __restrict__ a,
+                          const int32_t* __restrict__ a_payloads, int64_t n_a,
+                          const int32_t* __restrict__ b, int64_t n_b,
+                          int exclude_int32_max, int32_t* __restrict__ pay,
+                          int32_t* __restrict__ pos) {
+  __shared__ int64_t range[2];
+
+  const int64_t tile_begin = static_cast<int64_t>(blockIdx.x) * kTile;
+  const int64_t tile_end =
+      tile_begin + kTile < n_b ? tile_begin + kTile : n_b;
+
+  if (threadIdx.x == 0) {
+    const int64_t limit =
+        exclude_int32_max ? lower_bound(a, 0, n_a, kInt32Max) : n_a;
+    const int64_t lo = lower_bound(a, 0, limit, __ldg(b + tile_begin));
+    range[0] = lo;
+    range[1] = upper_bound(a, lo, limit, __ldg(b + tile_end - 1));
+  }
+  __syncthreads();
+  const int64_t lo = range[0];
+  const int64_t hi = range[1];
+
+#pragma unroll 4
+  for (int k = 0; k < kRowsPerThread; ++k) {
+    const int64_t row =
+        tile_begin + static_cast<int64_t>(k) * kThreads + threadIdx.x;
+    if (row < tile_end) {
+      const int32_t q = __ldg(b + row);
+      // the global lower bound of q lies in [lo, hi]: lo and hi bound the
+      // tile's first and last keys
+      const int64_t p = lower_bound(a, lo, hi, q);
+      const bool hit = p < hi && __ldg(a + p) == q;
+      pos[row] = hit ? static_cast<int32_t>(p + 1) : 0;
+      pay[row] = hit ? __ldg(a_payloads + p) : 0;
+    }
+  }
+}
+
 template <typename Key>
 int launch_count(const Key* a, int64_t n_a, const Key* b, int64_t n_b,
                  int exclude_int32_max, unsigned long long* total,
@@ -186,6 +245,28 @@ int phj_merge_probe_count_i64(const int64_t* a, int64_t n_a, const int64_t* b,
   return launch_count<long long>(reinterpret_cast<const long long*>(a), n_a,
                                  reinterpret_cast<const long long*>(b), n_b, 0,
                                  total, stream);
+}
+
+// For each of b's n_b rows, writes pos = 1 + the lowest position of its key
+// in a (0 = miss) and pay = a_payloads at that position (0 = miss); see the
+// note at the top.  a, a_payloads, b, pay and pos are device pointers to
+// int32; a and b ascend; n_a < 2^31 - 1 so that pos fits.  Launches on
+// `stream` and does not synchronise.  Returns cudaGetLastError() (0 = ok).
+int phj_merge_probe_payload(const int32_t* a, const int32_t* a_payloads,
+                            int64_t n_a, const int32_t* b, int64_t n_b,
+                            int exclude_int32_max, int32_t* pay, int32_t* pos,
+                            cudaStream_t stream) {
+  if (n_a <= 0 || n_b <= 0) {
+    return static_cast<int>(cudaSuccess);
+  }
+  const int64_t blocks = (n_b + kTile - 1) / kTile;
+  if (blocks > 0x7fffffffLL || n_a >= 0x7fffffffLL) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  ranged_payload_kernel<<<static_cast<unsigned int>(blocks), kThreads, 0,
+                          stream>>>(a, a_payloads, n_a, b, n_b,
+                                    exclude_int32_max, pay, pos);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

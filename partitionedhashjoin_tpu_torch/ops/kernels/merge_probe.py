@@ -61,6 +61,21 @@ _SIGNATURES = {
         ),
         ctypes.c_int,
     ),
+    # K4, wrapped by ops/kernels/merge_payload.py
+    "phj_merge_probe_payload": (
+        (
+            ctypes.c_void_p,  # a
+            ctypes.c_void_p,  # a_payloads
+            ctypes.c_int64,  # n_a
+            ctypes.c_void_p,  # b
+            ctypes.c_int64,  # n_b
+            ctypes.c_int,  # exclude_int32_max
+            ctypes.c_void_p,  # pay (int32 out)
+            ctypes.c_void_p,  # pos (int32 out)
+            ctypes.c_void_p,  # cudaStream_t
+        ),
+        ctypes.c_int,
+    ),
 }
 
 

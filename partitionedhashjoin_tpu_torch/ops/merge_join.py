@@ -21,6 +21,12 @@ truncates them: it raises ``TypeError``.
 
 Counts are 0-dim int64 tensors on the keys' device (the JAX package's are
 int32; the counts agree as Python ints).
+
+``two_run_materialize`` is the materializing join on the same scheme: two
+value-carrying sorts, then the merge-probe payload kernel K4
+(``ops/kernels/merge_payload.py``) for each sorted probe row's first
+matching build row, and the stream-compaction kernel K5
+(``ops/kernels/compact.py``) when some probe rows miss.
 """
 
 from __future__ import annotations
@@ -30,7 +36,9 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from partitionedhashjoin_tpu_torch.ops.kernels import merge_probe
+from partitionedhashjoin_tpu_torch.ops import sort as sort_ops
+from partitionedhashjoin_tpu_torch.ops.kernels import compact as kcompact
+from partitionedhashjoin_tpu_torch.ops.kernels import merge_payload, merge_probe
 
 _I32_MAX = merge_probe.INT32_MAX
 _WIDE = (torch.int64, torch.uint64)
@@ -208,3 +216,64 @@ class PreparedBuild:
                 self.a_sorted, _key_sort(probe_keys)
             )
         return _probe_prepared_i32(self.a_sorted, self.max_in_a, probe_keys, probe_valid)
+
+
+# ---------------------------------------------------------------------------
+# Materializing kernel join (an engine extension; the reference materializes
+# nothing — src/NoPartitioning/HashJoin.hpp:186 returns an empty table).
+# ---------------------------------------------------------------------------
+
+
+def two_run_materialize(
+    build_keys: torch.Tensor,
+    build_payloads: torch.Tensor,
+    probe_keys: torch.Tensor,
+    probe_payloads: torch.Tensor,
+    probe_payload_sorted: bool = False,
+):
+    """Materialized first-match inner join on the kernel path (int32).
+
+    Returns ``(keys, pay_a, pay_b, count)``: the matching probe rows in
+    sorted-key order, compacted to the front with a zero tail, and their
+    number as a 0-dim int64 tensor.  The build side is sorted stably, so
+    among duplicate build keys the EARLIEST build row wins (the JAX package
+    sorts it unstably: there the winner depends on tie order).  The
+    compaction is skipped when every probe row matches (the count's
+    readback decides); otherwise K5 compacts the matching rows.
+
+    ``probe_payload_sorted=True`` makes the probe payload a second sort key,
+    so ``pay_b`` ascends within each key run — the order
+    ``aggregate_sorted(payload_sorted=True)`` consumes.
+    """
+    for name, t in (
+        ("build_keys", build_keys),
+        ("build_payloads", build_payloads),
+        ("probe_keys", probe_keys),
+        ("probe_payloads", probe_payloads),
+    ):
+        if t.dtype in _WIDE:
+            raise TypeError(
+                f"two_run_materialize is the int32 path ({name} is {t.dtype})"
+            )
+    n_b = probe_keys.shape[0]
+    if build_keys.shape[0] == 0 or n_b == 0:
+        z = torch.zeros((n_b,), dtype=torch.int32, device=probe_keys.device)
+        count = torch.zeros((), dtype=torch.int64, device=probe_keys.device)
+        return z, z.clone(), z.clone(), count
+    # stable: equal keys keep their row order
+    a_keys, a_pay = sort_ops.sort_by_key(
+        build_keys.to(torch.int32), build_payloads.to(torch.int32)
+    )
+    b_keys, b_pay = probe_keys.to(torch.int32), probe_payloads.to(torch.int32)
+    if probe_payload_sorted:
+        _, b_keys, b_pay = sort_ops.sort_by_key_payload(b_keys, b_pay)
+    else:
+        b_keys, b_pay = sort_ops.sort_by_key(b_keys, b_pay)
+    pay_a, pos = merge_payload.ranged_merge_payload_prepared(a_keys, a_pay, b_keys)
+    count = torch.count_nonzero(pos)
+    if int(count) == n_b:  # all-match: no compaction needed
+        return b_keys, pay_a, b_pay, count
+    _, _, keys, pa, pb = kcompact.compact_rows(
+        pos > 0, [b_keys, pay_a, b_pay], n_b
+    )
+    return keys, pa, pb, count

@@ -1,11 +1,16 @@
-"""Where the time goes: a device-time breakdown of each count-join path.
+"""Where the time goes: a device-time breakdown of each join path.
 
 Run on a machine with an NVIDIA GPU, from the repository root:
 
     python -m partitionedhashjoin_tpu_torch.profile_joins
 
 At the reference workload (10M sequential ⋈ 200M Zipf(1.05) keys, seed
-20260816) it runs, for each path, two untimed joins and then five joins
+20260816) it runs, for each count-join path, and for the materializing join
+and the ordered JOIN → GROUP BY → top-10 pipeline over the relations of
+``bench_pipeline`` (its own Zipf seed; build payload key ^ 0x5A17, probe
+payloads uniform in [0, 2^20)), and for the materializing join once more
+with probe keys uniform over [1, 2·N] (half miss: the compaction runs),
+two untimed joins and then five joins
 under ``torch.profiler`` (CPU and CUDA activities).  Per join it prints the
 device time of each kernel (the CUDA events summed by name), the device
 total, the host-clock time (every join ends in a readback of its count) and
@@ -29,9 +34,25 @@ SEED = 20260816
 REPS = 5
 
 
-def _tables(dtype, device):
+def _tables(data, device):
+    """(build, probe) Tables: the reference workload with int32 or int64
+    keys, ("query") the pipeline's relations, or ("half miss") those with
+    probe keys uniform over [1, 2·N_PRIMARY]."""
+    from partitionedhashjoin_tpu_torch import bench_pipeline
+    from partitionedhashjoin_tpu_torch.data.table import make_table
     from partitionedhashjoin_tpu_torch.ops import generators
 
+    if data in ("query", "half miss"):
+        a_keys, a_pay, b_keys, b_pay = bench_pipeline.make_relations(
+            N_PRIMARY, N_SECONDARY, device)
+        if data == "half miss":
+            gen = torch.Generator(device=device)
+            gen.manual_seed(SEED)
+            b_keys = torch.randint(1, 2 * N_PRIMARY + 1, (N_SECONDARY,),
+                                   generator=gen, dtype=torch.int32,
+                                   device=device)
+        return make_table(a_keys, a_pay), make_table(b_keys, b_pay)
+    dtype = torch.int64 if data == "int64" else torch.int32
     a = generators.sequential_table(N_PRIMARY, dtype=dtype, device=device)
     b = generators.zipf_table(N_SECONDARY, SKEW, (1, N_PRIMARY), seed=SEED,
                               dtype=dtype, device=device)
@@ -39,8 +60,9 @@ def _tables(dtype, device):
 
 
 def _paths():
-    """(name, key dtype, join(a, b) -> int) of every count-join path."""
-    from partitionedhashjoin_tpu_torch.ops import sort_merge
+    """(name, relations, join(a, b) -> int) of every path."""
+    from partitionedhashjoin_tpu_torch import bench_pipeline
+    from partitionedhashjoin_tpu_torch.ops import merge_join, sort_merge
     from partitionedhashjoin_tpu_torch.ops.no_partitioning import (
         NoPartitioningHashJoiner,
     )
@@ -50,14 +72,26 @@ def _paths():
     def joiner(cls):
         return lambda a, b: cls().run(a, b)
 
+    def materialize(a, b):
+        return int(merge_join.two_run_materialize(
+            a.keys, a.payloads, b.keys, b.payloads)[3])
+
+    def pipeline(a, b):
+        return int(bench_pipeline.run_query(
+            a.keys, a.payloads, b.keys, b.payloads,
+            bench_pipeline.GROUP_CAPACITY, ordered=True)[2])
+
     return (
-        ("no-partitioning", torch.int32, joiner(NoPartitioningHashJoiner)),
-        ("radix-partitioning", torch.int32, joiner(RadixHashJoiner)),
-        ("planned", torch.int32, joiner(PlannedJoiner)),
-        ("sort-merge", torch.int32, joiner(sort_merge.SortMergeJoiner)),
-        ("sort-merge int64", torch.int64, joiner(sort_merge.SortMergeJoiner)),
-        ("sort_merge_count", torch.int32,
+        ("no-partitioning", "int32", joiner(NoPartitioningHashJoiner)),
+        ("radix-partitioning", "int32", joiner(RadixHashJoiner)),
+        ("planned", "int32", joiner(PlannedJoiner)),
+        ("sort-merge", "int32", joiner(sort_merge.SortMergeJoiner)),
+        ("sort-merge int64", "int64", joiner(sort_merge.SortMergeJoiner)),
+        ("sort_merge_count", "int32",
          lambda a, b: int(sort_merge.sort_merge_count(a.keys, b.keys))),
+        ("two_run_materialize", "query", materialize),
+        ("pipeline (ordered)", "query", pipeline),
+        ("two_run_materialize (half miss)", "half miss", materialize),
     )
 
 
@@ -90,12 +124,12 @@ def main() -> int:
     initialize_logger("error")
     print(torch.cuda.get_device_name(0), flush=True)
     tables = {}
-    for name, dtype, join in _paths():
-        if dtype not in tables:
+    for name, data, join in _paths():
+        if data not in tables:
             tables.clear()
             torch.cuda.empty_cache()
-            tables[dtype] = _tables(dtype, device)
-        by_name, host_us = profile_path(join, *tables[dtype], REPS)
+            tables[data] = _tables(data, device)
+        by_name, host_us = profile_path(join, *tables[data], REPS)
         device_us = sum(by_name.values())
         print(f"== {name}: device {device_us / 1e3:.4f} ms, host "
               f"{host_us / 1e3:.4f} ms, idle share "

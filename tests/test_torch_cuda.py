@@ -12,9 +12,11 @@ import pytest
 import torch
 
 from partitionedhashjoin_tpu_torch.config import RadixClusteringConfiguration
-from partitionedhashjoin_tpu_torch.data.table import table_from_numpy
-from partitionedhashjoin_tpu_torch.ops import merge_join, sort_merge
+from partitionedhashjoin_tpu_torch.data.table import make_table, table_from_numpy
+from partitionedhashjoin_tpu_torch.ops import aggregate, merge_join, sort_merge
+from partitionedhashjoin_tpu_torch.ops.kernels import compact as kc
 from partitionedhashjoin_tpu_torch.ops.kernels import merge_count as mc
+from partitionedhashjoin_tpu_torch.ops.kernels import merge_payload as mpay
 from partitionedhashjoin_tpu_torch.ops.kernels import merge_probe as mp
 from partitionedhashjoin_tpu_torch.ops.no_partitioning import (
     NoPartitioningHashJoiner,
@@ -237,3 +239,172 @@ def test_joiners_on_card(cuda, key_dtype):
     # each of the three probes through the kernel (the build has gaps, so
     # the planner takes its kernel plan)
     assert grew == ((3, 0) if key_dtype == np.int32 else (0, 3))
+
+
+# ---------------------------------------------------------------- K4
+
+
+@pytest.mark.parametrize("exclude", [False, True])
+@pytest.mark.parametrize("case", sorted(_cases()))
+def test_payload_kernel_matches_plain(cuda, case, exclude):
+    """K4 on K1's cases (duplicate runs across tiles, INT32_MIN/MAX, empty
+    sides, ragged n_b), with build payloads that differ per row."""
+    a, b = (
+        torch.sort(torch.tensor(np.asarray(x, np.int32), device=cuda)).values
+        for x in _cases()[case]
+    )
+    a_pay = (torch.arange(a.numel(), device=cuda, dtype=torch.int32) * 3 + 1)
+    before = mpay.LAUNCHES
+    pay, pos = mpay.ranged_merge_payload_prepared(a, a_pay, b, exclude)
+    want_pay, want_pos = mpay.ranged_merge_payload_plain(a, a_pay, b, exclude)
+    torch.cuda.synchronize()
+    assert pay.device == a.device and pay.dtype == pos.dtype == torch.int32
+    assert torch.equal(pos, want_pos) and torch.equal(pay, want_pay)
+    assert mpay.LAUNCHES == before + (1 if a.numel() and b.numel() else 0)
+
+
+def test_payload_wrapper_rejects_bad_inputs(cuda):
+    a = torch.arange(10, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):  # mixed devices
+        mpay.ranged_merge_payload_prepared(a, a.cpu(), a)
+    with pytest.raises(TypeError):  # dtype
+        mpay.ranged_merge_payload_prepared(a.long(), a, a)
+    with pytest.raises(TypeError):  # rank
+        mpay.ranged_merge_payload_prepared(a.view(2, 5), a, a)
+    with pytest.raises(ValueError):  # contiguity
+        mpay.ranged_merge_payload_prepared(a, a, torch.arange(20, dtype=torch.int32, device=cuda)[::2])
+    with pytest.raises(ValueError):  # payloads do not match the build
+        mpay.ranged_merge_payload_prepared(a, a[:5], a)
+
+
+def test_two_run_materialize_on_card_matches_cpu(cuda):
+    rng = np.random.default_rng(47)
+    a = rng.permutation(np.arange(0, 40000, 2)).astype(np.int32)
+    b = rng.integers(0, 40000, 300000).astype(np.int32)
+    a_pay = rng.integers(0, 1000, a.size).astype(np.int32)
+    b_pay = rng.integers(0, 1000, b.size).astype(np.int32)
+    for payload_sorted in (False, True):
+        cpu = merge_join.two_run_materialize(
+            *map(torch.from_numpy, (a, a_pay, b, b_pay)),
+            probe_payload_sorted=payload_sorted)
+        before, before_k5 = mpay.LAUNCHES, kc.LAUNCHES
+        gpu = merge_join.two_run_materialize(
+            *(torch.from_numpy(x).to(cuda) for x in (a, a_pay, b, b_pay)),
+            probe_payload_sorted=payload_sorted)
+        assert mpay.LAUNCHES == before + 1
+        assert kc.LAUNCHES == before_k5 + 1  # half the probe rows miss
+        for g, c in zip(gpu, cpu):
+            assert g.device.type == "cuda" and torch.equal(g.cpu(), c)
+
+
+# ---------------------------------------------------------------- K5
+
+
+@pytest.mark.parametrize("n_cols", [0, 1, 6])
+@pytest.mark.parametrize("density", [0.0, 0.01, 0.5, 1.0])
+def test_compact_kernel_matches_plain(cuda, density, n_cols):
+    n = 5 * kc.BLK
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(int(density * 100) + n_cols)
+    keep = torch.rand(n, generator=gen, device=cuda) < density
+    cols = [torch.randint(-(2**31), 2**31 - 1, (n,), generator=gen,
+                          device=cuda, dtype=torch.int32) for _ in range(n_cols)]
+    before = kc.LAUNCHES
+    total, pos, *outs = kc.block_compact(keep, *cols)
+    want_total, want_pos, *want_outs = kc.compact_plain(keep, cols, n + kc.BLK)
+    torch.cuda.synchronize()
+    c = int(want_total)
+    assert int(total) == c and pos.shape == (n + kc.BLK,)
+    assert torch.equal(pos[:c], want_pos[:c])
+    for o, w in zip(outs, want_outs):
+        assert torch.equal(o[:c], w[:c])
+    for capacity in (None, 1000):
+        got = kc.compact_columns(keep, *cols, capacity=capacity)
+        count, ok, *rest = got
+        cap_bound = rest[0].shape[0]
+        want = kc.compact_plain(keep, cols, cap_bound)
+        assert int(count) == c and bool(ok) == (c <= cap_bound)
+        for o, w in zip(rest, want[1:]):
+            assert torch.equal(o, w)  # the zero tail too
+    assert kc.LAUNCHES == before + 3
+
+
+@pytest.mark.parametrize("zero_tail", [True, False])
+@pytest.mark.parametrize("n,out_len", [
+    (3 * kc.TILE_ROWS + 77, 3 * kc.TILE_ROWS + 77), (3 * kc.TILE_ROWS + 77, 999),
+    (5000, 9000), (0, 3),
+])
+def test_compact_rows_any_length_on_card(cuda, n, out_len, zero_tail):
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(n + out_len)
+    keep = torch.rand(n, generator=gen, device=cuda) < 0.4
+    cols = [torch.randint(-(2**31), 2**31 - 1, (n,), generator=gen,
+                          device=cuda, dtype=torch.int32) for _ in range(3)]
+    before = kc.LAUNCHES
+    got = kc.compact_rows(keep, cols, out_len, zero_tail=zero_tail)
+    want = kc.compact_plain(keep, cols, out_len)
+    assert kc.LAUNCHES == before + (1 if n else 0)
+    live = min(int(want[0]), out_len)
+    assert int(got[0]) == int(want[0])
+    for g, w in zip(got[1:], want[1:]):
+        assert g.shape == (out_len,)
+        assert torch.equal(g if zero_tail else g[:live], w if zero_tail else w[:live])
+
+
+def test_compact_kernel_tile_edges_and_int32_extremes(cuda):
+    n = 2 * kc.BLK
+    keep = torch.zeros(n, dtype=torch.bool, device=cuda)
+    t = kc.TILE_ROWS
+    rows = [0, 31, 32, 255, 256, t - 1, t, t + 1, 2 * t - 1, n - 1]
+    keep[rows] = True
+    col = torch.arange(n, dtype=torch.int32, device=cuda)
+    col[::2] = -(2**31)
+    col[1::4] = 2**31 - 1
+    count, ok, pos, out = kc.compact_columns(keep, col)
+    assert int(count) == len(rows) and bool(ok)
+    assert pos[: len(rows)].tolist() == rows
+    assert torch.equal(out[: len(rows)], col[rows])
+    assert not out[len(rows):].any() and not pos[len(rows):].any()
+
+
+def test_compact_wrapper_rejects_bad_inputs(cuda):
+    keep = torch.ones(kc.BLK, dtype=torch.bool, device=cuda)
+    col = torch.zeros(kc.BLK, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):  # mixed devices
+        kc.block_compact(keep, col.cpu())
+    with pytest.raises(TypeError):  # dtype
+        kc.block_compact(keep, col.long())
+    with pytest.raises(TypeError):  # rank
+        kc.block_compact(keep.view(2, -1), col.view(2, -1))
+    with pytest.raises(ValueError):  # contiguity
+        kc.block_compact(keep, torch.zeros(2 * kc.BLK, dtype=torch.int32, device=cuda)[::2])
+    with pytest.raises(ValueError):  # too many columns
+        kc.block_compact(keep, *([col] * (kc.MAX_COLS + 1)))
+
+
+def test_aggregates_on_card_match_cpu(cuda):
+    rng = np.random.default_rng(53)
+    keys = rng.integers(0, 5000, 200000).astype(np.int32)
+    pay = rng.integers(-(2**31), 2**31, 200000, dtype=np.int64).astype(np.int32)
+    cpu_t = make_table(torch.from_numpy(keys), torch.from_numpy(pay))
+    gpu_t = make_table(cpu_t.keys.to(cuda), cpu_t.payloads.to(cuda))
+
+    def even(k, p):
+        return (p & 1) == 0
+
+    calls = (
+        lambda t: aggregate.sort_aggregate(t, group_capacity=4000,
+                                           with_distinct=True),
+        lambda t: aggregate.filter_sort_aggregate(t, even, group_capacity=6000)[0],
+        lambda t: aggregate.filter_sort_aggregate_staged(t, even)[0],
+    )
+    for call in calls:
+        before = kc.LAUNCHES
+        got, want = call(gpu_t), call(cpu_t)
+        assert kc.LAUNCHES > before  # "auto" takes K5 on the card
+        assert int(got.num_groups) == int(want.num_groups)
+        for f in ("keys", "count", "sum", "min", "max", "distinct"):
+            g, w = getattr(got, f), getattr(want, f)
+            assert (g is None) == (w is None)
+            if g is not None:
+                assert torch.equal(g.cpu(), w), f
