@@ -22,7 +22,17 @@ and raises on the first failure:
              ~8M kept rows), beside its plain version, the
              nearest PyTorch call (``torch.isin(b, a).sum()`` for K1/K3,
              ``torch.searchsorted`` for K4, ``col[keep]`` for K5) and the
-             sorts of the main path.
+             sorts of the main path.  Then K6 (the tuple sort: phase A K6a,
+             merge pass K6b and the full sort, 1 to 4 operands, edge cases,
+             random runs of >= 1M rows and runs of equal tuples longer than
+             a tile and a run, exactly), K7 (the seeded hash, bitwise) and
+             K8 (the Zipf sampler: its uniforms bit for bit, at most 1e-4 of
+             its keys off by at most 2), each timed at 200M rows beside its
+             plain version, its bound and the library call where one exists
+             (``torch.sort`` for a 1-operand sort, the packed int64
+             ``sort_by_key_payload`` for 2 operands, the batched
+             ``torch.sort(..., dim=1)`` over one row per block for K6a and
+             per pair of runs for K6b, each also checked equal to them).
 4. library — at 10M ⋈ 200M: ``sort_merge_count`` and ``anti_count`` through
              K2, ``two_run_count_i64`` and an int64 ``PreparedBuild`` through
              K3, each exact.
@@ -46,8 +56,20 @@ and raises on the first failure:
              uniforms); and
              ``filter_sort_aggregate_staged`` with ``(p & 1) == 0`` against
              ``filter_sort_aggregate``.  K4 and K5 must launch.
+7. sorter  — ``merge_join.set_sort_impl("pallas")`` (restored to "xla"
+             after): ``cli.main`` for no-partitioning, radix-partitioning,
+             sort-merge and sort-merge int64 (each 200,000,000 and K6 plus
+             K1 or K3 launched), ``two_run_materialize`` (equal to the
+             "xla" run on keys, pay_a and the pay_b sum) and both query
+             plans (equal to the "xla" plans and to the oracle).
+8. generate — ``hash_keys`` over the 200M probe keys (K7);
+             ``zipf_keys_pallas`` draws 200M Zipf(1.05) keys over [1, 10M]
+             on the card (K8), ``two_run_count`` against the 10M sequential
+             build counts exactly 200,000,000; the TV distance of the 1,000
+             hottest keys' frequencies from the exact pmf and the distinct
+             keys reached are printed.
 
-Kernel launch counts are set to 0 just before each path of phases 4 to 6
+Kernel launch counts are set to 0 just before each path of phases 4 to 8
 and read just after; a kernel's ``launches`` is the sum over the paths that
 run it.  Comparison launches in phase 3 are not counted.  The script prints
 one JSON line describing the kernels and, last, the ``"ok"`` line.  Without a
@@ -58,6 +80,7 @@ result.
 from __future__ import annotations
 
 import contextlib
+import functools
 import io
 import json
 import logging
@@ -72,6 +95,15 @@ SKEW = 1.05
 SEED = 20260816
 #: The H100 SXM's device-memory rate (NVIDIA data sheet), for the bounds.
 HBM_BYTES_PER_S = 3.35e12
+#: The H100 SXM's float32 rate outside the tensor cores (NVIDIA data sheet),
+#: for K8's operations bound; its int32 operations are counted at the same
+#: rate, which is at least H100's int32 rate, so the bound stays a least time.
+OPS_PER_S = 67e12
+#: K8's operations per sampling round: Philox4x32-10 (10 rounds of 2
+#: mul.lo, 2 mul.hi and 4 xor, 9 key bumps of 2 adds: 98), three uniforms
+#: (shift, or, subtract: 9) and zipf_candidates (15 float operations and 3
+#: powf, each counted as one: 18).
+K8_OPS_PER_ROUND = 98 + 9 + 18
 I32_MAX = 2**31 - 1
 I32_MIN = -(2**31)
 I64_MAX = 2**63 - 1
@@ -92,6 +124,9 @@ MAIN_RUNS = (
     (["--join", "sort-merge", "--key-dtype", "int64"],
      {"Type": "SortMerge"}, "k3"),
 )
+#: The CLI paths of phase 7, under the sorter switch's "pallas" (planned
+#: sorts no probe relation).
+SORTER_RUNS = tuple(run for run in MAIN_RUNS if run[2] is not None)
 
 
 def log(msg: str) -> None:
@@ -120,12 +155,14 @@ def phase_device(torch) -> str:
 def phase_build() -> None:
     from partitionedhashjoin_tpu_torch.ops.kernels import (
         _build,
+        bitonic_sort,
         compact,
+        generate,
         merge_count,
         merge_probe,
     )
 
-    names = ("merge_probe", "merge_count", "compact")
+    names = ("merge_probe", "merge_count", "compact", "bitonic_sort", "generate")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:
         paths = list(pool.map(_build.build, names))
@@ -134,6 +171,8 @@ def phase_build() -> None:
     merge_probe.load_library()  # loads each and checks its tile size
     merge_count.load_library()
     compact.load_library()
+    bitonic_sort.load_library()
+    generate.load_library()
     for path in paths:
         report = path.with_suffix(".log")
         if report.exists():
@@ -750,28 +789,253 @@ def parity_k5(torch, device):
     }
 
 
+# ---------------------------------------------------------------- K6
+
+
+def _tuple_operands(torch, device, gen, k, n, narrow=True):
+    """k int32 operands of n rows: leading ones narrow (so ties carry down
+    to the last), the last over the full domain, all-MAX rows beside the
+    padding."""
+    cols = [torch.randint(-3, 3, (n,), generator=gen, dtype=torch.int32,
+                          device=device) for _ in range(k - 1 if narrow else 0)]
+    while len(cols) < k:
+        cols.append(torch.randint(I32_MIN, I32_MAX, (n,), generator=gen,
+                                  dtype=torch.int32, device=device))
+    for c in cols:
+        c[::31] = I32_MAX
+    return cols
+
+
+def parity_k6(torch, device):
+    """K6a, K6b and the full sort against their plain versions at 1 to 4
+    operands; then times at 200M rows (and 10M at k = 1)."""
+    from partitionedhashjoin_tpu_torch.ops import sort as sort_ops
+    from partitionedhashjoin_tpu_torch.ops.kernels import bitonic_sort as bs
+
+    blk = bs.BLK
+    # the full sort runs both kernels: its errors count for both
+    par_a, par_b, par = (Parity(torch, t) for t in ("K6a", "K6b", "K6"))
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 6)
+    for k in range(1, bs.MAX_OPERANDS + 1):
+        for n in (0, 1, 100, blk, blk + 1, 3 * blk - 5, 5 * blk + 17, 1_000_003):
+            cols = _tuple_operands(torch, device, gen, k, n)
+            par.check_tensors(f"sort k={k} n={n}",
+                              lambda: bs.sort_i32_tuple(*cols),
+                              lambda: bs.sort_i32_tuple_plain(*cols))
+        # one tuple covers 90% of 2M rows: its run is longer than a tile and
+        # than every run of every pass
+        n = 2_000_003
+        hot = torch.rand(n, generator=gen, device=device) < 0.9
+        cols = [torch.where(hot, 7, c) for c in
+                _tuple_operands(torch, device, gen, k, n, narrow=False)]
+        par.check_tensors(f"sort k={k} 90% one tuple, n={n}",
+                          lambda: bs.sort_i32_tuple(*cols),
+                          lambda: bs.sort_i32_tuple_plain(*cols))
+        n = 128 * blk
+        cols = _tuple_operands(torch, device, gen, k, n)
+        par_a.check_tensors(f"sort_blocks k={k} n={n}",
+                            lambda: bs.sort_blocks_tuple(*cols),
+                            lambda: bs.sort_blocks_plain(*cols))
+        # runs of 1 and 4 blocks, and of 3 blocks (lone and truncated runs)
+        for run in (blk, 4 * blk, 3 * blk):
+            src = [c.contiguous() for c in bs._segment_sort_plain(cols, run)]
+            par_b.check_tensors(f"merge_pass k={k} run={run}",
+                                lambda: bs.merge_pass_tuple(*src, run_len=run),
+                                lambda: bs.merge_pass_plain(*src, run_len=run))
+        del cols, src, hot
+
+    def timed(name, operands, library=None, reps=3):
+        sort_ms, plain_ms = _time_pair(
+            torch, lambda: bs.sort_i32_tuple(*operands),
+            lambda: bs.sort_i32_tuple_plain(*operands), rounds=2, reps=reps)
+        lib_ms = None if library is None else _time_ms(torch, library, reps=reps)
+        n, k = operands[0].shape[0], len(operands)
+        bound = _bound_ms(n * 4 * k * 2)
+        log(f"[time K6] sort_i32_tuple {name}, {n:,} rows, k={k}: kernel "
+            f"{sort_ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+            f"{'—' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
+            f"{bound:.4f} ms ({sort_ms / bound:.1f}x); K6's own traffic "
+            f"(phase A + {(-(-n // blk) - 1).bit_length()} passes) at peak "
+            f"{_bound_ms(n * 4 * k * 2 * (1 + (-(-n // blk) - 1).bit_length())):.4f} ms")
+
+    x = torch.randint(I32_MIN, I32_MAX, (N_SECONDARY,), generator=gen,
+                      dtype=torch.int32, device=device)
+    timed("int32 keys", [x], lambda: torch.sort(x).values)
+    timed("int32 keys (10M)", [x[:N_PRIMARY]],
+          lambda: torch.sort(x[:N_PRIMARY]).values, reps=5)
+    pay = torch.randint(0, 1 << 20, (N_SECONDARY,), generator=gen,
+                        dtype=torch.int32, device=device)
+    timed("(key, payload)", [x, pay],
+          lambda: sort_ops.sort_by_key_payload(x, pay))
+    inv = torch.zeros_like(x)
+    timed("(invalid flag, key, payload): masked GROUP BY pass 1", [inv, x, pay])
+    del inv, pay
+
+    # the phases alone at k = 1 over whole blocks
+    n = N_SECONDARY // blk * blk
+    xb = x[:n]
+    del x
+    a_ms, a_plain_ms = _time_pair(torch, lambda: bs.sort_blocks_tuple(xb),
+                                  lambda: bs.sort_blocks_plain(xb), rounds=2, reps=3)
+    blocks = bs.sort_blocks_tuple(xb)[0]
+    b_ms, b_plain_ms = _time_pair(
+        torch, lambda: bs.merge_pass_tuple(blocks, run_len=blk),
+        lambda: bs.merge_pass_plain(blocks, run_len=blk), rounds=2, reps=3)
+    # the library's batched segmented sort: one row per block, and one row
+    # per pair of runs (n holds an even number of blocks)
+    pairs = blocks[: n // (2 * blk) * 2 * blk]
+
+    def sort_rows(t, width):
+        return torch.sort(t.view(-1, width), dim=1).values
+
+    a_lib_ms = _time_ms(torch, lambda: sort_rows(xb, blk), reps=3)
+    b_lib_ms = _time_ms(torch, lambda: sort_rows(pairs, 2 * blk), reps=3)
+    par_a.check_tensors(f"sort_blocks {n:,} rows == torch.sort per block",
+                        lambda: [blocks], lambda: [sort_rows(xb, blk).view(-1)])
+    par_b.check_tensors(
+        f"merge_pass {pairs.shape[0]:,} rows == torch.sort per run pair",
+        lambda: [bs.merge_pass_tuple(pairs, run_len=blk)[0]],
+        lambda: [sort_rows(pairs, 2 * blk).view(-1)])
+    bound = _bound_ms(n * 4 * 2)
+    log(f"[time K6a] sort_blocks, {n:,} rows, k=1: kernel {a_ms:.4f} ms, plain "
+        f"{a_plain_ms:.4f} ms, torch.sort(dim=1) over {blk}-row rows "
+        f"{a_lib_ms:.4f} ms, bound {bound:.4f} ms")
+    log(f"[time K6b] one merge pass (runs of {blk}), {n:,} rows, k=1: kernel "
+        f"{b_ms:.4f} ms, plain {b_plain_ms:.4f} ms, torch.sort(dim=1) over "
+        f"{2 * blk}-row rows {b_lib_ms:.4f} ms, bound {bound:.4f} ms")
+    del xb, blocks, pairs
+    return (
+        {"max_abs_err": max(par_a.max_err, par.max_err), "ms": a_ms,
+         "plain_ms": a_plain_ms, "bound_ms": bound, "library_ms": a_lib_ms},
+        {"max_abs_err": max(par_b.max_err, par.max_err), "ms": b_ms,
+         "plain_ms": b_plain_ms, "bound_ms": bound, "library_ms": b_lib_ms},
+    )
+
+
+# ---------------------------------------------------------------- K7, K8
+
+
+def parity_k7(torch, device):
+    """K7 against ``hashing.hash32`` bitwise; timed over the 200M probe keys
+    of the main path."""
+    import numpy as np
+
+    from partitionedhashjoin_tpu_torch.ops import hashing
+    from partitionedhashjoin_tpu_torch.ops.kernels import generate as kg
+
+    par = Parity(torch, "K7")
+    rng = np.random.default_rng(SEED + 7)
+    keys = rng.integers(I32_MIN, I32_MAX, 1_000_003, dtype=np.int64)
+    keys[:4] = [I32_MIN, -1, 0, I32_MAX]
+    keys = torch.tensor(keys.astype(np.int32), device=device)
+    for seed in (0, 42, 0x9E3779B9, 2**32 - 1):
+        for name, view in (("aligned", keys), ("unaligned", keys[1:]),
+                           ("tiny", keys[:3]), ("empty", keys[:0])):
+            # uint32 compared through its int32 bit pattern
+            par.check_tensors(f"hash_keys seed={seed} {name}",
+                              lambda: [kg.hash_keys(view, seed).view(torch.int32)],
+                              lambda: [hashing.hash32(view, seed).view(torch.int32)])
+    _, b = _reference_data(torch, device, torch.int32)
+    par.check_tensors(f"hash_keys {N_SECONDARY:,} probe keys",
+                      lambda: [kg.hash_keys(b, SEED).view(torch.int32)],
+                      lambda: [hashing.hash32(b, SEED).view(torch.int32)])
+    kernel_ms, plain_ms = _time_pair(torch, lambda: kg.hash_keys(b, SEED),
+                                     lambda: hashing.hash32(b, SEED))
+    bound = _bound_ms(N_SECONDARY * 8)
+    log(f"[time K7] hash_keys, {N_SECONDARY:,} keys: kernel {kernel_ms:.4f} ms "
+        f"({bound / kernel_ms:.1%} of the bound {bound:.4f} ms), plain "
+        f"{plain_ms:.4f} ms")
+    del b
+    return {"max_abs_err": par.max_err, "ms": kernel_ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "library_ms": None}
+
+
+def parity_k8(torch, device):
+    """K8's uniforms against the plain Philox bit for bit; its keys against
+    the plain version (at most 1e-4 differ, each by at most 2), at 4M and at
+    the main path's 200M keys over [1, 10M]; timed at 200M."""
+    from partitionedhashjoin_tpu_torch.ops import generators
+    from partitionedhashjoin_tpu_torch.ops.kernels import generate as kg
+
+    par = Parity(torch, "K8")
+    n = 4_000_000
+    for r in (0, 3, 15):
+        par.check_tensors(f"uniforms round {r}, {n:,} slots",
+                          lambda: kg.philox_uniforms(SEED, n, r, device=device),
+                          lambda: kg.philox_uniforms_plain(
+                              SEED, torch.arange(n, device=device), r))
+
+    def keys_within(name, n, card):
+        got = kg.zipf_keys_pallas(SEED, n, SKEW, card, device=device)
+        want = kg.zipf_keys_plain(SEED, n, SKEW, card, device=device)
+        torch.cuda.synchronize()
+        differ = int((got != want).sum())
+        err = int((got - want).abs().max())
+        par.max_err = max(par.max_err, err)
+        if differ > n * 1e-4 or err > 2 or int(got.min()) < 1 or int(got.max()) > card:
+            raise AssertionError(f"[parity K8] {name}: {differ} keys differ, "
+                                 f"by at most {err}")
+        log(f"[parity K8] {name}: {differ} of {n:,} keys differ from the plain "
+            f"version, by at most {err}: ok")
+
+    for card in (500, N_PRIMARY, 100_000_000):
+        keys_within(f"card {card:,}", n, card)
+    keys_within(f"main {N_SECONDARY:,} keys over [1, {N_PRIMARY:,}]",
+                N_SECONDARY, N_PRIMARY)
+    kernel_ms = _time_ms(torch, lambda: kg.zipf_keys_pallas(
+        SEED, N_SECONDARY, SKEW, N_PRIMARY, device=device), reps=5)
+    plain_ms = _time_ms(torch, lambda: kg.zipf_keys_plain(
+        SEED, N_SECONDARY, SKEW, N_PRIMARY, device=device), reps=1)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED)
+    context_ms = _time_ms(torch, lambda: generators.zipf_keys(
+        N_SECONDARY, SKEW, N_PRIMARY, gen, device), reps=1)
+    # rounds this run's data draws: each round accepts with the rate of
+    # round 0 (the rounds are independent draws)
+    u1, u2, u3 = kg.philox_uniforms(SEED, n, 0, device=device)
+    _, ok = generators.zipf_candidates(u1, u2, SKEW, N_PRIMARY, u3=u3)
+    p = float(ok.float().mean())
+    rounds = (1 - (1 - p) ** 16) / p
+    ops = N_SECONDARY * rounds * K8_OPS_PER_ROUND
+    bound = max(_bound_ms(N_SECONDARY * 4), ops / OPS_PER_S * 1e3)
+    log(f"[time K8] zipf_keys_pallas, {N_SECONDARY:,} keys over [1, "
+        f"{N_PRIMARY:,}]: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"generators.zipf_keys (context, not the same function) "
+        f"{context_ms:.4f} ms; acceptance {p:.6f}, {rounds:.6f} rounds per "
+        f"key, {ops:.4e} operations -> {ops / OPS_PER_S * 1e3:.4f} ms, "
+        f"writes {_bound_ms(N_SECONDARY * 4):.4f} ms: bound {bound:.4f} ms")
+    return {"max_abs_err": par.max_err, "ms": kernel_ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "library_ms": None}
+
+
 # ---------------------------------------------------------------- paths
 
 
 def _counters():
+    from partitionedhashjoin_tpu_torch.ops.kernels import bitonic_sort as bs
     from partitionedhashjoin_tpu_torch.ops.kernels import compact as kc
+    from partitionedhashjoin_tpu_torch.ops.kernels import generate as kg
     from partitionedhashjoin_tpu_torch.ops.kernels import merge_count as mc
     from partitionedhashjoin_tpu_torch.ops.kernels import merge_payload as mpay
     from partitionedhashjoin_tpu_torch.ops.kernels import merge_probe as mp
 
-    return mp, mc, mpay, kc
+    return mp, mc, mpay, kc, bs, kg
 
 
 def _reset_counts():
-    mp, mc, mpay, kc = _counters()
+    mp, mc, mpay, kc, bs, kg = _counters()
     mp.LAUNCHES = mp.LAUNCHES_I64 = mc.LAUNCHES = mpay.LAUNCHES = 0
-    kc.LAUNCHES = 0
+    kc.LAUNCHES = bs.LAUNCHES_BLOCKS = bs.LAUNCHES_MERGE = 0
+    kg.LAUNCHES_HASH = kg.LAUNCHES_ZIPF = kg.LAUNCHES_UNIFORMS = 0
 
 
 def _read_counts():
-    mp, mc, mpay, kc = _counters()
+    mp, mc, mpay, kc, bs, kg = _counters()
     return {"k1": mp.LAUNCHES, "k3": mp.LAUNCHES_I64, "k2": mc.LAUNCHES,
-            "k4": mpay.LAUNCHES, "k5": kc.LAUNCHES}
+            "k4": mpay.LAUNCHES, "k5": kc.LAUNCHES,
+            "k6a": bs.LAUNCHES_BLOCKS, "k6b": bs.LAUNCHES_MERGE,
+            "k7": kg.LAUNCHES_HASH, "k8": kg.LAUNCHES_ZIPF}
 
 
 def phase_library(torch, device, launches):
@@ -819,8 +1083,9 @@ class _JoinCounts(logging.Filter):
         return True
 
 
-def phase_main(torch, launches):
-    """``cli.main`` for every path of MAIN_RUNS; adds each path's launches."""
+def phase_main(torch, launches, runs=MAIN_RUNS, tag="main", kernels=()):
+    """``cli.main`` for every path of ``runs``; each must also launch
+    ``kernels``; adds each path's launches."""
     from partitionedhashjoin_tpu_torch import cli
 
     base = {
@@ -828,13 +1093,14 @@ def phase_main(torch, launches):
         "SecondaryRelationSize": str(N_SECONDARY),
         "Skew": f"{SKEW:.6f}",
     }
-    for extra_argv, params, kernel in MAIN_RUNS:
+    for extra_argv, params, kernel in runs:
         argv = extra_argv + [
             "--primary", str(N_PRIMARY), "--secondary", str(N_SECONDARY),
             "--skew", str(SKEW), "--seed", str(SEED), "--output", "stdout",
             "--platform", "cuda",
         ]
         name = " ".join(extra_argv) or "(default join)"
+        must = ((kernel,) if kernel else ()) + tuple(kernels)
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         counts = _JoinCounts()
@@ -851,19 +1117,20 @@ def phase_main(torch, launches):
         peak = torch.cuda.max_memory_allocated()
         doc = json.loads(out.getvalue())
         if rc != 0 or counts.counts != [N_SECONDARY]:
-            raise AssertionError(f"[main] {name}: rc {rc}, counts {counts.counts}")
-        if kernel is not None and run_counts[kernel] == 0:
-            raise AssertionError(f"[main] {name}: {kernel} was never launched")
+            raise AssertionError(f"[{tag}] {name}: rc {rc}, counts {counts.counts}")
+        for k in must:
+            if run_counts[k] == 0:
+                raise AssertionError(f"[{tag}] {name}: {k} was never launched")
         if doc.get("id") != "hashjointimingresult" or doc["parameters"] != {
             **base, **params
         } or set(doc["results"]) != {"partition", "build", "probe"}:
-            raise AssertionError(f"[main] {name}: unexpected document {doc}")
-        if kernel is not None:
-            launches[kernel] += run_counts[kernel]
+            raise AssertionError(f"[{tag}] {name}: unexpected document {doc}")
+        for k in must:
+            launches[k] += run_counts[k]
         res = doc["results"]
-        log(f"[main] {name}: result {json.dumps(doc, sort_keys=True)}")
+        log(f"[{tag}] {name}: result {json.dumps(doc, sort_keys=True)}")
         log(
-            f"[main] {name}: count {counts.counts[0]}, launches {run_counts}, "
+            f"[{tag}] {name}: count {counts.counts[0]}, launches {run_counts}, "
             f"phases partition {res['partition']} / build {res['build']} / "
             f"probe {res['probe']} ms, cli.main wall {wall_s:.3f} s "
             f"(generation + warmup + timed run), peak allocated {peak} B"
@@ -881,7 +1148,7 @@ def _query_relations(torch, device):
 
 def _check(name, ok, detail=""):
     if not ok:
-        raise AssertionError(f"[query] {name}: {detail}")
+        raise AssertionError(f"[check] {name}: {detail}")
 
 
 def _wrap_i32(x):
@@ -922,6 +1189,26 @@ def _zipf_reach(torch, device):
     return reach, float((1 - torch.exp(-N_SECONDARY * p)).sum())
 
 
+def _run_path(torch, tag, launches, name, fn, kernels):
+    """Runs ``fn`` with every count set to 0 just before and read just
+    after; each of ``kernels`` must have launched, and its launches are
+    added to ``launches``.  Returns what ``fn`` returned."""
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    counts = _read_counts()
+    for k in kernels:
+        _check(name, counts[k] > 0, f"{k} was never launched ({counts})")
+        launches[k] += counts[k]
+    log(f"[{tag}] {name}: {wall_ms:.3f} ms host clock, launches "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    return out
+
+
 def phase_query(torch, device, launches):
     """The materializing joins and the JOIN → GROUP BY → top-10 pipeline at
     10M ⋈ 200M; adds each path's K4/K5 launches."""
@@ -930,21 +1217,7 @@ def phase_query(torch, device, launches):
     from partitionedhashjoin_tpu_torch.ops import aggregate, merge_join
     from partitionedhashjoin_tpu_torch.ops.sort_merge import SortMergeJoiner
 
-    def run(name, fn, kernels):
-        torch.cuda.empty_cache()
-        torch.cuda.synchronize()
-        _reset_counts()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-        counts = _read_counts()
-        for k in kernels:
-            _check(name, counts[k] > 0, f"{k} was never launched ({counts})")
-            launches[k] += counts[k]
-        log(f"[query] {name}: {wall_ms:.3f} ms host clock, launches "
-            f"{ {k: counts[k] for k in ('k4', 'k5')} }")
-        return out
+    run = functools.partial(_run_path, torch, "query", launches)
 
     a_keys, a_pay, b_keys, b_pay = _query_relations(torch, device)
     keys, pa, pb, count = run(
@@ -1028,7 +1301,7 @@ def phase_query(torch, device, launches):
     log(f"[query] Zipf keys reachable from float32 uniforms: {reach:,}; "
         f"expected distinct keys of an exact Zipf({SKEW}) in "
         f"{N_SECONDARY:,} draws: {exact:,.1f}")
-    del results, g1, g2, hot1, hot2, want, rel
+    del results, g2, hot2, want, rel
 
     table = make_table(b_keys, torch.arange(N_SECONDARY, dtype=torch.int32,
                                             device=device))
@@ -1049,6 +1322,95 @@ def phase_query(torch, device, launches):
            and bench_pipeline.plans_agree(staged, fused), "staged != fused")
     log(f"[query] staged filter aggregate == fused: {int(staged.num_groups):,}"
         f" groups of {int(n_staged):,} rows: ok")
+    return g1, hot1
+
+
+def phase_sorter(torch, device, launches, xla_groups, xla_hot):
+    """Phase 7: the main paths with the sorter switch on "pallas" (K6);
+    adds each path's launches."""
+    from partitionedhashjoin_tpu_torch import bench_pipeline
+    from partitionedhashjoin_tpu_torch.ops import merge_join
+
+    run = functools.partial(_run_path, torch, "sorter", launches)
+
+    a_keys, a_pay, b_keys, b_pay = _query_relations(torch, device)
+    want = merge_join.two_run_materialize(a_keys, a_pay, b_keys, b_pay)
+    merge_join.set_sort_impl("pallas")
+    try:
+        phase_main(torch, launches, SORTER_RUNS, "sorter", ("k6a", "k6b"))
+        got = run("two_run_materialize (all match)",
+                  lambda: merge_join.two_run_materialize(a_keys, a_pay, b_keys, b_pay),
+                  ("k6a", "k6b", "k4"))
+        _check("sorter materialize", int(got[3]) == int(want[3]) == N_SECONDARY,
+               f"count {int(got[3])}")
+        _check("sorter materialize", torch.equal(got[0], want[0])
+               and torch.equal(got[1], want[1]), "keys or pay_a")
+        _check("sorter materialize", int(got[2].sum(dtype=torch.int64))
+               == int(want[2].sum(dtype=torch.int64)), "pay_b sum")
+        del got, want
+        log("[sorter] two_run_materialize == the library sort's on keys, pay_a "
+            "and the pay_b sum: ok")
+        rel = (a_keys, a_pay, b_keys, b_pay)
+        oracle = _group_oracle(torch, b_keys, b_pay)
+        for plan, ordered in (("ordered", True), ("naive", False)):
+            g, hot, count = run(
+                f"pipeline {plan} plan",
+                lambda: bench_pipeline.run_query(*rel, GROUP_CAPACITY, ordered),
+                ("k6a", "k6b", "k4", "k5"))
+            groups = oracle["keys"].shape[0]
+            _check(f"sorter {plan}", int(count) == N_SECONDARY
+                   and bench_pipeline.plans_agree(g, xla_groups)
+                   and torch.equal(hot.keys, xla_hot.keys), "differs from xla")
+            for f, w in oracle.items():
+                _check(f"sorter {plan}", torch.equal(getattr(g, f)[:groups], w),
+                       f"oracle {f}")
+            log(f"[sorter] pipeline {plan} plan: {groups:,} groups, == the "
+                "library sort's plans and the oracle: ok")
+            del g, hot
+    finally:
+        merge_join.set_sort_impl("xla")
+
+
+def phase_generate(torch, device, launches):
+    """Phase 8: the generation kernels on the main path's scale; adds each
+    path's launches."""
+    from partitionedhashjoin_tpu_torch.ops import generators, hashing, merge_join
+    from partitionedhashjoin_tpu_torch.ops.kernels import generate as kg
+
+    run = functools.partial(_run_path, torch, "generate", launches)
+
+    _, b = _reference_data(torch, device, torch.int32)
+    h = run(f"hash_keys over {N_SECONDARY:,} probe keys",
+            lambda: kg.hash_keys(b, SEED), ("k7",))
+    _check("hash_keys", torch.equal(h.view(torch.int32),
+                                    hashing.hash32(b, SEED).view(torch.int32)),
+           "differs from hashing.hash32")
+    del b, h
+    keys = run(f"zipf_keys_pallas {N_SECONDARY:,} keys over [1, {N_PRIMARY:,}]",
+               lambda: kg.zipf_keys_pallas(SEED, N_SECONDARY, SKEW, N_PRIMARY,
+                                           device=device), ("k8",))
+    a = generators.sequential_keys(N_PRIMARY, device=device)
+    count = run("two_run_count against the sequential build",
+                lambda: merge_join.two_run_count(a, keys), ("k1",))
+    _check("generated join", int(count) == N_SECONDARY, f"count {int(count)}")
+    freq = torch.bincount(keys, minlength=N_PRIMARY + 1)[1:].to(torch.float64)
+    distinct = int((freq > 0).sum())
+    k = torch.arange(1, N_PRIMARY + 1, dtype=torch.float64, device=device)
+    pmf = k ** -SKEW
+    pmf /= pmf.sum()
+    tv_hot = 0.5 * float((freq[:1000] / N_SECONDARY - pmf[:1000]).abs().sum())
+    # keys reachable at all: every 23-bit uniform through the sampler (K8),
+    # every float32 uniform (generators.zipf_keys)
+    u = torch.arange(1 << 23, dtype=torch.float32, device=device) * 2.0**-23
+    reach23 = int(torch.unique(generators.zipf_candidates(
+        u, torch.zeros_like(u), SKEW, N_PRIMARY)[0]).numel())
+    reach24, _ = _zipf_reach(torch, device)
+    _check("generated keys", distinct <= reach23, f"{distinct} > {reach23}")
+    log(f"[generate] join of the generated keys: {int(count):,} ok; TV distance "
+        f"of the 1,000 hottest keys' frequencies from the exact Zipf({SKEW}) "
+        f"pmf {tv_hot:.6f}; distinct keys drawn {distinct:,} of {reach23:,} "
+        f"reachable from 23-bit uniforms (generators.zipf_keys: {reach24:,} "
+        f"reachable from float32 uniforms)")
 
 
 def main() -> int:
@@ -1065,10 +1427,17 @@ def main() -> int:
         "merge_probe_payload": parity_k4(torch, device),
         "compact": parity_k5(torch, device),
     }
-    launches = {"k1": 0, "k2": 0, "k3": 0, "k4": 0, "k5": 0}
+    stats["sort_blocks"], stats["merge_pass"] = parity_k6(torch, device)
+    stats["hash_keys"] = parity_k7(torch, device)
+    stats["zipf_keys_pallas"] = parity_k8(torch, device)
+    launches = dict.fromkeys(("k1", "k2", "k3", "k4", "k5", "k6a", "k6b",
+                              "k7", "k8"), 0)
     phase_library(torch, device, launches)
     phase_main(torch, launches)
-    phase_query(torch, device, launches)
+    xla_groups, xla_hot = phase_query(torch, device, launches)
+    phase_sorter(torch, device, launches, xla_groups, xla_hot)
+    del xla_groups, xla_hot
+    phase_generate(torch, device, launches)
     described = (
         ("merge_probe_count", "k1", "merge_probe.cu", "merge_probe.py:292"),
         ("merge_probe_count_i64", "k3", "merge_probe.cu",
@@ -1076,6 +1445,10 @@ def main() -> int:
         ("merge_count_sorted", "k2", "merge_count.cu", "merge_count.py:90"),
         ("merge_probe_payload", "k4", "merge_probe.cu", "merge_probe.py:487"),
         ("compact", "k5", "compact.cu", "compact.py:131"),
+        ("sort_blocks", "k6a", "bitonic_sort.cu", "bitonic_sort.py:162"),
+        ("merge_pass", "k6b", "bitonic_sort.cu", "bitonic_sort.py:375"),
+        ("hash_keys", "k7", "generate.cu", "generate.py:46"),
+        ("zipf_keys_pallas", "k8", "generate.cu", "generate.py:103"),
     )
     kernels = []
     for name, key, source, replaces in described:
@@ -1090,7 +1463,7 @@ def main() -> int:
             "ms": s["ms"],
             "plain_ms": s["plain_ms"],
             "bound_ms": s["bound_ms"],
-            "bound_by": "bytes",
+            "bound_by": "operations" if key == "k8" else "bytes",
             "library_ms": s["library_ms"],
         })
     log(card)

@@ -22,7 +22,10 @@ It prints one JSON line with the JAX script's metric name and fields
 device it ran on.  Relations, as in the JAX script: build keys 1..N_A with
 payload ``key ^ 0x5A17``, probe keys Zipf(``SKEW``) over [1, N_A] (seed
 ``SEED``), probe payloads uniform in [0, 2^20) from a generator seeded with
-``PAYLOAD_SEED``; the GROUP BY capacity is ``GROUP_CAPACITY``.
+``PAYLOAD_SEED``; the GROUP BY capacity is ``GROUP_CAPACITY``.  The sorter
+switch follows ``PHJ_SORT_IMPL`` (``merge_join.set_sort_impl_from_env``, as
+the JAX package's benches do): ``PHJ_SORT_IMPL=pallas`` runs the query's
+sorts through K6.
 """
 
 from __future__ import annotations
@@ -36,7 +39,7 @@ from typing import Optional, Sequence
 import torch
 
 from partitionedhashjoin_tpu_torch.data.table import make_table
-from partitionedhashjoin_tpu_torch.ops import generators
+from partitionedhashjoin_tpu_torch.ops import generators, merge_join
 from partitionedhashjoin_tpu_torch.ops.aggregate import aggregate_sorted, sort_aggregate
 from partitionedhashjoin_tpu_torch.ops.merge_join import two_run_materialize
 from partitionedhashjoin_tpu_torch.ops.order_by import top_k
@@ -112,10 +115,12 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv: Optional[Sequence[str]] = None) -> int:
     args = build_parser().parse_args(argv)
     device = resolve_device(args.platform)
+    sort_impl = merge_join.set_sort_impl_from_env()
     n_a, n_b, skew = args.primary, args.secondary, SKEW
     kind = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else "cpu")
-    log(f"device: {kind}; query over {n_a} ⋈ {n_b}, skew {skew}")
+    log(f"device: {kind}; query over {n_a} ⋈ {n_b}, skew {skew}; sort impl "
+        f"{sort_impl}")
     t0 = time.perf_counter()
     rel = make_relations(n_a, n_b, device)
     sync(device)
@@ -148,6 +153,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         "vs_baseline": round(n_b / best / BASELINE_ROWS_PER_S, 3),
         "naive_resort_ms": round(naive_s * 1e3),
         "ordered_ms": round(best * 1e3),
+        "sort_impl": sort_impl,
         "device": kind,
     }))
     return 0

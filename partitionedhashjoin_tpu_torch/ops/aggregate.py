@@ -6,7 +6,11 @@ a contiguous run ordered by (valid, key, payload), so the run starts give
 the groups and everything else falls out of prefix sums:
 
   pass 1   one sort on (key, payload), valid rows first (skipped by
-           ``aggregate_sorted``, whose input is already in key order)
+           ``aggregate_sorted``, whose input is already in key order):
+           the packed (key, payload) library sort, or under the sorter
+           switch's "pallas" (``_pass1_sort_choice``) K6 on the JAX
+           package's tuple (invalid flag, key, payload[, row]), the flag
+           left out when there is no validity mask
   pass 2   the run-start rows compacted to the front, carrying key, MIN
            (the payload at the start), the exclusive payload cumsum and the
            previous row's payload (the MAX of the group before) — through
@@ -37,7 +41,9 @@ import torch
 
 from partitionedhashjoin_tpu_torch.data.table import Table
 from partitionedhashjoin_tpu_torch.ops import filter as filter_ops
+from partitionedhashjoin_tpu_torch.ops import merge_join
 from partitionedhashjoin_tpu_torch.ops.sort import sort_by_key_payload
+from partitionedhashjoin_tpu_torch.ops.kernels import bitonic_sort
 from partitionedhashjoin_tpu_torch.ops.kernels import compact as kcompact
 
 
@@ -168,12 +174,14 @@ def _sort_group_and_aggregate(
     kernel_compaction: bool = False,
     with_distinct: bool = False,
     presorted: bool = False,
+    sort_impl: str = "xla",
 ) -> GroupByResult:
     """GROUP BY over one (valid, key, payload) order; see the module note.
 
     ``presorted``: the caller asserts the rows are already in that order
     (valid rows a prefix, keys ascending in it, payloads ascending within
-    each key run), so pass 1 is skipped."""
+    each key run), so pass 1 is skipped.  ``sort_impl`` "pallas" (int32
+    keys and payloads) runs pass 1 through K6."""
     n = keys.shape[0]
     device = keys.device
     pdt = payloads.dtype
@@ -184,6 +192,20 @@ def _sort_group_and_aggregate(
     if presorted:
         key_s, pay_s, row_s = keys, payloads, rank
         valid_s = valid
+    elif sort_impl == "pallas":
+        # full-lex tuple order == (invalid, key, payload) order; the row
+        # operand only orders bit-identical (key, payload) rows, which
+        # share a group.  With no mask the invalid flag is left out: each
+        # operand costs a full read and write per merge pass
+        ops = [keys.contiguous(), payloads.contiguous()]
+        if valid is not None:
+            ops.insert(0, (~valid.to(torch.bool)).to(torch.int32))
+        if with_group_of_row:
+            ops.append(rank.to(torch.int32))
+        out = bitonic_sort.sort_i32_tuple(*ops)
+        valid_s = None if valid is None else out.pop(0) == 0
+        key_s, pay_s, *row = out
+        row_s = row[0].to(torch.int64) if row else None
     else:
         row_s, key_s, pay_s = sort_by_key_payload(keys, payloads)
         valid_s = None
@@ -329,6 +351,16 @@ def _kernel_compaction_choice(table: Table, compaction: str) -> bool:
     return int32 and table.keys.device.type == "cuda"
 
 
+def _pass1_sort_choice(table: Table) -> str:
+    """Pass-1 sort: "pallas" (K6) where the sorter switch resolves to it
+    for the table's device and keys and payloads are int32, else "xla" (the
+    library sort)."""
+    impl = merge_join.resolve_sort_impl(merge_join.get_sort_impl(),
+                                        table.keys.device)
+    int32 = table.keys.dtype == torch.int32 and table.payloads.dtype == torch.int32
+    return "pallas" if impl == "pallas" and int32 else "xla"
+
+
 def _capacity(table: Table, group_capacity: Optional[int]) -> int:
     return table.size if group_capacity is None else min(group_capacity, table.size)
 
@@ -416,6 +448,7 @@ def sort_aggregate(
         with_group_of_row=with_group_of_row,
         kernel_compaction=_kernel_compaction_choice(table, compaction),
         with_distinct=with_distinct,
+        sort_impl=_pass1_sort_choice(table),
     )
 
 
@@ -435,7 +468,7 @@ def filter_sort_aggregate(
         table.keys, table.payloads, _capacity(table, group_capacity),
         valid=mask, with_group_of_row=with_group_of_row,
         kernel_compaction=_kernel_compaction_choice(table, compaction),
-        with_distinct=with_distinct,
+        with_distinct=with_distinct, sort_impl=_pass1_sort_choice(table),
     )
     return g, mask.sum()
 
@@ -450,11 +483,12 @@ def _staged_filter(keys, payloads, mask):
 
 
 def _staged_pass2(total, keys_c, pay_c, n_orig, group_capacity,
-                  kernel_compaction, with_distinct=False):
+                  kernel_compaction, with_distinct=False, sort_impl="xla"):
     """Dispatch 2: aggregate exactly the ``total`` compacted rows."""
     g = _sort_group_and_aggregate(
         keys_c[:total], pay_c[:total], group_capacity,
         kernel_compaction=kernel_compaction, with_distinct=with_distinct,
+        sort_impl=sort_impl,
     )
     # group_of_row keeps its [n_orig] shape, all -1 (not tracked here)
     g.group_of_row = torch.full((n_orig,), -1, dtype=torch.int32,
@@ -489,6 +523,6 @@ def filter_sort_aggregate_staged(
         int(count), keys_c, pay_c, table.size,
         _capacity(table, group_capacity),
         kernel_compaction=_kernel_compaction_choice(table, compaction),
-        with_distinct=with_distinct,
+        with_distinct=with_distinct, sort_impl=_pass1_sort_choice(table),
     )
     return g, count

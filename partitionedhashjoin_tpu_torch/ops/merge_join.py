@@ -3,11 +3,28 @@ merge-probe kernel.
 
 Counterpart of ``partitionedhashjoin_tpu/ops/merge_join.py``:
 
-    order:  one unstable 1-key ``torch.sort`` per relation (the JAX package
-            calls ``jax.lax.sort``, an XLA op outside any Pallas kernel)
+    order:  one unstable 1-key sort per relation, chosen by the sorter
+            switch below: the library ``torch.sort`` (the JAX package's
+            ``jax.lax.sort``) or the tuple sort K6
     probe:  ``ops/kernels/merge_probe.py`` — K1 for int32 keys, K3 for
             int64 keys: the CUDA kernel on the card, its plain PyTorch
             version on the CPU
+
+The sorter switch (``set_sort_impl`` / ``PHJ_SORT_IMPL``) is engine-wide,
+as in the JAX package, and keeps its values:
+
+    "xla"     the library sort, ``torch.sort`` (the default)
+    "pallas"  K6, ``ops/kernels/bitonic_sort`` (the port of the JAX
+              package's Pallas sorter): its CUDA kernels on a CUDA tensor,
+              its plain version on a CPU tensor
+    "auto"    K6 on a CUDA tensor, the library sort on a CPU tensor
+
+It reaches five call sites: ``key_sort`` (int32 keys; so
+``two_run_count``, ``PreparedBuild`` and, through them, the
+no-partitioning, sort-merge and radix joiners), ``two_run_materialize``'s
+two (key, payload) sorts, ``two_run_count_i64``'s (hi, lo) plane sorts and
+GROUP BY pass 1 (``ops/aggregate.py``).  An int64 ``PreparedBuild`` keeps
+the library sort, as in the JAX package.
 
 Validity masks are supported exactly, by the JAX package's protocol:
 invalid rows are rewritten to INT32_MAX before the sort, the probe searches
@@ -31,17 +48,58 @@ matching build row, and the stream-compaction kernel K5
 
 from __future__ import annotations
 
+import os
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from partitionedhashjoin_tpu_torch.ops import sort as sort_ops
+from partitionedhashjoin_tpu_torch.ops.kernels import bitonic_sort
 from partitionedhashjoin_tpu_torch.ops.kernels import compact as kcompact
 from partitionedhashjoin_tpu_torch.ops.kernels import merge_payload, merge_probe
 
 _I32_MAX = merge_probe.INT32_MAX
+_I32_MIN = -(2**31)
 _WIDE = (torch.int64, torch.uint64)
+_SORT_IMPLS = ("xla", "pallas", "auto")
+
+# Module-level because it is an engine-wide tuning fact, not a per-call
+# choice (as in the JAX package).
+_SORT_IMPL = "xla"
+
+
+def set_sort_impl(impl: str) -> None:
+    """Select the sorter of every switch call site (see the module note)."""
+    global _SORT_IMPL
+    if impl not in _SORT_IMPLS:
+        raise ValueError(f"unknown sort impl {impl!r}")
+    _SORT_IMPL = impl
+
+
+def get_sort_impl() -> str:
+    return _SORT_IMPL
+
+
+def resolve_sort_impl(impl: str, device) -> str:
+    """Collapse "auto" to a concrete impl for tensors on ``device``."""
+    if impl == "auto":
+        return "pallas" if torch.device(device).type == "cuda" else "xla"
+    return impl
+
+
+def set_sort_impl_from_env() -> str:
+    """Apply the ``PHJ_SORT_IMPL`` environment variable (the benches' knob;
+    unset means "xla"); returns the active impl."""
+    impl = os.environ.get("PHJ_SORT_IMPL", "xla")
+    if impl != "xla":
+        set_sort_impl(impl)
+    return _SORT_IMPL
+
+
+def _use_k6(t: torch.Tensor) -> bool:
+    """The switch resolves to K6 for tensors like ``t``."""
+    return resolve_sort_impl(_SORT_IMPL, t.device) == "pallas"
 
 
 def _as_i32(name: str, keys: torch.Tensor) -> torch.Tensor:
@@ -61,9 +119,23 @@ def _as_i64(name: str, keys: torch.Tensor) -> torch.Tensor:
     return keys.to(torch.int64)
 
 
-def _key_sort(keys: torch.Tensor) -> torch.Tensor:
-    """Unstable ascending 1-key sort."""
+def key_sort(keys: torch.Tensor) -> torch.Tensor:
+    """Ascending 1-key sort: int32 keys through the sorter switch, other
+    dtypes through the library sort (unstable either way)."""
+    if keys.dtype == torch.int32 and _use_k6(keys):
+        return bitonic_sort.sort_i32(keys.contiguous())
     return torch.sort(keys, stable=False).values
+
+
+def _plane_sort(keys: torch.Tensor) -> torch.Tensor:
+    """int64 keys sorted by K6 as (hi, lo ^ 0x80000000) int32 planes: the
+    lexicographic plane order is the int64 order (the bias makes the signed
+    compare of the low word unsigned), as in the JAX package's
+    ``_split_planes``."""
+    hi = (keys >> 32).to(torch.int32)
+    lo = keys.to(torch.int32) ^ _I32_MIN  # wraps to the low word
+    hi, lo = bitonic_sort.sort_i32_tuple(hi, lo)
+    return (hi.to(torch.int64) << 32) | ((lo ^ _I32_MIN).to(torch.int64) & 0xFFFFFFFF)
 
 
 def two_run_count(
@@ -93,15 +165,15 @@ def two_run_count_i64(
     build_keys: torch.Tensor, probe_keys: torch.Tensor
 ) -> torch.Tensor:
     """Get-semantics match count for int64 keys (the reference's Tuple::id
-    width, src/Common/Table.hpp:20-25): one unstable sort per relation, then
-    K3 over the full int64 domain.  No validity masks."""
+    width, src/Common/Table.hpp:20-25): one unstable sort per relation (the
+    library sort, or under "pallas" K6 over (hi, lo) int32 planes), then K3
+    over the full int64 domain.  No validity masks."""
     build_keys = _as_i64("build_keys", build_keys)
     probe_keys = _as_i64("probe_keys", probe_keys)
     if build_keys.shape[0] == 0 or probe_keys.shape[0] == 0:
         return torch.zeros((), dtype=torch.int64, device=build_keys.device)
-    return merge_probe.ranged_merge_count_i64(
-        _key_sort(build_keys), _key_sort(probe_keys)
-    )
+    sort = _plane_sort if _use_k6(build_keys) else key_sort
+    return merge_probe.ranged_merge_count_i64(sort(build_keys), sort(probe_keys))
 
 
 def sorted_runs_count(a_sorted: torch.Tensor, b_sorted: torch.Tensor) -> torch.Tensor:
@@ -123,7 +195,7 @@ def _prepare_build_i32(
     else:
         a_eff = build_keys
         max_in_a = is_max.any()
-    return _key_sort(a_eff), max_in_a
+    return key_sort(a_eff), max_in_a
 
 
 def _probe_prepared_i32(
@@ -141,7 +213,7 @@ def _probe_prepared_i32(
         b_eff = probe_keys
         n_max = is_max.sum()
     del is_max
-    b_sorted = _key_sort(b_eff)
+    b_sorted = key_sort(b_eff)
     del b_eff
     count = merge_probe.ranged_merge_count_prepared(
         a_sorted, b_sorted, exclude_int32_max=True
@@ -172,7 +244,7 @@ class PreparedBuild:
                     "validity masks are int32-path only; rewrite invalid "
                     "int64 keys before preparing the build"
                 )
-            self.a_sorted = _key_sort(_as_i64("build_keys", build_keys))
+            self.a_sorted = key_sort(_as_i64("build_keys", build_keys))
             self.max_in_a = None
         else:
             keys = _as_i32("build_keys", build_keys)
@@ -213,7 +285,7 @@ class PreparedBuild:
             return torch.zeros((), dtype=torch.int64, device=self.a_sorted.device)
         if self._i64:
             return merge_probe.ranged_merge_count_i64(
-                self.a_sorted, _key_sort(probe_keys)
+                self.a_sorted, key_sort(probe_keys)
             )
         return _probe_prepared_i32(self.a_sorted, self.max_in_a, probe_keys, probe_valid)
 
@@ -235,9 +307,12 @@ def two_run_materialize(
 
     Returns ``(keys, pay_a, pay_b, count)``: the matching probe rows in
     sorted-key order, compacted to the front with a zero tail, and their
-    number as a 0-dim int64 tensor.  The build side is sorted stably, so
-    among duplicate build keys the EARLIEST build row wins (the JAX package
-    sorts it unstably: there the winner depends on tie order).  The
+    number as a 0-dim int64 tensor.  Under the library sort ("xla") the
+    build side is sorted stably, so among duplicate build keys the EARLIEST
+    build row wins (the JAX package sorts it unstably: there the winner
+    depends on tie order).  Under K6 ("pallas") both sides are sorted as
+    (key, payload) tuples, as in the JAX package, so the SMALLEST payload
+    wins and the probe rows come out in (key, payload) order.  The
     compaction is skipped when every probe row matches (the count's
     readback decides); otherwise K5 compacts the matching rows.
 
@@ -260,15 +335,20 @@ def two_run_materialize(
         z = torch.zeros((n_b,), dtype=torch.int32, device=probe_keys.device)
         count = torch.zeros((), dtype=torch.int64, device=probe_keys.device)
         return z, z.clone(), z.clone(), count
-    # stable: equal keys keep their row order
-    a_keys, a_pay = sort_ops.sort_by_key(
-        build_keys.to(torch.int32), build_payloads.to(torch.int32)
-    )
+    a_keys, a_pay = build_keys.to(torch.int32), build_payloads.to(torch.int32)
     b_keys, b_pay = probe_keys.to(torch.int32), probe_payloads.to(torch.int32)
-    if probe_payload_sorted:
-        _, b_keys, b_pay = sort_ops.sort_by_key_payload(b_keys, b_pay)
+    if _use_k6(a_keys):
+        a_keys, a_pay = bitonic_sort.sort_i32_tuple(
+            a_keys.contiguous(), a_pay.contiguous())
+        b_keys, b_pay = bitonic_sort.sort_i32_tuple(
+            b_keys.contiguous(), b_pay.contiguous())
     else:
-        b_keys, b_pay = sort_ops.sort_by_key(b_keys, b_pay)
+        # stable: equal keys keep their row order
+        a_keys, a_pay = sort_ops.sort_by_key(a_keys, a_pay)
+        if probe_payload_sorted:
+            _, b_keys, b_pay = sort_ops.sort_by_key_payload(b_keys, b_pay)
+        else:
+            b_keys, b_pay = sort_ops.sort_by_key(b_keys, b_pay)
     pay_a, pos = merge_payload.ranged_merge_payload_prepared(a_keys, a_pay, b_keys)
     count = torch.count_nonzero(pos)
     if int(count) == n_b:  # all-match: no compaction needed

@@ -4,7 +4,9 @@ Counterpart of ``partitionedhashjoin_tpu/ops/radix_cluster.py::
 RadixHashJoiner`` in its "vmem" mode, and of the reference's
 src/RadixCluster/HashJoin.hpp:91-440.
 
-- Partition phase: one sort per relation.  Sorting by key IS range-radix
+- Partition phase: one sort per relation (``merge_join.key_sort``: int32
+  keys through the sorter switch, the library sort or K6; int64 keys
+  through the library sort).  Sorting by key IS range-radix
   clustering: every partition is a contiguous key range, laid out
   contiguously, which is what the reference's scatter produces per hash
   partition (:394-412).  ``number_of_partitions`` is advisory, as in the
@@ -76,8 +78,10 @@ class RadixHashJoiner:
         dtype = _key_dtype(table_a.keys, table_b.keys)
 
         timer.set_partitioning_phase_begin()
-        a_sorted = torch.sort(table_a.keys.to(dtype), stable=False).values
-        b_sorted = torch.sort(table_b.keys.to(dtype), stable=False).values
+        # int32 keys through the sorter switch; int64 keys keep the library
+        # sort, as in the JAX package
+        a_sorted = merge_join.key_sort(table_a.keys.to(dtype))
+        b_sorted = merge_join.key_sort(table_b.keys.to(dtype))
         sync(a_sorted.device)
         timer.set_partitioning_phase_end()
 

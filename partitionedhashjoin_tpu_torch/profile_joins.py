@@ -16,6 +16,10 @@ device time of each kernel (the CUDA events summed by name), the device
 total, the host-clock time (every join ends in a readback of its count) and
 the idle share, 1 - device time / host time.  A JSON line with the same
 numbers follows each path.  Without a CUDA device it exits non-zero.
+
+The sorter switch follows ``PHJ_SORT_IMPL`` (``merge_join.set_sort_impl_from_env``),
+so ``PHJ_SORT_IMPL=pallas python -m partitionedhashjoin_tpu_torch.profile_joins``
+breaks the paths down with K6 in place of the library sort.
 """
 
 from __future__ import annotations
@@ -119,10 +123,12 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("profile_joins needs an NVIDIA GPU")
     device = torch.device("cuda", 0)
+    from partitionedhashjoin_tpu_torch.ops import merge_join
     from partitionedhashjoin_tpu_torch.utils.logger import initialize_logger
 
     initialize_logger("error")
-    print(torch.cuda.get_device_name(0), flush=True)
+    sort_impl = merge_join.set_sort_impl_from_env()
+    print(f"{torch.cuda.get_device_name(0)}; sort impl {sort_impl}", flush=True)
     tables = {}
     for name, data, join in _paths():
         if data not in tables:
@@ -137,7 +143,8 @@ def main() -> int:
         for kernel, us in by_name.most_common():
             print(f"   {us / 1e3:9.4f} ms {us / device_us:7.2%}  {kernel[:110]}")
         print(json.dumps({
-            "path": name, "reps": REPS, "device_ms": device_us / 1e3,
+            "path": name, "sort_impl": sort_impl, "reps": REPS,
+            "device_ms": device_us / 1e3,
             "host_ms": host_us / 1e3,
             "kernels_ms": {k: v / 1e3 for k, v in by_name.most_common()},
         }), flush=True)

@@ -13,8 +13,10 @@ import torch
 
 from partitionedhashjoin_tpu_torch.config import RadixClusteringConfiguration
 from partitionedhashjoin_tpu_torch.data.table import make_table, table_from_numpy
-from partitionedhashjoin_tpu_torch.ops import aggregate, merge_join, sort_merge
+from partitionedhashjoin_tpu_torch.ops import aggregate, hashing, merge_join, sort_merge
+from partitionedhashjoin_tpu_torch.ops.kernels import bitonic_sort as bs
 from partitionedhashjoin_tpu_torch.ops.kernels import compact as kc
+from partitionedhashjoin_tpu_torch.ops.kernels import generate as gen
 from partitionedhashjoin_tpu_torch.ops.kernels import merge_count as mc
 from partitionedhashjoin_tpu_torch.ops.kernels import merge_payload as mpay
 from partitionedhashjoin_tpu_torch.ops.kernels import merge_probe as mp
@@ -408,3 +410,150 @@ def test_aggregates_on_card_match_cpu(cuda):
             assert (g is None) == (w is None)
             if g is not None:
                 assert torch.equal(g.cpu(), w), f
+
+
+# ---------------------------------------------------------------- K6
+
+
+def _tuple_columns(cuda, k, n, seed):
+    """k int32 operands: narrow leading ones (ties carry to the last),
+    all-MAX rows beside the padding, a full-domain last operand."""
+    rng = np.random.default_rng(seed)
+    cols = [rng.integers(-3, 3, n).astype(np.int32) for _ in range(k - 1)]
+    cols.append(rng.integers(I32_MIN, I32_MAX, n, dtype=np.int64).astype(np.int32))
+    for c in cols:
+        c[::31] = I32_MAX
+    return [torch.from_numpy(c).to(cuda) for c in cols]
+
+
+def _equal_lists(got, want):
+    torch.cuda.synchronize()
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.device.type == "cuda" and g.dtype == torch.int32
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 4])
+def test_tuple_sort_kernels_match_plain(cuda, k):
+    blk = bs.BLK
+    for n in (0, 1, 100, blk, blk + 1, 3 * blk - 5, 5 * blk + 17, 300_007):
+        cols = _tuple_columns(cuda, k, n, seed=n + k)
+        before = (bs.LAUNCHES_BLOCKS, bs.LAUNCHES_MERGE)
+        _equal_lists(bs.sort_i32_tuple(*cols), bs.sort_i32_tuple_plain(*cols))
+        blocks = -(-n // blk)
+        assert (bs.LAUNCHES_BLOCKS - before[0], bs.LAUNCHES_MERGE - before[1]) == (
+            (1, (blocks - 1).bit_length()) if n else (0, 0))
+    # a dominant tuple whose run is longer than a tile and than a run
+    n = 40 * blk + 123
+    gen_ = torch.Generator(device=cuda)
+    gen_.manual_seed(k)
+    cols = [torch.where(torch.rand(n, generator=gen_, device=cuda) < 0.9, 7,
+                        torch.randint(-5, 5, (n,), generator=gen_, device=cuda)
+                        ).to(torch.int32) for _ in range(k)]
+    _equal_lists(bs.sort_i32_tuple(*cols), bs.sort_i32_tuple_plain(*cols))
+    # the phases alone: blocks, pairs, a lone tail run, runs of 3 blocks
+    cols = [c[: 7 * blk].contiguous() for c in cols]
+    sb = bs.sort_blocks_tuple(*cols)
+    _equal_lists(sb, bs.sort_blocks_plain(*cols))
+    for run in (blk, 2 * blk, 3 * blk, 8 * blk):
+        src = [c.contiguous() for c in bs._segment_sort_plain(cols, run)]
+        _equal_lists(bs.merge_pass_tuple(*src, run_len=run),
+                     bs.merge_pass_plain(*src, run_len=run))
+
+
+def test_tuple_sort_rejects_bad_inputs_on_card(cuda):
+    x = torch.arange(bs.BLK, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):  # wider than the kernels' tuple
+        bs.sort_i32_tuple(*([x] * (bs.MAX_OPERANDS + 1)))
+    with pytest.raises(ValueError):  # mixed devices
+        bs.sort_i32_tuple(x, x.cpu())
+    with pytest.raises(ValueError):
+        bs.merge_pass_i32(x, bs.BLK // 2)
+    with pytest.raises(ValueError):
+        bs.sort_blocks_i32(x[:-1])
+
+
+def test_sorter_switch_launches_k6_on_card(cuda):
+    """Under "pallas" every call site launches K6 on the card and gives
+    the library sort's results; "auto" resolves to K6 on the card."""
+    rng = np.random.default_rng(61)
+    a = rng.integers(0, 20000, 15000).astype(np.int32)
+    b = rng.integers(-100, 21000, 90000).astype(np.int32)
+    a_pay = (a ^ 0x5A17).astype(np.int32)
+    b_pay = rng.integers(0, 1 << 20, b.size).astype(np.int32)
+    ta, tb, tap, tbp = (torch.from_numpy(x).to(cuda) for x in (a, b, a_pay, b_pay))
+    a64, b64 = ta.to(torch.int64) << 33, tb.to(torch.int64) << 33
+    table = make_table(tb, tbp)
+    ak, ap = np.unique(a, return_index=True)  # unique build keys: one answer
+
+    def run_all():
+        return [
+            int(merge_join.two_run_count(ta, tb)),
+            int(merge_join.PreparedBuild(ta).count(tb)),
+            int(merge_join.two_run_count_i64(a64, b64)),
+            RadixHashJoiner().run(make_table(ta, tap), table),
+            [t.cpu() for t in merge_join.two_run_materialize(
+                torch.from_numpy(ak).to(cuda), torch.from_numpy(a_pay[ap]).to(cuda),
+                tb, tbp, probe_payload_sorted=True)],
+            aggregate.sort_aggregate(table, with_distinct=True),
+        ]
+
+    want = run_all()
+    for impl in ("pallas", "auto"):
+        merge_join.set_sort_impl(impl)
+        try:
+            before = bs.LAUNCHES_BLOCKS
+            got = run_all()
+        finally:
+            merge_join.set_sort_impl("xla")
+        # two sorts each for the counts, radix and materialize, one for the
+        # prepared build's probe plus its build, one GROUP BY pass 1
+        assert bs.LAUNCHES_BLOCKS - before == 2 + 2 + 2 + 2 + 2 + 1
+        assert got[:4] == want[:4] == [int(np.isin(b, a).sum())] * 4
+        for g, w in zip(got[4], want[4]):
+            assert torch.equal(g, w)
+        for f in ("keys", "count", "sum", "min", "max", "distinct", "num_groups"):
+            assert torch.equal(getattr(got[5], f), getattr(want[5], f)), f
+
+
+# ---------------------------------------------------------------- K7, K8
+
+
+@pytest.mark.parametrize("seed", [0, 42, 2**32 - 1])
+def test_hash_kernel_matches_plain(cuda, seed):
+    rng = np.random.default_rng(67)
+    keys = torch.from_numpy(rng.integers(I32_MIN, I32_MAX, 1_000_003,
+                                         dtype=np.int64).astype(np.int32)).to(cuda)
+    keys[:4] = torch.tensor([I32_MIN, -1, 0, I32_MAX], dtype=torch.int32)
+    for view in (keys, keys[1:], keys[:3], keys[:0]):  # aligned, unaligned, tiny
+        before = gen.LAUNCHES_HASH
+        got = gen.hash_keys(view, seed)
+        want = hashing.hash32(view, seed)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.uint32 and got.device.type == "cuda"
+        assert torch.equal(got.cpu().to(torch.int64), want.cpu().to(torch.int64))
+        assert gen.LAUNCHES_HASH == before + (1 if view.numel() else 0)
+
+
+@pytest.mark.parametrize("card", [500, 10_000_000, 100_000_000])
+def test_zipf_kernel_matches_plain(cuda, card):
+    """Uniforms bit for bit; keys may differ only where powf and torch.pow
+    round differently next to a floor: at most 1e-4 of them, by at most 2."""
+    n = 2_000_000
+    for r in (0, 5):
+        got = gen.philox_uniforms(11, n, r, device=cuda)
+        want = gen.philox_uniforms_plain(11, torch.arange(n, device=cuda), r)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+    before = gen.LAUNCHES_ZIPF
+    keys = gen.zipf_keys_pallas(11, n, 1.05, card, device=cuda)
+    plain = gen.zipf_keys_plain(11, n, 1.05, card, device=cuda)
+    torch.cuda.synchronize()
+    assert gen.LAUNCHES_ZIPF == before + 1
+    assert keys.dtype == torch.int32 and keys.device.type == "cuda"
+    assert int(keys.min()) >= 1 and int(keys.max()) <= card
+    differ = keys != plain
+    assert int(differ.sum()) <= n * 1e-4
+    assert int((keys - plain).abs().max()) <= 2
+    assert (gen.zipf_keys_pallas(11, 1000, 1.05, card, rounds=0, device=cuda) == 1).all()

@@ -16,6 +16,8 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 for name in names:
     importlib.import_module(name)
 assert len(names) >= 12, names
+for needed in ("ops.hashing", "ops.kernels.bitonic_sort", "ops.kernels.generate"):
+    assert pkg.__name__ + "." + needed in names, needed
 leaked = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "partitionedhashjoin_tpu.")))
 print("LEAKED", leaked)
 sys.exit(1 if leaked else 0)
