@@ -14,22 +14,29 @@ and raises on the first failure:
              exactly, over edge cases and random runs of >= 1M rows:
              K1 (int32 merge-probe count, ``exclude_int32_max`` off and on),
              K3 (int64 merge-probe count), K2 (fused merge count), K4
-             (merge-probe payload) and K5 (stream compaction: densities 0,
-             0.01, 0.5 and 1, 1 to 6 columns, capacity overflow, ragged
-             lengths).  Then each is timed with CUDA events at the main
-             path's shapes (10M ⋈ 200M; the 210M-row merged stream for K2;
-             the 200M-row pass 2 of the pipeline's GROUP BY for K5, also at
-             ~8M kept rows), beside its plain version, the
+             (merge-probe payload) and K5 (the one-pass stream compaction:
+             densities 0, 0.01, 0.5 and 1, 1 to 6 columns, capacity
+             overflow, ragged lengths, tile edges seen at each of the four
+             byte alignments of ``keep``, one kept row per tile, n = 0).
+             Then each is timed with CUDA events at the main path's shapes
+             (10M ⋈ 200M; the 210M-row merged stream for K2; the 200M-row
+             pass 2 of the pipeline's GROUP BY for K5, also at ~8M kept
+             rows), beside its plain version, the
              nearest PyTorch call (``torch.isin(b, a).sum()`` for K1/K3,
              ``torch.searchsorted`` for K4, ``col[keep]`` for K5) and the
-             sorts of the main path.  Then K6 (the tuple sort: phase A K6a,
-             merge pass K6b and the full sort, 1 to 4 operands, edge cases,
-             random runs of >= 1M rows and runs of equal tuples longer than
-             a tile and a run, exactly), K7 (the seeded hash, bitwise) and
+             sorts of the main path.  Then K6: the full tuple sort, a
+             one-sweep LSD radix sort (1 to 4 operands, edge cases, random
+             runs of >= 1M rows, runs of equal tuples longer than a tile,
+             constant operands whose every digit is skipped, keys in
+             [1, 10M], INT32_MIN/MAX-only operands, and 600,000,001 rows at
+             k = 1 so that byte offsets pass 2^31, exactly), and its two
+             phase counterparts, phase A K6a and merge pass K6b; K7 (the
+             seeded hash, bitwise) and
              K8 (the Zipf sampler: its uniforms bit for bit, at most 1e-4 of
              its keys off by at most 2), each timed at 200M rows beside its
              plain version, its bound and the library call where one exists
-             (``torch.sort`` for a 1-operand sort, the packed int64
+             (``torch.sort`` for a 1-operand sort, also over the main
+             path's 200M Zipf probe keys, the packed int64
              ``sort_by_key_payload`` for 2 operands, the batched
              ``torch.sort(..., dim=1)`` over one row per block for K6a and
              per pair of runs for K6b, each also checked equal to them).
@@ -58,10 +65,10 @@ and raises on the first failure:
              ``filter_sort_aggregate``.  K4 and K5 must launch.
 7. sorter  — ``merge_join.set_sort_impl("pallas")`` (restored to "xla"
              after): ``cli.main`` for no-partitioning, radix-partitioning,
-             sort-merge and sort-merge int64 (each 200,000,000 and K6 plus
-             K1 or K3 launched), ``two_run_materialize`` (equal to the
-             "xla" run on keys, pay_a and the pay_b sum) and both query
-             plans (equal to the "xla" plans and to the oracle).
+             sort-merge and sort-merge int64 (each 200,000,000 and the
+             radix sort plus K1 or K3 launched), ``two_run_materialize``
+             (equal to the "xla" run on keys, pay_a and the pay_b sum) and
+             both query plans (equal to the "xla" plans and to the oracle).
 8. generate — ``hash_keys`` over the 200M probe keys (K7);
              ``zipf_keys_pallas`` draws 200M Zipf(1.05) keys over [1, 10M]
              on the card (K8), ``two_run_count`` against the 10M sequential
@@ -162,7 +169,8 @@ def phase_build() -> None:
         merge_probe,
     )
 
-    names = ("merge_probe", "merge_count", "compact", "bitonic_sort", "generate")
+    names = ("merge_probe", "merge_count", "compact", "bitonic_sort",
+             "radix_sort", "generate")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:
         paths = list(pool.map(_build.build, names))
@@ -172,6 +180,7 @@ def phase_build() -> None:
     merge_count.load_library()
     compact.load_library()
     bitonic_sort.load_library()
+    bitonic_sort.load_radix_library()
     generate.load_library()
     for path in paths:
         report = path.with_suffix(".log")
@@ -719,7 +728,28 @@ def parity_k5(torch, device):
     keep[[0, 31, 32, 255, 256, t - 1, t, t + 1, 2 * t - 1, 2 * kc.BLK - 1]] = True
     check("tile edges", keep, [torch.arange(2 * kc.BLK, dtype=torch.int32,
                                             device=device)])
-    del keep, cols
+    # tile edges seen through keep views at each of the four byte
+    # alignments (the one pass reads keep with 16-byte loads where it can)
+    n = 9 * t + 77
+    edges = torch.zeros(n + 3, dtype=torch.bool, device=device)
+    for e in range(t, 9 * t, t):
+        edges[e - 2: e + 2] = True
+    col = torch.arange(n, dtype=torch.int32, device=device)
+    for off in range(4):
+        check_rows(f"tile edges, keep offset {off} bytes", edges[off: off + n],
+                   [col, col ^ I32_MAX], n)
+    # one kept row per tile, on every offset within a tile
+    n = 1_000_003
+    one = torch.zeros(n, dtype=torch.bool, device=device)
+    one[[r for r in (i * t + 37 * i % t for i in range(-(-n // t))) if r < n]] = True
+    check_rows("one kept row per tile", one,
+               [torch.arange(n, dtype=torch.int32, device=device)], n)
+    empty = torch.zeros(0, dtype=torch.bool, device=device)
+    before = kc.LAUNCHES
+    check_rows("n = 0", empty, [torch.zeros(0, dtype=torch.int32, device=device)], 5)
+    if kc.LAUNCHES != before:
+        raise AssertionError("[parity K5] n = 0 launched the kernel")
+    del keep, cols, edges, col, one
 
     # the main path's shapes: pass 2 of the ordered pipeline's GROUP BY,
     # as aggregate_sorted calls K5 (group capacity + 1 outputs, no fill)
@@ -806,32 +836,64 @@ def _tuple_operands(torch, device, gen, k, n, narrow=True):
     return cols
 
 
+def _radix_edge_operands(torch, device, gen, k, n):
+    """The radix sort's own edge cases: every operand constant (every digit
+    skipped), keys in [1, 10M] (their top byte skipped), and a first
+    operand of only INT32_MIN and INT32_MAX."""
+    narrow = [torch.randint(-2, 2, (n,), generator=gen, dtype=torch.int32,
+                            device=device) for _ in range(k - 1)]
+    keys = torch.randint(1, N_PRIMARY + 1, (n,), generator=gen,
+                         dtype=torch.int32, device=device)
+    ends = torch.where(torch.rand(n, generator=gen, device=device) < 0.5,
+                       I32_MIN, I32_MAX).to(torch.int32)
+    return {
+        "every operand constant":
+            [torch.full((n,), 5 - c, dtype=torch.int32, device=device)
+             for c in range(k)],
+        f"keys in [1, {N_PRIMARY:,}]": narrow + [keys],
+        "INT32_MIN/MAX-only operand": [ends] + narrow,
+    }
+
+
 def parity_k6(torch, device):
-    """K6a, K6b and the full sort against their plain versions at 1 to 4
-    operands; then times at 200M rows (and 10M at k = 1)."""
+    """The full sort (the radix sort), K6a and K6b against their plain
+    versions at 1 to 4 operands; then times at 200M rows (and 10M at
+    k = 1)."""
     from partitionedhashjoin_tpu_torch.ops import sort as sort_ops
     from partitionedhashjoin_tpu_torch.ops.kernels import bitonic_sort as bs
 
     blk = bs.BLK
-    # the full sort runs both kernels: its errors count for both
     par_a, par_b, par = (Parity(torch, t) for t in ("K6a", "K6b", "K6"))
     gen = torch.Generator(device=device)
     gen.manual_seed(SEED + 6)
+
+    def check_sort(name, cols):
+        """The radix sort against its plain version; it launches no K6a or
+        K6b, and one sweep per digit of its plan."""
+        before = (bs.LAUNCHES_BLOCKS, bs.LAUNCHES_MERGE, bs.LAUNCHES_SORT)
+        par.check_tensors(name, lambda: bs.sort_i32_tuple(*cols),
+                          lambda: bs.sort_i32_tuple_plain(*cols))
+        n = cols[0].shape[0]
+        passes = len(bs.radix_plan(bs.radix_histograms_plain(*cols)).passes) \
+            if n else 0
+        grew = (bs.LAUNCHES_BLOCKS - before[0], bs.LAUNCHES_MERGE - before[1],
+                bs.LAUNCHES_SORT - before[2])
+        if grew != (0, 0, passes):
+            raise AssertionError(f"[parity K6] {name}: launches (K6a, K6b, "
+                                 f"sweeps) {grew}, want (0, 0, {passes})")
+
     for k in range(1, bs.MAX_OPERANDS + 1):
         for n in (0, 1, 100, blk, blk + 1, 3 * blk - 5, 5 * blk + 17, 1_000_003):
-            cols = _tuple_operands(torch, device, gen, k, n)
-            par.check_tensors(f"sort k={k} n={n}",
-                              lambda: bs.sort_i32_tuple(*cols),
-                              lambda: bs.sort_i32_tuple_plain(*cols))
-        # one tuple covers 90% of 2M rows: its run is longer than a tile and
-        # than every run of every pass
+            check_sort(f"sort k={k} n={n}", _tuple_operands(torch, device, gen, k, n))
+        # one tuple covers 90% of 2M rows: its run is longer than a tile
         n = 2_000_003
         hot = torch.rand(n, generator=gen, device=device) < 0.9
-        cols = [torch.where(hot, 7, c) for c in
-                _tuple_operands(torch, device, gen, k, n, narrow=False)]
-        par.check_tensors(f"sort k={k} 90% one tuple, n={n}",
-                          lambda: bs.sort_i32_tuple(*cols),
-                          lambda: bs.sort_i32_tuple_plain(*cols))
+        check_sort(f"sort k={k} 90% one tuple, n={n}",
+                   [torch.where(hot, 7, c) for c in
+                    _tuple_operands(torch, device, gen, k, n, narrow=False)])
+        n = 1_000_003
+        for name, cols in _radix_edge_operands(torch, device, gen, k, n).items():
+            check_sort(f"sort k={k} {name}, n={n}", cols)
         n = 128 * blk
         cols = _tuple_operands(torch, device, gen, k, n)
         par_a.check_tensors(f"sort_blocks k={k} n={n}",
@@ -844,6 +906,12 @@ def parity_k6(torch, device):
                                 lambda: bs.merge_pass_tuple(*src, run_len=run),
                                 lambda: bs.merge_pass_plain(*src, run_len=run))
         del cols, src, hot
+    # 2.4 GB of keys: byte offsets pass 2^31
+    big = torch.randint(I32_MIN, I32_MAX, (600_000_001,), generator=gen,
+                        dtype=torch.int32, device=device)
+    check_sort("sort k=1 n=600,000,001", [big])
+    del big
+    torch.cuda.empty_cache()
 
     def timed(name, operands, library=None, reps=3):
         sort_ms, plain_ms = _time_pair(
@@ -852,16 +920,18 @@ def parity_k6(torch, device):
         lib_ms = None if library is None else _time_ms(torch, library, reps=reps)
         n, k = operands[0].shape[0], len(operands)
         bound = _bound_ms(n * 4 * k * 2)
+        passes = len(bs.radix_plan(bs.radix_histograms_plain(*operands)).passes)
         log(f"[time K6] sort_i32_tuple {name}, {n:,} rows, k={k}: kernel "
             f"{sort_ms:.4f} ms, plain {plain_ms:.4f} ms, library "
             f"{'—' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
             f"{bound:.4f} ms ({sort_ms / bound:.1f}x); K6's own traffic "
-            f"(phase A + {(-(-n // blk) - 1).bit_length()} passes) at peak "
-            f"{_bound_ms(n * 4 * k * 2 * (1 + (-(-n // blk) - 1).bit_length())):.4f} ms")
+            f"(upsweep read + {passes} passes of read and write) at peak "
+            f"{_bound_ms(n * 4 * k * (1 + 2 * passes)):.4f} ms")
+        return sort_ms, plain_ms, bound, lib_ms
 
     x = torch.randint(I32_MIN, I32_MAX, (N_SECONDARY,), generator=gen,
                       dtype=torch.int32, device=device)
-    timed("int32 keys", [x], lambda: torch.sort(x).values)
+    stat = timed("int32 keys", [x], lambda: torch.sort(x).values)
     timed("int32 keys (10M)", [x[:N_PRIMARY]],
           lambda: torch.sort(x[:N_PRIMARY]).values, reps=5)
     pay = torch.randint(0, 1 << 20, (N_SECONDARY,), generator=gen,
@@ -871,6 +941,9 @@ def parity_k6(torch, device):
     inv = torch.zeros_like(x)
     timed("(invalid flag, key, payload): masked GROUP BY pass 1", [inv, x, pay])
     del inv, pay
+    _, zipf = _reference_data(torch, device, torch.int32)
+    timed("the main path's Zipf probe keys", [zipf], lambda: torch.sort(zipf).values)
+    del zipf
 
     # the phases alone at k = 1 over whole blocks
     n = N_SECONDARY // blk * blk
@@ -905,11 +978,14 @@ def parity_k6(torch, device):
         f"{b_ms:.4f} ms, plain {b_plain_ms:.4f} ms, torch.sort(dim=1) over "
         f"{2 * blk}-row rows {b_lib_ms:.4f} ms, bound {bound:.4f} ms")
     del xb, blocks, pairs
+    sort_ms, sort_plain_ms, sort_bound, sort_lib_ms = stat
     return (
-        {"max_abs_err": max(par_a.max_err, par.max_err), "ms": a_ms,
-         "plain_ms": a_plain_ms, "bound_ms": bound, "library_ms": a_lib_ms},
-        {"max_abs_err": max(par_b.max_err, par.max_err), "ms": b_ms,
-         "plain_ms": b_plain_ms, "bound_ms": bound, "library_ms": b_lib_ms},
+        {"max_abs_err": par_a.max_err, "ms": a_ms, "plain_ms": a_plain_ms,
+         "bound_ms": bound, "library_ms": a_lib_ms},
+        {"max_abs_err": par_b.max_err, "ms": b_ms, "plain_ms": b_plain_ms,
+         "bound_ms": bound, "library_ms": b_lib_ms},
+        {"max_abs_err": par.max_err, "ms": sort_ms, "plain_ms": sort_plain_ms,
+         "bound_ms": sort_bound, "library_ms": sort_lib_ms},
     )
 
 
@@ -1027,6 +1103,7 @@ def _reset_counts():
     mp, mc, mpay, kc, bs, kg = _counters()
     mp.LAUNCHES = mp.LAUNCHES_I64 = mc.LAUNCHES = mpay.LAUNCHES = 0
     kc.LAUNCHES = bs.LAUNCHES_BLOCKS = bs.LAUNCHES_MERGE = 0
+    bs.LAUNCHES_UPSWEEP = bs.LAUNCHES_SORT = 0
     kg.LAUNCHES_HASH = kg.LAUNCHES_ZIPF = kg.LAUNCHES_UNIFORMS = 0
 
 
@@ -1035,6 +1112,7 @@ def _read_counts():
     return {"k1": mp.LAUNCHES, "k3": mp.LAUNCHES_I64, "k2": mc.LAUNCHES,
             "k4": mpay.LAUNCHES, "k5": kc.LAUNCHES,
             "k6a": bs.LAUNCHES_BLOCKS, "k6b": bs.LAUNCHES_MERGE,
+            "k6": bs.LAUNCHES_UPSWEEP + bs.LAUNCHES_SORT,
             "k7": kg.LAUNCHES_HASH, "k8": kg.LAUNCHES_ZIPF}
 
 
@@ -1326,8 +1404,8 @@ def phase_query(torch, device, launches):
 
 
 def phase_sorter(torch, device, launches, xla_groups, xla_hot):
-    """Phase 7: the main paths with the sorter switch on "pallas" (K6);
-    adds each path's launches."""
+    """Phase 7: the main paths with the sorter switch on "pallas" (K6, the
+    radix sort); adds each path's launches."""
     from partitionedhashjoin_tpu_torch import bench_pipeline
     from partitionedhashjoin_tpu_torch.ops import merge_join
 
@@ -1337,10 +1415,10 @@ def phase_sorter(torch, device, launches, xla_groups, xla_hot):
     want = merge_join.two_run_materialize(a_keys, a_pay, b_keys, b_pay)
     merge_join.set_sort_impl("pallas")
     try:
-        phase_main(torch, launches, SORTER_RUNS, "sorter", ("k6a", "k6b"))
+        phase_main(torch, launches, SORTER_RUNS, "sorter", ("k6",))
         got = run("two_run_materialize (all match)",
                   lambda: merge_join.two_run_materialize(a_keys, a_pay, b_keys, b_pay),
-                  ("k6a", "k6b", "k4"))
+                  ("k6", "k4"))
         _check("sorter materialize", int(got[3]) == int(want[3]) == N_SECONDARY,
                f"count {int(got[3])}")
         _check("sorter materialize", torch.equal(got[0], want[0])
@@ -1356,7 +1434,7 @@ def phase_sorter(torch, device, launches, xla_groups, xla_hot):
             g, hot, count = run(
                 f"pipeline {plan} plan",
                 lambda: bench_pipeline.run_query(*rel, GROUP_CAPACITY, ordered),
-                ("k6a", "k6b", "k4", "k5"))
+                ("k6", "k4", "k5"))
             groups = oracle["keys"].shape[0]
             _check(f"sorter {plan}", int(count) == N_SECONDARY
                    and bench_pipeline.plans_agree(g, xla_groups)
@@ -1427,11 +1505,12 @@ def main() -> int:
         "merge_probe_payload": parity_k4(torch, device),
         "compact": parity_k5(torch, device),
     }
-    stats["sort_blocks"], stats["merge_pass"] = parity_k6(torch, device)
+    stats["sort_blocks"], stats["merge_pass"], stats["tuple_sort"] = parity_k6(
+        torch, device)
     stats["hash_keys"] = parity_k7(torch, device)
     stats["zipf_keys_pallas"] = parity_k8(torch, device)
     launches = dict.fromkeys(("k1", "k2", "k3", "k4", "k5", "k6a", "k6b",
-                              "k7", "k8"), 0)
+                              "k6", "k7", "k8"), 0)
     phase_library(torch, device, launches)
     phase_main(torch, launches)
     xla_groups, xla_hot = phase_query(torch, device, launches)
@@ -1447,6 +1526,7 @@ def main() -> int:
         ("compact", "k5", "compact.cu", "compact.py:131"),
         ("sort_blocks", "k6a", "bitonic_sort.cu", "bitonic_sort.py:162"),
         ("merge_pass", "k6b", "bitonic_sort.cu", "bitonic_sort.py:375"),
+        ("tuple_sort", "k6", "radix_sort.cu", "bitonic_sort.py:524"),
         ("hash_keys", "k7", "generate.cu", "generate.py:46"),
         ("zipf_keys_pallas", "k8", "generate.cu", "generate.py:103"),
     )

@@ -3,9 +3,10 @@
 Each library has a plain C interface, so it compiles in seconds without
 PyTorch's headers.  It is built at first use, from the repository's sources
 only, into ``build/kernels/`` at the repository root, under a name that
-carries the hash of its source and flags.  The build writes to a temporary
-name and then ``os.replace``s it, so concurrent processes are safe: each
-either finds the finished library or installs an identical one.
+carries the hash of its source, the shared headers and the flags.  The
+build writes to a temporary name and then ``os.replace``s it, so
+concurrent processes are safe: each either finds the finished library or
+installs an identical one.
 
 The compiler's output (``-Xptxas -v``: registers, shared memory, spills) is
 kept beside the library as ``<name>.log``.
@@ -54,10 +55,14 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where the library built from ``csrc/<name>.cu`` lives."""
-    source = (CSRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(source + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+    """Where the library built from ``csrc/<name>.cu`` lives: named by the
+    hash of the source, every shared header ``csrc/*.cuh`` (so that editing
+    a header rebuilds each library) and the flags."""
+    digest = hashlib.sha256()
+    for path in [CSRC_DIR / f"{name}.cu", *sorted(CSRC_DIR.glob("*.cuh"))]:
+        digest.update(path.name.encode() + b"\0" + path.read_bytes() + b"\0")
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build(name: str) -> Path:

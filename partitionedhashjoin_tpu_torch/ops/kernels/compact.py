@@ -14,10 +14,11 @@ Counterpart of ``partitionedhashjoin_tpu/ops/pallas/compact.py``:
   compaction for any ``n`` and any output length, which the port's own
   operators call (the ``BLK`` contract exists only for the JAX API).
 
-On a CUDA tensor all three launch the hand-written kernels in
-``csrc/compact.cu`` (a count, a one-block scan and an ordered scatter); on a
-CPU tensor they run ``compact_plain``, the plain PyTorch version, which
-tests and ``chip_smoke.py`` also hold the kernels against and which
+On a CUDA tensor all three launch the hand-written kernel in
+``csrc/compact.cu`` (one pass over ``keep`` with a decoupled look-back, after
+a memset of its tile status words); on a CPU tensor they run
+``compact_plain``, the plain PyTorch version, which tests and
+``chip_smoke.py`` also hold the kernel against and which
 ``ops/filter.compact`` is built on.  Counts are 0-dim int64 tensors (JAX's
 are int32).
 """
@@ -39,12 +40,12 @@ LANES = 128
 #: Columns a call can carry besides ``pos``; equals kMaxCols in
 #: csrc/compact.cu (checked when the library loads).
 MAX_COLS = 6
-#: Rows per thread block; equals kTile in csrc/compact.cu (checked when the
-#: library loads).  Tests use it to place kept rows on block edges.
+#: Rows per tile; equals kTile in csrc/compact.cu (checked when the library
+#: loads).  Tests use it to place kept rows on tile edges.
 TILE_ROWS = 4096
 
-#: Calls that launched the kernels since the last reset (set to 0 to reset).
-#: One call launches three kernels on one stream and adds one.
+#: Calls that launched the kernel since the last reset (set to 0 to reset).
+#: One call makes one memset and one launch on one stream and adds one.
 LAUNCHES = 0
 
 _SIGNATURES = {
@@ -59,7 +60,7 @@ _SIGNATURES = {
             *([ctypes.c_void_p] * MAX_COLS),  # out0..out5
             ctypes.c_void_p,  # out_pos
             ctypes.c_int64,  # out_len
-            ctypes.c_void_p,  # scratch (2 * blocks int64)
+            ctypes.c_void_p,  # scratch (tiles + 1 int64)
             ctypes.c_void_p,  # total (int64)
             ctypes.c_void_p,  # cudaStream_t
         ),
@@ -145,7 +146,7 @@ def compact_rows(
     ``pos`` their original indices (int32), ``count`` exact even when it
     exceeds ``out_len``.  ``cols`` are at most ``MAX_COLS`` int32[n].  A CPU
     tensor runs the plain version (zero tail); a CUDA tensor launches the
-    kernels or raises, and with ``zero_tail`` False leaves the outputs past
+    kernel or raises, and with ``zero_tail`` False leaves the outputs past
     the kept rows unwritten."""
     global LAUNCHES
     _check(keep, cols)
@@ -161,8 +162,8 @@ def compact_rows(
     n = keep.shape[0]
     if n == 0:
         return (total, *outs)
-    blocks = -(-n // TILE_ROWS)
-    scratch = torch.empty((2 * blocks,), dtype=torch.int64, device=device)
+    tiles = -(-n // TILE_ROWS)
+    scratch = torch.empty((tiles + 1,), dtype=torch.int64, device=device)
     pad = [None] * (MAX_COLS - len(cols))
     ins = [c.data_ptr() for c in cols] + pad
     out_ptrs = [o.data_ptr() for o in outs[1:]] + pad
@@ -187,7 +188,7 @@ def block_compact(keep: torch.Tensor, *cols: torch.Tensor):
     n a multiple of ``BLK``; ``cols`` are at most ``MAX_COLS`` int32[n].
     The output has no sentinel gaps (``aligned_total`` is the kept count);
     elements at ``>= aligned_total`` are undefined.  A CUDA input launches
-    the kernels or raises."""
+    the kernel or raises."""
     _check_blocks(keep, cols)
     return compact_rows(keep, cols, keep.shape[0] + BLK, zero_tail=False)
 

@@ -6,8 +6,14 @@ tuples), so every comparison is exact.  JAX runs only its one-operand
 sorter here: its interpret-mode tuple sorts take 40 s (2 operands) to 126 s
 (3 operands) to compile on a CPU, so wider tuples are held to np.lexsort,
 which gives the same unique answer (the JAX package's own tests hold its
-tuple sort to it).  JAX calls reuse few padded shapes (every sort pads to
-3 blocks) because each new shape compiles its kernels again.
+tuple sort to it).  Each interpret-mode program costs ~12 s to compile per
+shape, so JAX calls reuse few padded shapes: every full sort pads to 3
+blocks and takes JAX's XLA phase A (``phase_a="xla"``) before its Pallas
+merge passes, since the Pallas block-sort network is held to the port on its
+own in ``test_sort_blocks_matches_jax``.
+
+The radix sort's host plan (``radix_plan``: digit order, skipped digits,
+buffer parity) is checked here too; its kernels run only on the card.
 """
 
 import numpy as np
@@ -56,7 +62,8 @@ def _sort_cases():
 def test_sort_i32_matches_jax(case):
     x = _sort_cases()[case]
     got = bs.sort_i32(torch.from_numpy(x))
-    want = np.asarray(jax_bs.sort_i32(jnp.asarray(x), interpret=True))
+    want = np.asarray(jax_bs.sort_i32_tuple(jnp.asarray(x), interpret=True,
+                                            phase_a="xla")[0])
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy(), want)
     np.testing.assert_array_equal(want, np.sort(x))
@@ -197,3 +204,105 @@ def test_contract_errors():
         bs.sort_i32(torch.arange(2 * BLK, dtype=torch.int32)[::2])
     with pytest.raises(ValueError):
         bs.sort_i32_tuple()
+
+
+# ---------------------------------------------------------------- radix plan
+
+
+def _hist(*cols):
+    return bs.radix_histograms_plain(*map(torch.from_numpy, cols))
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 4])
+def test_radix_digit_order(k):
+    """Least significant digit first: the last operand's byte 0 first, the
+    first operand's byte 3 last; every digit of a varied tuple runs."""
+    order = bs.digit_order(k)
+    assert order[0] == (k - 1, 0) and order[-1] == (0, 3)
+    assert order == [(c, b) for c in range(k - 1, -1, -1) for b in range(4)]
+    cols = [np.asarray([I32_MIN, -1, 0, 0x01020304, I32_MAX], np.int32)] * k
+    plan = bs.radix_plan(_hist(*cols))
+    assert list(plan.passes) == order
+
+
+def _skip_cases():
+    """(name, columns, the passes that must run)."""
+    r = _rng(40)
+    n = 5000
+    keys = r.integers(1, 10_000_001, n).astype(np.int32)
+    keys[:2] = [1, 10_000_000]
+    pay = r.integers(0, 1 << 20, n).astype(np.int32)
+    pay[:2] = [0, (1 << 20) - 1]
+    low3 = [(0, 0), (0, 1), (0, 2)]
+    return {
+        "constant_operand": ([np.full(n, -7, np.int32), keys],
+                             [(1, 0), (1, 1), (1, 2)]),
+        "keys_1_to_10M": ([keys], low3),
+        "payloads_below_2^20": ([pay], low3),
+        "all_zero_flag": ([np.zeros(n, np.int32), keys, pay],
+                          [(2, 0), (2, 1), (2, 2), (1, 0), (1, 1), (1, 2)]),
+        "all_constant": ([np.full(n, 3, np.int32)] * 3, []),
+    }
+
+
+@pytest.mark.parametrize("case", sorted(_skip_cases()))
+def test_radix_plan_skips_constant_digits(case):
+    cols, want = _skip_cases()[case]
+    plan = bs.radix_plan(_hist(*cols))
+    assert list(plan.passes) == want
+
+
+@pytest.mark.parametrize("passes", [1, 2, 3, 4, 7])
+def test_radix_plan_buffer_parity(passes):
+    """The buffers alternate and the last pass writes the output: an odd
+    count starts in the output, an even one in the scratch set."""
+    hist = torch.zeros((16, 256), dtype=torch.int64)
+    hist[:, 0] = 1
+    for c, b in bs.digit_order(4)[:passes]:
+        hist[4 * c + b, 1] = 1  # a second bucket: this digit varies
+    plan = bs.radix_plan(hist)
+    assert len(plan.passes) == passes
+    assert plan.targets[-1] == "out"
+    assert plan.targets[0] == ("out" if passes % 2 else "tmp")
+    assert all(a != b for a, b in zip(plan.targets, plan.targets[1:]))
+
+
+def _extreme_tuples(k):
+    r = _rng(50 + k)
+    n = 3000
+    cols = []
+    for c in range(k):
+        x = r.integers(-3, 3, n).astype(np.int32) if c < k - 1 else \
+            r.integers(I32_MIN, I32_MAX, n, dtype=np.int64).astype(np.int32)
+        x[::7] = I32_MIN
+        x[::11] = I32_MAX
+        x[::13] = -1
+        cols.append(x)
+    return cols
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 4])
+def test_radix_plan_passes_sort_like_lexsort(k):
+    """Stable sorts by the plan's digits, in its order, give np.lexsort's
+    unique answer, INT32_MIN and INT32_MAX included."""
+    cols = _extreme_tuples(k)
+    ts = [torch.from_numpy(c) for c in cols]
+    plan = bs.radix_plan(bs.radix_histograms_plain(*ts))
+    assert plan.passes  # the inputs vary
+    for c, b in plan.passes:
+        order = torch.sort(bs.digits_plain(ts[c], b), stable=True).indices
+        ts = [t[order] for t in ts]
+    for g, w in zip(ts, _lexsorted(cols)):
+        np.testing.assert_array_equal(g.numpy(), w)
+
+
+def test_radix_histograms_plain_counts_biased_bytes():
+    x = torch.tensor([I32_MIN, -1, 0, I32_MAX, 0x01020304], dtype=torch.int32)
+    hist = bs.radix_histograms_plain(x)
+    assert hist.shape == (4, 256) and int(hist.sum()) == 4 * 5
+    # biased: INT32_MIN -> 0x00000000, -1 -> 0x7fffffff, 0 -> 0x80000000,
+    # INT32_MAX -> 0xffffffff, 0x01020304 -> 0x81020304
+    assert hist[3].nonzero().flatten().tolist() == [0x00, 0x7F, 0x80, 0x81, 0xFF]
+    assert hist[0, 0x04] == 1 and hist[0, 0xFF] == 2 and hist[0, 0x00] == 2
+    with pytest.raises(ValueError):
+        bs.radix_plan(torch.zeros((5, 256)))

@@ -369,6 +369,58 @@ def test_compact_kernel_tile_edges_and_int32_extremes(cuda):
     assert not out[len(rows):].any() and not pos[len(rows):].any()
 
 
+def _one_pass_cases(cuda):
+    """(name, keep, out_len) for the one-pass K5: densities 0, 1 and 1/2,
+    one kept row per tile, a ragged n, a capacity cut, and tile edges seen
+    through keep views at each of the four byte alignments (the 16-byte
+    loads give way to byte loads)."""
+    t = kc.TILE_ROWS
+    n = 7 * t + 123
+    gen_ = torch.Generator(device=cuda)
+    gen_.manual_seed(71)
+    half = torch.rand(n, generator=gen_, device=cuda) < 0.5
+    one = torch.zeros(n, dtype=torch.bool, device=cuda)
+    one[[i * t + i * 97 % 100 for i in range(8)]] = True
+    cases = [
+        ("density_0", torch.zeros(n, dtype=torch.bool, device=cuda), n),
+        ("density_1", torch.ones(n, dtype=torch.bool, device=cuda), n),
+        ("density_half", half, n),
+        ("one_per_tile", one, n),
+        ("ragged", half[: 3 * t + 5], 3 * t + 5),
+        ("capacity_cut", half, 1000),
+    ]
+    edges = torch.zeros(n + 3, dtype=torch.bool, device=cuda)
+    for e in (t - 1, t, 2 * t - 1, 2 * t, 3 * t + 15, 3 * t + 16):
+        edges[e: e + 4] = True
+    for off in range(4):
+        cases.append((f"edges_align_{off}", edges[off: off + n], n))
+    return cases
+
+
+@pytest.mark.parametrize("n_cols", [0, 2, 6])
+def test_compact_one_pass_matches_plain(cuda, n_cols):
+    """The one-pass K5 equals compact_plain bit for bit (count, pos and
+    every column up to the capacity), with one launch per call."""
+    for name, keep, out_len in _one_pass_cases(cuda):
+        n = keep.shape[0]
+        cols = [torch.arange(n, dtype=torch.int32, device=cuda) * (c + 3) - c
+                for c in range(n_cols)]
+        before = kc.LAUNCHES
+        got = kc.compact_rows(keep, cols, out_len)
+        want = kc.compact_plain(keep, cols, out_len)
+        torch.cuda.synchronize()
+        assert kc.LAUNCHES == before + 1, name
+        assert int(got[0]) == int(want[0]), name
+        for g, w in zip(got[1:], want[1:]):
+            assert torch.equal(g, w), name
+    empty = torch.zeros(0, dtype=torch.bool, device=cuda)
+    before = kc.LAUNCHES
+    count, pos, *outs = kc.compact_rows(
+        empty, [torch.zeros(0, dtype=torch.int32, device=cuda)] * n_cols, 4)
+    assert kc.LAUNCHES == before and int(count) == 0
+    assert not pos.any() and len(outs) == n_cols
+
+
 def test_compact_wrapper_rejects_bad_inputs(cuda):
     keep = torch.ones(kc.BLK, dtype=torch.bool, device=cuda)
     col = torch.zeros(kc.BLK, dtype=torch.int32, device=cuda)
@@ -434,16 +486,50 @@ def _equal_lists(got, want):
         assert torch.equal(g, w)
 
 
+def _launches():
+    return (bs.LAUNCHES_UPSWEEP, bs.LAUNCHES_SORT, bs.LAUNCHES_BLOCKS,
+            bs.LAUNCHES_MERGE)
+
+
+def _sort_checked(cols):
+    """The radix sort against its plain version; it launches one upsweep
+    and one sweep per digit of its plan, and never K6a or K6b."""
+    before = _launches()
+    _equal_lists(bs.sort_i32_tuple(*cols), bs.sort_i32_tuple_plain(*cols))
+    n = cols[0].shape[0]
+    passes = len(bs.radix_plan(bs.radix_histograms_plain(*cols)).passes) if n else 0
+    grew = tuple(a - b for a, b in zip(_launches(), before))
+    assert grew == ((1 if n else 0), passes, 0, 0)
+
+
+def _radix_edge_columns(cuda, k, n, seed):
+    """The edge cases of chip_smoke's parity loop at a small n: every
+    operand constant (every digit skipped), keys in [1, 10M] (the top byte
+    skipped), and an operand of only INT32_MIN and INT32_MAX."""
+    rng = np.random.default_rng(seed)
+    keys = rng.integers(1, 10_000_001, n).astype(np.int32)
+    ends = np.where(rng.random(n) < 0.5, I32_MIN, I32_MAX).astype(np.int32)
+    narrow = [rng.integers(-2, 2, n).astype(np.int32) for _ in range(k - 1)]
+    cases = {
+        "constant": [np.full(n, 5 - c, np.int32) for c in range(k)],
+        "keys_1_to_10M": narrow + [keys],
+        "int32_ends": [ends] + narrow,
+    }
+    return {name: [torch.from_numpy(c).to(cuda) for c in cols]
+            for name, cols in cases.items()}
+
+
 @pytest.mark.parametrize("k", [1, 2, 3, 4])
 def test_tuple_sort_kernels_match_plain(cuda, k):
     blk = bs.BLK
     for n in (0, 1, 100, blk, blk + 1, 3 * blk - 5, 5 * blk + 17, 300_007):
-        cols = _tuple_columns(cuda, k, n, seed=n + k)
-        before = (bs.LAUNCHES_BLOCKS, bs.LAUNCHES_MERGE)
-        _equal_lists(bs.sort_i32_tuple(*cols), bs.sort_i32_tuple_plain(*cols))
-        blocks = -(-n // blk)
-        assert (bs.LAUNCHES_BLOCKS - before[0], bs.LAUNCHES_MERGE - before[1]) == (
-            (1, (blocks - 1).bit_length()) if n else (0, 0))
+        _sort_checked(_tuple_columns(cuda, k, n, seed=n + k))
+    for n in (1, bs.RADIX_TILE + 3, 70_001):
+        for cols in _radix_edge_columns(cuda, k, n, seed=n + 10 * k).values():
+            _sort_checked(cols)
+    # an unaligned view: the upsweep's 16-byte loads give way to scalar loads
+    cols = _tuple_columns(cuda, k, 50_001, seed=99 + k)
+    _sort_checked([c[1:] for c in cols])
     # a dominant tuple whose run is longer than a tile and than a run
     n = 40 * blk + 123
     gen_ = torch.Generator(device=cuda)
@@ -451,7 +537,7 @@ def test_tuple_sort_kernels_match_plain(cuda, k):
     cols = [torch.where(torch.rand(n, generator=gen_, device=cuda) < 0.9, 7,
                         torch.randint(-5, 5, (n,), generator=gen_, device=cuda)
                         ).to(torch.int32) for _ in range(k)]
-    _equal_lists(bs.sort_i32_tuple(*cols), bs.sort_i32_tuple_plain(*cols))
+    _sort_checked(cols)
     # the phases alone: blocks, pairs, a lone tail run, runs of 3 blocks
     cols = [c[: 7 * blk].contiguous() for c in cols]
     sb = bs.sort_blocks_tuple(*cols)
@@ -503,13 +589,16 @@ def test_sorter_switch_launches_k6_on_card(cuda):
     for impl in ("pallas", "auto"):
         merge_join.set_sort_impl(impl)
         try:
-            before = bs.LAUNCHES_BLOCKS
+            before = _launches()
             got = run_all()
         finally:
             merge_join.set_sort_impl("xla")
+        grew = tuple(a - b for a, b in zip(_launches(), before))
         # two sorts each for the counts, radix and materialize, one for the
-        # prepared build's probe plus its build, one GROUP BY pass 1
-        assert bs.LAUNCHES_BLOCKS - before == 2 + 2 + 2 + 2 + 2 + 1
+        # prepared build's probe plus its build, one GROUP BY pass 1: each
+        # the radix sort (an upsweep, then sweeps), never K6a or K6b
+        assert grew[0] == 2 + 2 + 2 + 2 + 2 + 1
+        assert grew[1] >= grew[0] and grew[2:] == (0, 0)
         assert got[:4] == want[:4] == [int(np.isin(b, a).sum())] * 4
         for g, w in zip(got[4], want[4]):
             assert torch.equal(g, w)

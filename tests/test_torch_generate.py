@@ -28,6 +28,13 @@ I32_MIN = np.iinfo(np.int32).min
 I32_MAX = np.iinfo(np.int32).max
 SEEDS = [0, 1, 42, 0x9E3779B9, 2**32 - 1]
 
+# One intra-op thread per process: the suite runs in several pytest-xdist
+# workers on shared cores, where torch's default of one thread per core
+# oversubscribes them (the plain Philox version's many small elementwise
+# ops slowed from 0.1 s to 28 s).  Each worker imports every test module,
+# so this holds for all the port's CPU tests of a run.
+torch.set_num_threads(1)
+
 
 def _keys():
     rng = np.random.default_rng(0)
