@@ -12,8 +12,14 @@ and raises on the first failure:
              prints the build time and ptxas' report of each.
 3. parity  — each kernel against its plain PyTorch version on the card,
              exactly, over edge cases and random runs of >= 1M rows:
-             K1 (int32 merge-probe count, ``exclude_int32_max`` off and on),
-             K3 (int64 merge-probe count), K2 (fused merge count), K4
+             K1 (int32 merge-probe count, ``exclude_int32_max`` off and on;
+             also the cases of its shared-memory merge: a build range of
+             ~50 chunks, duplicate and INT32_MAX build runs across a chunk
+             edge, empty ranges amid full tiles, tiles of one key, n_a = 1,
+             a ragged last tile, a probe view off a 16-byte boundary; and
+             a line with the main path's per-tile build-range lengths),
+             K3 (int64 merge-probe count; also keys that differ only above
+             bit 31 at a chunk edge), K2 (fused merge count), K4
              (merge-probe payload) and K5 (the one-pass stream compaction:
              densities 0, 0.01, 0.5 and 1, 1 to 6 columns, capacity
              overflow, ragged lengths, tile edges seen at each of the four
@@ -323,6 +329,58 @@ def _k1_cases(np, tile):
     return cases
 
 
+def _k1_merge_cases(np, tile, chunk):
+    """(name, a, b) int32 inputs that reach the branches of K1's merge in
+    shared memory (``chunk`` build rows per chunk): a build range of many
+    chunks, a duplicate build run across a chunk edge, a tile whose range is
+    empty amid full ones, tiles of one repeated key, INT32_MAX runs on both
+    sides at a chunk edge, n_a = 1 and a ragged last tile."""
+    rng = np.random.default_rng(SEED + 1)
+    dense = np.arange(1, 2_000_001)
+    return [
+        # each tile of 4,096 probe rows spans ~200K build rows (~50 chunks)
+        ("sparse_probe_many_chunks", dense, dense[::50]),
+        # key `chunk` has build rows on both sides of the first chunk edge
+        ("dup_run_across_chunk_edge",
+         np.concatenate([np.arange(chunk - 3), np.full(9, chunk),
+                         np.arange(chunk + 1, 3 * chunk)]),
+         np.concatenate([np.arange(0, 3 * chunk, 3), np.full(50, chunk)])),
+        # the middle tile's keys fall between two build runs
+        ("empty_range_amid_full",
+         np.concatenate([np.arange(10_000), np.arange(30_000, 40_000)]),
+         np.concatenate([np.arange(tile), np.arange(10_001, 10_001 + tile),
+                         np.arange(30_000, 30_000 + tile)])),
+        # tiles of one key with a build run three chunks long, of one key
+        # in the build, and of one key above every build key
+        ("one_key_tiles",
+         np.concatenate([np.arange(100), np.full(3 * chunk, 500),
+                         np.arange(501, 1000)]),
+         np.concatenate([np.arange(100), np.full(2 * tile + 7, 500),
+                         np.full(tile, 777), np.full(tile, 5000)])),
+        # the build's INT32_MAX run starts on a chunk edge; the probe's
+        # crosses a tile edge
+        ("int32_max_at_chunk_edge",
+         np.concatenate([np.arange(chunk), np.full(20, I32_MAX)]),
+         np.concatenate([np.arange(0, chunk, 2), np.full(5000, I32_MAX)])),
+        ("n_a_1", [5],
+         np.concatenate([np.full(3, 4), np.full(tile + 10, 5), np.full(7, 6)])),
+        ("ragged_last_tile", rng.integers(0, 50_000, 20_000),
+         rng.integers(0, 60_000, 3 * tile + 1)),
+    ]
+
+
+def _range_stats(torch, ranges, chunk):
+    """min, median, p99 and max of the tiles' build-range lengths, and the
+    share of tiles longer than one chunk."""
+    sizes = (ranges[:, 1] - ranges[:, 0]).double()
+    q = torch.quantile(sizes, torch.tensor([0.5, 0.99], dtype=torch.float64,
+                                           device=sizes.device)).tolist()
+    return (f"min {int(sizes.min())}, median {q[0]:.0f}, p99 {q[1]:.0f}, "
+            f"max {int(sizes.max())}; longer than one chunk of {chunk:,} "
+            f"rows: {float((sizes > chunk).double().mean()):.4%} of tiles; "
+            f"no fallback path")
+
+
 def _isin_oracle(np, a, b, exclude_max=None):
     a = np.asarray(a, np.int64)
     b = np.asarray(b, np.int64)
@@ -349,10 +407,17 @@ def parity_k1(torch, device):
                 None if oracle is None else oracle(ex),
             )
 
-    for name, a, b in _k1_cases(np, mp.TILE_ROWS):
+    for name, a, b in (_k1_cases(np, mp.TILE_ROWS)
+                       + _k1_merge_cases(np, mp.TILE_ROWS, mp.CHUNK_ROWS)):
         check(name, _sorted_on(torch, a, np.int32, device),
               _sorted_on(torch, b, np.int32, device),
               lambda ex, a=a, b=b: _isin_oracle(np, a, b, I32_MAX if ex else None))
+    # a probe run that starts 4 bytes past a 16-byte boundary: element copies
+    a, b = _k1_cases(np, mp.TILE_ROWS)[-2][1:]
+    b_s = _sorted_on(torch, b, np.int32, device)
+    check("ragged, probe view at row 1", _sorted_on(torch, a, np.int32, device),
+          b_s[1:], lambda ex: _isin_oracle(np, a, np.sort(b)[1:],
+                                           I32_MAX if ex else None))
 
     # the validity-mask protocol through merge_join on the card
     a = np.asarray([I32_MAX, 5, 9, I32_MAX, 77], np.int32)
@@ -382,6 +447,9 @@ def parity_k1(torch, device):
     b_sorted = torch.sort(b, stable=False).values
     del b
     check(f"main {_shape()}", a, b_sorted, lambda ex: N_SECONDARY)
+    log(f"[ranges K1] {_shape()}: build rows per probe tile (hi - lo) over "
+        f"{-(-N_SECONDARY // mp.TILE_ROWS):,} tiles: " + _range_stats(
+            torch, mp.tile_ranges_plain(a, b_sorted, True), mp.CHUNK_ROWS))
     kernel_ms, plain_ms = _time_pair(
         torch,
         lambda: mp.ranged_merge_count_prepared(a, b_sorted, True),
@@ -440,6 +508,27 @@ def _k3_cases(np, tile):
     return cases
 
 
+def _k3_merge_cases(np, tile, chunk):
+    """(name, a, b) int64 inputs for K3's merge in shared memory (``chunk``
+    build rows per chunk): keys that differ from build keys only above bit
+    31 around a chunk edge, a duplicate build run across a chunk edge and a
+    build range of many chunks."""
+    a = (np.arange(3 * chunk, dtype=np.int64) << 33) + 12_345
+    edge = a[chunk - 8 : chunk + 8]
+    dense = np.arange(1, 1_000_001, dtype=np.int64) + 2**40
+    return [
+        ("above_bit31_at_chunk_edge", a,
+         np.concatenate([a[::4], a[::4] + 2**32, edge, edge + 2**32,
+                         edge - 2**32])),
+        ("dup_run_across_chunk_edge",
+         np.concatenate([np.arange(chunk - 3), np.full(9, chunk),
+                         np.arange(chunk + 1, 3 * chunk)]) << 33,
+         np.concatenate([np.arange(0, 3 * chunk, 3),
+                         np.full(50, chunk)]) << 33),
+        ("sparse_probe_many_chunks", dense, dense[::50]),
+    ]
+
+
 def parity_k3(torch, device):
     import numpy as np
 
@@ -451,9 +540,15 @@ def parity_k3(torch, device):
         par.check(name, lambda: mp.ranged_merge_count_i64(a_s, b_s),
                   lambda: mp.ranged_merge_count_i64_plain(a_s, b_s), oracle)
 
-    for name, a, b in _k3_cases(np, mp.TILE_ROWS):
+    for name, a, b in (_k3_cases(np, mp.TILE_ROWS)
+                       + _k3_merge_cases(np, mp.TILE_ROWS, mp.CHUNK_ROWS_I64)):
         check(name, _sorted_on(torch, a, np.int64, device),
               _sorted_on(torch, b, np.int64, device), _isin_oracle(np, a, b))
+    a, b = _k3_cases(np, mp.TILE_ROWS)[-1][1:]  # 8 bytes past 16: element copies
+    check("int64_domain, probe view at row 1",
+          _sorted_on(torch, a, np.int64, device),
+          _sorted_on(torch, b, np.int64, device)[1:],
+          _isin_oracle(np, a, np.sort(b)[1:]))
 
     gen = torch.Generator(device=device)
     gen.manual_seed(SEED + 3)
@@ -471,6 +566,8 @@ def parity_k3(torch, device):
     b_sorted = torch.sort(b, stable=False).values
     del b
     check(f"main {_shape()}", a, b_sorted, N_SECONDARY)
+    log(f"[ranges K3] {_shape()}: " + _range_stats(
+        torch, mp.tile_ranges_plain(a, b_sorted), mp.CHUNK_ROWS_I64))
     kernel_ms, plain_ms = _time_pair(
         torch,
         lambda: mp.ranged_merge_count_i64(a, b_sorted),

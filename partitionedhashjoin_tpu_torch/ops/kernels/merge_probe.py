@@ -30,6 +30,12 @@ INT32_MAX = 2**31 - 1
 #: when the library loads).  Tests use it to place duplicate runs on tile edges.
 TILE_ROWS = 4096
 
+#: Build rows per shared-memory chunk of the count kernel, for int32 and
+#: for int64 keys: kChunk<Key> in csrc/merge_probe.cu, 16 KB of keys.
+#: Tests use them to place duplicate runs on chunk edges.
+CHUNK_ROWS = 4096
+CHUNK_ROWS_I64 = 2048
+
 #: Kernel launches since the last reset (set to 0 to reset).  Only a launch of
 #: the CUDA kernel adds to it: ``LAUNCHES`` for K1 (int32), ``LAUNCHES_I64``
 #: for K3 (int64).
@@ -45,6 +51,7 @@ _SIGNATURES = {
             ctypes.c_void_p,  # b
             ctypes.c_int64,  # n_b
             ctypes.c_int,  # exclude_int32_max
+            ctypes.c_void_p,  # ranges (int64 scratch, range_slots(n_b))
             ctypes.c_void_p,  # total (uint64 counter)
             ctypes.c_void_p,  # cudaStream_t
         ),
@@ -56,6 +63,7 @@ _SIGNATURES = {
             ctypes.c_int64,  # n_a
             ctypes.c_void_p,  # b
             ctypes.c_int64,  # n_b
+            ctypes.c_void_p,  # ranges (int64 scratch, range_slots(n_b))
             ctypes.c_void_p,  # total (uint64 counter)
             ctypes.c_void_p,  # cudaStream_t
         ),
@@ -89,6 +97,34 @@ def load_library() -> ctypes.CDLL:
             f"{TILE_ROWS}"
         )
     return lib
+
+
+def range_slots(n_b: int) -> int:
+    """Length of the kernels' int64 scratch for ``n_b`` probe rows: the
+    (lo, hi) build range of every probe tile, then the search limit."""
+    return 2 * -(-n_b // TILE_ROWS) + 1
+
+
+def tile_ranges_plain(
+    a_sorted: torch.Tensor, b_sorted: torch.Tensor, exclude_int32_max: bool = False
+) -> torch.Tensor:
+    """The build range [lo, hi) that the count kernel merges for each probe
+    tile of ``TILE_ROWS`` rows, as an (n_tiles, 2) int64 tensor: lo =
+    lower_bound(first key), hi = lower_bound(last key), plus one where the
+    last key is in ``a_sorted``, both clamped to the search limit.  The
+    first occurrence of every build key a tile's rows can match lies in its
+    range; the range is empty when none can."""
+    n_b, n_a = b_sorted.shape[0], a_sorted.shape[0]
+    if n_b == 0:
+        return torch.zeros((0, 2), dtype=torch.int64, device=a_sorted.device)
+    starts = torch.arange(0, n_b, TILE_ROWS, device=b_sorted.device)
+    lasts = b_sorted[torch.clamp(starts + TILE_ROWS, max=n_b) - 1]
+    lo = torch.searchsorted(a_sorted, b_sorted[starts], side="left")
+    hi = torch.searchsorted(a_sorted, lasts, side="left")
+    if n_a:
+        hi = hi + (a_sorted[torch.clamp(hi, max=n_a - 1)] == lasts)
+    limit = _search_limit(a_sorted, exclude_int32_max)
+    return torch.clamp(torch.stack([lo, hi], dim=1), max=limit)
 
 
 def _search_limit(a_sorted: torch.Tensor, exclude_int32_max: bool) -> int:
@@ -184,11 +220,12 @@ def _launch(entry: str, a_sorted, b_sorted, *flags):
     if n_a == 0 or n_b == 0:
         return total, 0
     lib = load_library()
+    ranges = torch.empty(range_slots(n_b), dtype=torch.int64, device=device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = getattr(lib, entry)(
             a_sorted.data_ptr(), n_a, b_sorted.data_ptr(), n_b, *flags,
-            total.data_ptr(), stream,
+            ranges.data_ptr(), total.data_ptr(), stream,
         )
     if err != 0:
         raise RuntimeError(f"{entry} launch failed: CUDA error {err}")

@@ -65,6 +65,38 @@ def _cases():
         "ragged": (rng.integers(-5000, 5000, 3000),
                    rng.integers(-6000, 6000, 5 * t + 123)),
         "int32_domain": (a, b),
+        **_merge_cases(t, mp.CHUNK_ROWS),
+    }
+
+
+def _merge_cases(t, c):
+    """Inputs that reach the branches of K1's merge in shared memory (t
+    probe rows per tile, c build rows per chunk), as chip_smoke.py builds
+    them."""
+    rng = np.random.default_rng(5)
+    dense = np.arange(1, 2_000_001)
+    return {
+        "sparse_probe_many_chunks": (dense, dense[::50]),
+        "dup_run_across_chunk_edge": (
+            np.concatenate([np.arange(c - 3), np.full(9, c),
+                            np.arange(c + 1, 3 * c)]),
+            np.concatenate([np.arange(0, 3 * c, 3), np.full(50, c)])),
+        "empty_range_amid_full": (
+            np.concatenate([np.arange(10_000), np.arange(30_000, 40_000)]),
+            np.concatenate([np.arange(t), np.arange(10_001, 10_001 + t),
+                            np.arange(30_000, 30_000 + t)])),
+        "one_key_tiles": (
+            np.concatenate([np.arange(100), np.full(3 * c, 500),
+                            np.arange(501, 1000)]),
+            np.concatenate([np.arange(100), np.full(2 * t + 7, 500),
+                            np.full(t, 777), np.full(t, 5000)])),
+        "int32_max_at_chunk_edge": (
+            np.concatenate([np.arange(c), np.full(20, I32_MAX)]),
+            np.concatenate([np.arange(0, c, 2), np.full(5000, I32_MAX)])),
+        "n_a_1": ([5], np.concatenate([np.full(3, 4), np.full(t + 10, 5),
+                                       np.full(7, 6)])),
+        "ragged_last_tile": (rng.integers(0, 50_000, 20_000),
+                             rng.integers(0, 60_000, 3 * t + 1)),
     }
 
 
@@ -82,6 +114,29 @@ def test_kernel_matches_plain(cuda, case, exclude):
     assert got.device == a.device and got.dtype == torch.int64 and got.dim() == 0
     assert int(got) == int(want)
     assert mp.LAUNCHES == before + (1 if a.numel() and b.numel() else 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+def test_kernel_on_unaligned_probe_view(cuda, dtype):
+    """A probe run that starts off a 16-byte boundary is copied key by key
+    and counted exactly."""
+    rng = np.random.default_rng(41)
+    a = torch.sort(torch.tensor(rng.integers(-5000, 5000, 3000),
+                                dtype=dtype, device=cuda)).values
+    b = torch.sort(torch.tensor(rng.integers(-6000, 6000, 5 * mp.TILE_ROWS + 9),
+                                dtype=dtype, device=cuda)).values
+    for start in (1, 2, 3):
+        if start * b.element_size() % 16 == 0:
+            continue
+        view = b[start:]
+        assert view.data_ptr() % 16 != 0
+        if dtype == torch.int32:
+            got = mp.ranged_merge_count_prepared(a, view, True)
+            want = mp.ranged_merge_count_plain(a, view, True)
+        else:
+            got = mp.ranged_merge_count_i64(a, view)
+            want = mp.ranged_merge_count_i64_plain(a, view)
+        assert int(got) == int(want)
 
 
 def test_two_run_count_on_card_matches_cpu(cuda):
@@ -129,6 +184,25 @@ def _i64_cases():
                                      np.full(t + 1, 12),
                                      np.repeat(np.arange(13, 90), 777)]) << 33),
         "int64_domain": (a, b),
+        **_i64_merge_cases(mp.CHUNK_ROWS_I64),
+    }
+
+
+def _i64_merge_cases(c):
+    """K3's merge cases (c build rows per chunk), as chip_smoke.py builds
+    them."""
+    a = (np.arange(3 * c, dtype=np.int64) << 33) + 12_345
+    edge = a[c - 8 : c + 8]
+    dense = np.arange(1, 1_000_001, dtype=np.int64) + 2**40
+    return {
+        "above_bit31_at_chunk_edge": (
+            a, np.concatenate([a[::4], a[::4] + 2**32, edge, edge + 2**32,
+                               edge - 2**32])),
+        "dup_run_across_chunk_edge": (
+            np.concatenate([np.arange(c - 3), np.full(9, c),
+                            np.arange(c + 1, 3 * c)]) << 33,
+            np.concatenate([np.arange(0, 3 * c, 3), np.full(50, c)]) << 33),
+        "sparse_probe_many_chunks": (dense, dense[::50]),
     }
 
 

@@ -157,3 +157,63 @@ def test_wrapper_rejects_bad_inputs():
         mp.ranged_merge_count_i64(a.to("meta"), a.to("meta"))
     with pytest.raises(TypeError):
         mj.two_run_count_i64(a.to(torch.uint64), a)
+
+
+def _merge_cases(chunk):
+    """The int64 inputs that reach the branches of the CUDA kernel's merge
+    in shared memory (``chunk`` build rows per chunk), as chip_smoke.py
+    builds them: keys that differ from build keys only above bit 31 around
+    a chunk edge, a duplicate build run across a chunk edge and a build
+    range of many chunks."""
+    a = (np.arange(3 * chunk, dtype=np.int64) << 33) + 12_345
+    edge = a[chunk - 8 : chunk + 8]
+    dense = np.arange(1, 1_000_001, dtype=np.int64) + 2**40
+    return {
+        "above_bit31_at_chunk_edge": (
+            a, np.concatenate([a[::4], a[::4] + 2**32, edge, edge + 2**32,
+                               edge - 2**32]),
+        ),
+        "dup_run_across_chunk_edge": (
+            np.concatenate([np.arange(chunk - 3), np.full(9, chunk),
+                            np.arange(chunk + 1, 3 * chunk)]) << 33,
+            np.concatenate([np.arange(0, 3 * chunk, 3),
+                            np.full(50, chunk)]) << 33,
+        ),
+        "sparse_probe_many_chunks": (dense, dense[::50]),
+    }
+
+
+MERGE_CASES = _merge_cases(mp.CHUNK_ROWS_I64)
+
+
+@pytest.mark.parametrize("case", sorted(MERGE_CASES))
+def test_merge_cases_plain_matches_numpy(case):
+    """The chip's merge cases: the plain version and the tile ranges the
+    kernel merges, against numpy; each case has the shape its name claims
+    on the card (its first tile's range spans more than one chunk)."""
+    a, b = (_sorted(x) for x in MERGE_CASES[case])
+    got = mp.ranged_merge_count_i64(torch.from_numpy(a), torch.from_numpy(b))
+    assert int(got) == int(np.isin(b, a).sum())
+    ranges = mp.tile_ranges_plain(torch.from_numpy(a), torch.from_numpy(b)).numpy()
+    assert ranges.shape == (-(-b.size // TILE), 2)
+    for t, (lo, hi) in enumerate(ranges):
+        rows = b[t * TILE : (t + 1) * TILE]
+        first = np.searchsorted(a, rows[np.isin(rows, a)])
+        assert ((first >= lo) & (first < hi)).all()
+        assert ((a[lo:hi] >= rows[0]) & (a[lo:hi] <= rows[-1])).all()
+    assert ranges[0, 1] - ranges[0, 0] > mp.CHUNK_ROWS_I64
+    assert mp.LAUNCHES_I64 == 0
+
+
+def test_above_bit31_matches_jax_kernel():
+    """Keys that differ from build keys only above bit 31, at the (3,000,
+    20,000) shape ``random_full_domain`` has compiled."""
+    a = (np.arange(3000, dtype=np.int64) << 33) + 12_345
+    b = np.concatenate([a, a + 2**32, a - 2**32, a ^ (1 << 40)])
+    b = _sorted(np.resize(b, 20_000))
+    with jax.enable_x64(True):
+        got_jax = int(jax_mp.ranged_merge_count_i64(
+            jnp.asarray(a), jnp.asarray(b), interpret=True
+        ))
+    got = mp.ranged_merge_count_i64(torch.from_numpy(a), torch.from_numpy(b))
+    assert int(got) == got_jax == int(np.isin(b, a).sum())
