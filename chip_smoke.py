@@ -19,7 +19,9 @@ and raises on the first failure:
              a ragged last tile, a probe view off a 16-byte boundary; and
              a line with the main path's per-tile build-range lengths),
              K3 (int64 merge-probe count; also keys that differ only above
-             bit 31 at a chunk edge), K2 (fused merge count), K4
+             bit 31 at a chunk edge), K2 (fused merge count; also rows in
+             any order, a carry across 1,001 tiles, n = 1 and a tile +- 1,
+             key and tag views off a 16-byte boundary), K4
              (merge-probe payload) and K5 (the one-pass stream compaction:
              densities 0, 0.01, 0.5 and 1, 1 to 6 columns, capacity
              overflow, ragged lengths, tile edges seen at each of the four
@@ -39,7 +41,10 @@ and raises on the first failure:
              phase counterparts, phase A K6a and merge pass K6b; K7 (the
              seeded hash, bitwise) and
              K8 (the Zipf sampler: its uniforms bit for bit, at most 1e-4 of
-             its keys off by at most 2), each timed at 200M rows beside its
+             its keys off by at most 2, also with 1 round; with 0 rounds
+             every key 1; the first m of 200M keys equal the m keys drawn
+             alone; its bound from a round's SASS instructions by pipe and
+             the rounds this seed needs), each timed at 200M rows beside its
              plain version, its bound and the library call where one exists
              (``torch.sort`` for a 1-operand sort, also over the main
              path's 200M Zipf probe keys, the packed int64
@@ -108,15 +113,32 @@ SKEW = 1.05
 SEED = 20260816
 #: The H100 SXM's device-memory rate (NVIDIA data sheet), for the bounds.
 HBM_BYTES_PER_S = 3.35e12
-#: The H100 SXM's float32 rate outside the tensor cores (NVIDIA data sheet),
-#: for K8's operations bound; its int32 operations are counted at the same
-#: rate, which is at least H100's int32 rate, so the bound stays a least time.
-OPS_PER_S = 67e12
-#: K8's operations per sampling round: Philox4x32-10 (10 rounds of 2
-#: mul.lo, 2 mul.hi and 4 xor, 9 key bumps of 2 adds: 98), three uniforms
-#: (shift, or, subtract: 9) and zipf_candidates (15 float operations and 3
-#: powf, each counted as one: 18).
-K8_OPS_PER_ROUND = 98 + 9 + 18
+#: K8's operations bound: lanes per clock per SM of each pipe on compute
+#: capability 9.0 (CUDA C++ Programming Guide, throughput of native
+#: arithmetic instructions): fp32 add/multiply/fma 128; integer add, logic,
+#: shift, compare, min/max and select 64 (float compare, select and
+#: min/max issue to the same ALU pipe); integer multiply(-add) 64; MUFU
+#: (special functions), conversions, popc and leading zeros 16.  Every
+#: instruction also takes an issue slot: 4 warp instructions a clock per
+#: SM (128 lanes).  The rates are least times per instruction, so the
+#: bound stays a least time.
+SASS_PIPES = (
+    ("fp32", 128, ("FADD", "FMUL", "FFMA")),
+    ("alu", 64, ("IADD3", "IADD", "VIADD", "LOP3", "LOP", "SHF", "SHL",
+                 "SHR", "ISETP", "IMNMX", "VIMNMX", "LEA", "SEL", "FSEL",
+                 "FSETP", "FMNMX", "PRMT", "IABS", "BMSK", "SGXT")),
+    ("imad", 64, ("IMAD", "IMUL")),
+    ("mufu", 16, ("MUFU", "F2I", "I2F", "F2F", "FRND", "POPC", "FLO", "BREV")),
+)
+ISSUE_LANES = 128
+#: SASS opcodes that do none of a round's work: branches and convergence,
+#: votes, special-register reads, moves, constant loads and the stores of
+#: the kernel whose instructions are counted.  K8's bound leaves them out.
+SASS_NOT_WORK = frozenset((
+    "BRA", "BSSY", "BSYNC", "BREAK", "BMOV", "WARPSYNC", "EXIT", "RET",
+    "CALL", "NOP", "YIELD", "VOTE", "VOTEU", "POPC", "MOV", "MOV32I", "UMOV",
+    "IMAD.MOV", "HFMA2.MOV", "S2R", "S2UR", "CS2R", "LDC", "ULDC", "STG",
+    "ST", "RED", "ATOM", "ATOMG"))
 I32_MAX = 2**31 - 1
 I32_MIN = -(2**31)
 I64_MAX = 2**63 - 1
@@ -638,7 +660,34 @@ def _k2_cases(np, tile):
     b = rng.integers(I32_MIN, I32_MAX, 1_200_000, dtype=np.int64)
     b[:500_000] = rng.choice(a, 500_000)
     cases.append(("random_300K_x_1.2M_full_domain", *_merged(np, a, b)))
+    # n = 1 and one row either side of a tile
+    for n in (1, tile - 1, tile + 1):
+        a = rng.integers(-300, 300, n // 3 + 1)
+        b = rng.integers(-300, 300, n - a.size)
+        cases.append((f"n_{n}", *_merged(np, a, b)))
+    # the count is defined for rows in any order: keys on a random walk
+    # that falls back often (the running maximum is not the last build
+    # key), random tags; and a stream over 1,002 tiles whose largest build
+    # key is its first row: it carries to the probe rows of the last tile
+    # past later, smaller build keys
+    keys = np.cumsum(rng.integers(-3, 5, 1_000_003)).astype(np.int32)
+    build = rng.random(keys.size) < 0.3
+    cases.append(("unsorted", keys, build, _count_oracle(np, keys, build)))
+    n = 1001 * tile + 17
+    keys = rng.integers(-50, 50, n).astype(np.int32)
+    build = rng.random(n) < 0.01
+    keys[0], build[0] = 60, True
+    keys[500 * tile], build[500 * tile] = 55, True
+    keys[-5:], build[-5:] = 60, False
+    cases.append(("unsorted_carry_1001_tiles", keys, build,
+                  _count_oracle(np, keys, build)))
     return cases
+
+
+def _count_oracle(np, keys, build):
+    """K2's count by numpy, for rows in any order."""
+    last = np.maximum.accumulate(np.where(build, keys, I32_MIN))
+    return int((~build & (last == keys) & (keys != I32_MIN)).sum())
 
 
 def parity_k2(torch, device):
@@ -653,11 +702,23 @@ def parity_k2(torch, device):
         par.check(name, lambda: mc.merge_count_sorted(keys, is_build),
                   lambda: mc.merge_count_sorted_plain(keys, is_build), oracle)
 
-    for name, keys, is_build, oracle in _k2_cases(np, mc.TILE_ROWS):
+    cases = _k2_cases(np, mc.TILE_ROWS)
+    for name, keys, is_build, oracle in cases:
         t_keys = torch.tensor(keys, device=device)
         check(name, t_keys, torch.tensor(is_build, device=device), oracle)
         check(name + " (uint8 tags)", t_keys,
               torch.tensor(is_build.astype(np.uint8), device=device), oracle)
+    # views off a 16-byte boundary: keys 0..3 rows in, tags at the same or
+    # at another byte offset (then loaded byte by byte)
+    name, keys, is_build, oracle = cases[-2]
+    n = keys.size
+    for k_off, t_off in ((1, 1), (3, 3), (1, 5), (0, 3), (2, 0)):
+        k_buf = torch.zeros(n + 8, dtype=torch.int32, device=device)
+        t_buf = torch.zeros(n + 16, dtype=torch.bool, device=device)
+        k_buf[k_off:k_off + n] = torch.tensor(keys, device=device)
+        t_buf[t_off:t_off + n] = torch.tensor(is_build, device=device)
+        check(f"{name} as keys[{k_off}:], tags[{t_off}:]",
+              k_buf[k_off:k_off + n], t_buf[t_off:t_off + n], oracle)
 
     # the main path's 210M-row merged stream
     a, b = _reference_data(torch, device, torch.int32)
@@ -670,14 +731,16 @@ def parity_k2(torch, device):
         lambda: mc.merge_count_sorted_plain(keys_s, is_build_s),
     )
     n = keys_s.shape[0]
+    bound = _bound_ms(n * (4 + 1))
     log(
         f"[time K2] {n}-row merged stream: kernel {kernel_ms:.4f} ms "
-        f"({n / (kernel_ms * 1e-3):.4e} rows/s), plain {plain_ms:.4f} ms"
+        f"({n / (kernel_ms * 1e-3):.4e} rows/s, {bound / kernel_ms:.1%} of "
+        f"the bound {bound:.4f} ms), plain {plain_ms:.4f} ms"
     )
     del keys_s, is_build_s
     return {
         "max_abs_err": par.max_err, "ms": kernel_ms, "plain_ms": plain_ms,
-        "bound_ms": _bound_ms(n * (4 + 1)),
+        "bound_ms": bound,
         # no single PyTorch call computes the merge count
         "library_ms": None,
     }
@@ -1124,10 +1187,207 @@ def parity_k7(torch, device):
             "bound_ms": bound, "library_ms": None}
 
 
-def parity_k8(torch, device):
+def _sass_mixes(sass, function, loop):
+    """SASS instructions of one round of the Zipf sampler, by opcode, in the
+    function of ``cuobjdump -sass`` output ``sass`` whose mangled name
+    contains ``function``: with ``loop``, its step loop (the widest backward
+    branch), else its body up to the first unguarded EXIT.  Returns the
+    shortest path in instructions through that region that passes its first
+    MUFU (the first ``powf``, which every round evaluates), and the shortest
+    that passes every MUFU (a round whose sample exceeds 1 also evaluates
+    the third ``powf`` and a division).  Special cases of ``powf`` and the
+    division's slow path lie off both, so each is a least count for its
+    kind of round.  Returns ({opcode: count} of the first, of the second);
+    the moves ``IMAD.MOV`` and ``HFMA2`` of a constant (``HFMA2.MOV``) are
+    counted apart from ``IMAD`` and ``HFMA2``."""
+    import re
+
+    body = None
+    for part in sass.split("Function : ")[1:]:
+        if function in part.split(None, 1)[0]:
+            body = part
+    if body is None:
+        raise AssertionError(f"[bound K8] no function {function} in the SASS")
+    # (address, opcode, guarded, branch target or None)
+    code, labels, pending = [], {}, []
+    for line in body.splitlines():
+        label = re.match(r"\s*(\.L_x_\d+):", line)
+        if label:
+            pending.append(label.group(1))
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if not m:
+            continue
+        addr = int(m.group(1), 16)
+        for name in pending:
+            labels[name] = addr
+        pending = []
+        words = m.group(2).split()
+        guard = words.pop(0) if words[0].startswith("@") else None
+        if guard == "@!PT":
+            continue  # never runs
+        op = words[0].split(".")[0]
+        if words[0].startswith("IMAD.MOV"):
+            op = "IMAD.MOV"
+        elif op == "HFMA2" and words[2:4] == ["-RZ,", "RZ,"]:
+            op = "HFMA2.MOV"  # -0 * 0 + a constant: a move
+        target = None
+        if op == "BRA":
+            t = re.search(r"(\.L_x_\d+|0x[0-9a-f]+)", " ".join(words[1:]))
+            target = t.group(1)
+        code.append([addr, op, guard not in (None, "@PT")
+                     or (op == "BRA" and "," in " ".join(words[1:])), target])
+    for ins in code:
+        if ins[3] is not None:
+            ins[3] = labels[ins[3]] if ins[3] in labels else int(ins[3], 16)
+    if loop:
+        back = [ins for ins in code if ins[3] is not None and ins[3] < ins[0]]
+        if not back:
+            raise AssertionError(f"[bound K8] no loop in {function}")
+        tail = max(back, key=lambda ins: ins[0] - ins[3])
+        region = [ins for ins in code if tail[3] <= ins[0] <= tail[0]]
+    else:
+        tail = None
+        end = next(i for i, ins in enumerate(code)
+                   if ins[1] == "EXIT" and not ins[2])
+        region = code[:end + 1]
+    # basic blocks: a block starts at the head, at a branch target and
+    # after a branch or exit
+    starts = {region[0][0]} | {ins[3] for ins in region if ins[3] is not None}
+    starts |= {b[0] for a, b in zip(region, region[1:])
+               if a[1] in ("BRA", "EXIT")}
+    blocks, index = [], {}
+    for ins in region:
+        if ins[0] in starts or not blocks:
+            index[ins[0]] = len(blocks)
+            blocks.append([])
+        blocks[-1].append(ins)
+    succ = []
+    for i, block in enumerate(blocks):
+        last = block[-1]
+        nxt = [i + 1] if i + 1 < len(blocks) else []
+        if last[1] == "BRA" and last is not tail:
+            to = [index[last[3]]] if last[3] in index else []
+            succ.append(to + nxt if last[2] else to)
+        elif last[1] == "EXIT":
+            succ.append(nxt if last[2] else [])
+        else:
+            succ.append(nxt)
+    mufu = [i for i, b in enumerate(blocks) if any(x[1] == "MUFU" for x in b)]
+
+    def shortest(src, dst):
+        """Fewest instructions on a path src -> dst (blocks in address
+        order; every edge but a loop's back edge goes forward)."""
+        best = {src: (len(blocks[src]), [src])}
+        for i in range(src, dst + 1):
+            if i in best:
+                for j in succ[i]:
+                    cand = best[i][0] + len(blocks[j])
+                    if j <= dst and (j not in best or cand < best[j][0]):
+                        best[j] = (cand, best[i][1] + [j])
+        return best[dst][1]
+
+    def mix_through(stops):
+        path, at = [0], 0
+        for stop in [*stops, len(blocks) - 1]:
+            path += shortest(at, stop)[1:]
+            at = stop
+        mix = {}
+        for i in path:
+            for ins in blocks[i]:
+                mix[ins[1]] = mix.get(ins[1], 0) + 1
+        return mix
+
+    return mix_through(mufu[:1]), mix_through(mufu)
+
+
+def _k8_bound(torch, card_line, rounds):
+    """K8's least time at this run's rounds (``_k8_rounds``): the larger of
+    its writes and the busiest pipe (``SASS_PIPES``, and the issue slots),
+    counting for each round the least SASS instructions of its kind of
+    round in ``zipf_round_kernel`` (one round as straight-line code), less
+    the opcodes that do none of its work (``SASS_NOT_WORK``), on every SM at
+    the card's top SM clock.  The step of ``zipf_kernel<false>`` is counted
+    too, all of it, and its excess over the round printed as the schedule's
+    overhead; the bound does not count it."""
+    from pathlib import Path
+
+    from partitionedhashjoin_tpu_torch.ops.kernels import _build
+
+    cuobjdump = Path(_build.find_nvcc()).parent / "cuobjdump"
+    sass = subprocess.run(
+        [str(cuobjdump), "-sass", str(_build.library_path("generate"))],
+        capture_output=True, text=True, timeout=120, check=True).stdout
+    whole = _sass_mixes(sass, "zipf_round_kernel", loop=False)
+    short, long = ({op: c for op, c in mix.items() if op not in SASS_NOT_WORK}
+                   for mix in whole)
+    steps = _sass_mixes(sass, "zipf_kernelILb0E", loop=True)
+    total, above_1 = rounds
+    lanes = {op: short.get(op, 0) * (total - above_1) + long.get(op, 0) * above_1
+             for op in {*short, *long}}
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True)
+    clock_hz = float(smi.stdout.split()[0]) * 1e6
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    per_ms = sms * clock_hz * 1e-3  # SM clocks per ms
+    pipes = {"issue": sum(lanes.values()) / (ISSUE_LANES * per_ms)}
+    for name, rate, ops in SASS_PIPES:
+        pipes[name] = sum(lanes.get(op, 0) for op in ops) / (rate * per_ms)
+    writes_ms = _bound_ms(N_SECONDARY * 4)
+    by = max(pipes, key=pipes.get)
+
+    def listed(mix):
+        return dict(sorted(mix.items(), key=lambda kv: -kv[1]))
+
+    def left_out(work, mix):
+        return listed({op: c for op, c in mix.items() if op not in work})
+
+    log(f"[bound K8] least SASS instructions of a round (zipf_round_kernel, "
+        f"the opcodes of SASS_NOT_WORK left out): {sum(short.values())} for "
+        f"a round whose sample is 1 {listed(short)}, {sum(long.values())} for "
+        f"one above 1 {listed(long)}; left out {left_out(short, whole[0])} "
+        f"and {left_out(long, whole[1])}")
+    log(f"[bound K8] a step of zipf_kernel<false>, all of it: "
+        f"{sum(steps[0].values())} and {sum(steps[1].values())} instructions, "
+        f"so the schedule's overhead (loop, refill, branches, moves) is "
+        f"{sum(steps[0].values()) - sum(short.values())} and "
+        f"{sum(steps[1].values()) - sum(long.values())} a step, not counted "
+        f"in the bound; step mix above 1 {listed(steps[1])}")
+    log(f"[bound K8] {total:,} rounds, {above_1:,} above 1; {sms} SMs at "
+        f"{clock_hz / 1e6:.0f} MHz (clocks.max.sm; {card_line}): pipes (ms) "
+        f"{ {k: round(v, 4) for k, v in pipes.items()} }, writes "
+        f"{writes_ms:.4f} ms; bound by {by}")
+    return max(writes_ms, pipes[by])
+
+
+def _k8_rounds(torch, n, card, device):
+    """(rounds the sampler evaluates for slots [0, n) of this run's seed,
+    those whose sample exceeds 1): each slot's rounds up to its first
+    accept, or all 16 (the plain version's uniforms and arithmetic)."""
+    from partitionedhashjoin_tpu_torch.ops import generators
+    from partitionedhashjoin_tpu_torch.ops.kernels import generate as kg
+
+    todo = torch.arange(n, dtype=torch.int64, device=device)
+    total = above_1 = 0
+    for r in range(16):
+        if todo.numel() == 0:
+            break
+        total += todo.numel()
+        u1, u2, u3 = kg.philox_uniforms_plain(SEED, todo, r)
+        sample, ok = generators.zipf_candidates(u1, u2, SKEW, card, u3=u3)
+        above_1 += int((sample > 1).sum())
+        todo = todo[~ok]
+    return total, above_1
+
+
+def parity_k8(torch, device, card_line):
     """K8's uniforms against the plain Philox bit for bit; its keys against
     the plain version (at most 1e-4 differ, each by at most 2), at 4M and at
-    the main path's 200M keys over [1, 10M]; timed at 200M."""
+    the main path's 200M keys over [1, 10M], and with 1 round; exactly with
+    0 rounds; a prefix of n keys equals the keys drawn for the prefix's
+    length exactly; timed at 200M."""
     from partitionedhashjoin_tpu_torch.ops import generators
     from partitionedhashjoin_tpu_torch.ops.kernels import generate as kg
 
@@ -1139,9 +1399,9 @@ def parity_k8(torch, device):
                           lambda: kg.philox_uniforms_plain(
                               SEED, torch.arange(n, device=device), r))
 
-    def keys_within(name, n, card):
-        got = kg.zipf_keys_pallas(SEED, n, SKEW, card, device=device)
-        want = kg.zipf_keys_plain(SEED, n, SKEW, card, device=device)
+    def keys_within(name, n, card, rounds=16):
+        got = kg.zipf_keys_pallas(SEED, n, SKEW, card, rounds, device=device)
+        want = kg.zipf_keys_plain(SEED, n, SKEW, card, rounds, device=device)
         torch.cuda.synchronize()
         differ = int((got != want).sum())
         err = int((got - want).abs().max())
@@ -1151,11 +1411,25 @@ def parity_k8(torch, device):
                                  f"by at most {err}")
         log(f"[parity K8] {name}: {differ} of {n:,} keys differ from the plain "
             f"version, by at most {err}: ok")
+        return got
 
     for card in (500, N_PRIMARY, 100_000_000):
         keys_within(f"card {card:,}", n, card)
-    keys_within(f"main {N_SECONDARY:,} keys over [1, {N_PRIMARY:,}]",
-                N_SECONDARY, N_PRIMARY)
+    keys_within(f"card {N_PRIMARY:,}, 1 round", n, N_PRIMARY, rounds=1)
+    par.check_tensors(f"card {N_PRIMARY:,}, 0 rounds (every key 1)",
+                      lambda: [kg.zipf_keys_pallas(SEED, n, SKEW, N_PRIMARY, 0,
+                                                   device=device)],
+                      lambda: [torch.ones(n, dtype=torch.int32, device=device)])
+    main = keys_within(f"main {N_SECONDARY:,} keys over [1, {N_PRIMARY:,}]",
+                       N_SECONDARY, N_PRIMARY)
+    # the prefix property: a slot's key does not depend on n, on the warp
+    # that drew it or on the step it was drawn in
+    for m in (1, 33, 2_047, 1_000_003, n + 5):
+        par.check_tensors(f"prefix: first {m:,} of {N_SECONDARY:,} keys",
+                          lambda: [main[:m]],
+                          lambda: [kg.zipf_keys_pallas(SEED, m, SKEW, N_PRIMARY,
+                                                       device=device)])
+    del main
     kernel_ms = _time_ms(torch, lambda: kg.zipf_keys_pallas(
         SEED, N_SECONDARY, SKEW, N_PRIMARY, device=device), reps=5)
     plain_ms = _time_ms(torch, lambda: kg.zipf_keys_plain(
@@ -1164,20 +1438,14 @@ def parity_k8(torch, device):
     gen.manual_seed(SEED)
     context_ms = _time_ms(torch, lambda: generators.zipf_keys(
         N_SECONDARY, SKEW, N_PRIMARY, gen, device), reps=1)
-    # rounds this run's data draws: each round accepts with the rate of
-    # round 0 (the rounds are independent draws)
-    u1, u2, u3 = kg.philox_uniforms(SEED, n, 0, device=device)
-    _, ok = generators.zipf_candidates(u1, u2, SKEW, N_PRIMARY, u3=u3)
-    p = float(ok.float().mean())
-    rounds = (1 - (1 - p) ** 16) / p
-    ops = N_SECONDARY * rounds * K8_OPS_PER_ROUND
-    bound = max(_bound_ms(N_SECONDARY * 4), ops / OPS_PER_S * 1e3)
+    rounds = _k8_rounds(torch, N_SECONDARY, N_PRIMARY, device)
+    bound = _k8_bound(torch, card_line, rounds)
     log(f"[time K8] zipf_keys_pallas, {N_SECONDARY:,} keys over [1, "
-        f"{N_PRIMARY:,}]: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"{N_PRIMARY:,}]: kernel {kernel_ms:.4f} ms ({bound / kernel_ms:.1%} of "
+        f"the bound {bound:.4f} ms), plain {plain_ms:.4f} ms, "
         f"generators.zipf_keys (context, not the same function) "
-        f"{context_ms:.4f} ms; acceptance {p:.6f}, {rounds:.6f} rounds per "
-        f"key, {ops:.4e} operations -> {ops / OPS_PER_S * 1e3:.4f} ms, "
-        f"writes {_bound_ms(N_SECONDARY * 4):.4f} ms: bound {bound:.4f} ms")
+        f"{context_ms:.4f} ms; {rounds[0] / N_SECONDARY:.6f} rounds per key "
+        f"(measured: {rounds[0]:,} rounds)")
     return {"max_abs_err": par.max_err, "ms": kernel_ms, "plain_ms": plain_ms,
             "bound_ms": bound, "library_ms": None}
 
@@ -1605,7 +1873,7 @@ def main() -> int:
     stats["sort_blocks"], stats["merge_pass"], stats["tuple_sort"] = parity_k6(
         torch, device)
     stats["hash_keys"] = parity_k7(torch, device)
-    stats["zipf_keys_pallas"] = parity_k8(torch, device)
+    stats["zipf_keys_pallas"] = parity_k8(torch, device, card)
     launches = dict.fromkeys(("k1", "k2", "k3", "k4", "k5", "k6a", "k6b",
                               "k6", "k7", "k8"), 0)
     phase_library(torch, device, launches)

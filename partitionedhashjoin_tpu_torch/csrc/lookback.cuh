@@ -1,15 +1,17 @@
 // Decoupled look-back for single-pass scans on Hopper (sm_90a).
 //
-// Shared by the one-pass stream compaction (compact.cu, K5) and the sweep of
-// the LSD radix sort (radix_sort.cu, K6).  A kernel of this kind claims its
+// Shared by the one-pass stream compaction (compact.cu, K5), the sweep of
+// the LSD radix sort (radix_sort.cu, K6), both of which scan sums, and the
+// one-pass merge count (merge_count.cu, K2), which scans a running maximum
+// (lookback_warp with LookbackMax).  A kernel of this kind claims its
 // tiles in order through an atomic counter (claim_tile), so a tile only ever
 // waits on tiles that were claimed before it and are therefore resident:
 // the spin below always ends.  Each tile publishes, per scanned value, one
 // 64-bit status word:
 //   bits 63..62  flag: 0 = nothing yet, 1 = AGGREGATE (this tile's count
 //                alone), 2 = INCLUSIVE (the sum over this tile and every
-//                tile before it);
-//   bits 61..0   the count.
+//                tile before it; for a maximum scan, the maximum);
+//   bits 61..0   the count (or the maximum, as an unsigned value).
 // A tile publishes its AGGREGATE as soon as it has counted, then walks back
 // over its predecessors, adding AGGREGATEs until it meets an INCLUSIVE, and
 // publishes its own INCLUSIVE.  Flag and count share one 64-bit word, and
@@ -87,13 +89,34 @@ __device__ __forceinline__ unsigned long long lookback_thread(
   return exclusive;
 }
 
+// How lookback_warp combines status values: a sum (K5) or a maximum (K2).
+// Each combines two values and has an identity, 0 for both (the maximum
+// is taken over unsigned values).
+struct LookbackSum {
+  __device__ __forceinline__ unsigned long long operator()(
+      unsigned long long a, unsigned long long b) const {
+    return a + b;
+  }
+};
+
+struct LookbackMax {
+  __device__ __forceinline__ unsigned long long operator()(
+      unsigned long long a, unsigned long long b) const {
+    return a > b ? a : b;
+  }
+};
+
 // Warp-cooperative look-back for one scanned value (status word of tile p
 // = status[p]): lane i inspects tile (window end - 1 - i), the warp waits
-// until all 32 have published, sums up to the nearest INCLUSIVE and stops
-// there, or sums all 32 AGGREGATEs and moves the window 32 tiles back.
-// Call with the whole warp; every lane gets the sum over tiles 0 .. tile-1.
+// until all 32 have published, combines up to the nearest INCLUSIVE and
+// stops there, or combines all 32 AGGREGATEs and moves the window 32 tiles
+// back.  Call with the whole warp; every lane gets the combination over
+// tiles 0 .. tile-1 (the sum by default; with LookbackMax the maximum),
+// the identity 0 for tile 0.
+template <typename Combine = LookbackSum>
 __device__ __forceinline__ unsigned long long lookback_warp(
-    const unsigned long long* status, long long tile) {
+    const unsigned long long* status, long long tile,
+    Combine combine = Combine()) {
   const int lane = threadIdx.x & 31;
   unsigned long long exclusive = 0;
   for (long long end = tile; end > 0; end -= 32) {
@@ -110,9 +133,9 @@ __device__ __forceinline__ unsigned long long lookback_warp(
     unsigned long long v = lane <= stop ? (s & kStatusValue) : 0ull;
 #pragma unroll
     for (int offset = 16; offset > 0; offset >>= 1) {
-      v += __shfl_xor_sync(0xffffffffu, v, offset);
+      v = combine(v, __shfl_xor_sync(0xffffffffu, v, offset));
     }
-    exclusive += v;
+    exclusive = combine(exclusive, v);
     if (inclusive) {
       break;
     }

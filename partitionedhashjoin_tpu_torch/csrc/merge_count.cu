@@ -9,244 +9,271 @@
 // i.e. probe rows whose key equals the most recent build key (keys ascend,
 // and build rows precede equal-keyed probe rows).  INT32_MIN doubles as "no
 // build key yet"; the caller adds the INT32_MIN matches back
-// (ops/sort_merge.py).
+// (ops/sort_merge.py).  The count is defined for rows in any order, and the
+// kernel computes it for any order: it scans the running maximum and never
+// assumes that a tile's last build row holds its largest build key.
 //
 // What bounds it on this card: bytes.  Each row is read once (4 bytes of key,
 // 1 byte of tag); the work is a max and a compare per row.
 //
 // What the design does about it.  The TPU kernel carries the running maximum
 // in SMEM from one grid step to the next, because its grid runs in order.
-// CUDA blocks run concurrently and in no order, so the carry is made in three
-// launches on one stream:
-// 1. block_max_kernel: each block of kTile rows writes the maximum build key
-//    of its tile (INT32_MIN if it has none).
-// 2. carry_scan_kernel: one block turns those maxima into exclusive carries,
-//    carry[t] = max(block_max[0..t-1]).
-// 3. count_kernel: each block re-reads its tile, runs an inclusive max-scan
-//    seeded with its carry (per-thread serial scan over kRowsPerThread
-//    consecutive rows, then __shfl_up_sync across the warp and shared memory
-//    across the warps), counts its hits and makes one atomicAdd to a 64-bit
-//    total.
-// Pass 1 and pass 3 each read the stream once, so the kernel moves twice the
-// bytes of the one-pass bound; a single-pass decoupled look-back scan is a
-// later optimisation.
+// CUDA blocks run concurrently and in no order, so the carry crosses blocks
+// by a decoupled look-back (lookback.cuh), in ONE launch that reads the
+// stream once:
+// - each CTA claims the next tile of kTile rows through an atomic counter
+//   (phj::claim_tile), so a tile waits only on tiles claimed before it;
+// - each of 512 threads owns kRowsPerThread = 16 consecutive rows and loads
+//   their keys as four int4 and their tags as one uint4, so a warp's loads
+//   are coalesced 16-byte accesses (on the main path's stream, tiles of
+//   8,192 rows measured faster than 4,096 and as fast as 16,384 of 32 rows
+//   a thread; 2,048 rows, or 1,024 threads, were slower).  Tiles are laid
+//   out from the 16-byte boundary at or before keys[0] (`lead` rows before
+//   it, 0..3), so every thread's keys are 16-byte aligned; the rows before
+//   row 0 and past row n - 1 (the head and tail of a view) are dead rows,
+//   and the threads that hold them load their live rows one by one.  Tags
+//   that do not share the keys' alignment (a view such as tags[3:] beside
+//   keys[1:]) are loaded one byte at a time;
+// - the thread's build-key maximum, a warp shuffle max-scan and shared
+//   memory across the warps give the tile's maximum, which warp 0 publishes
+//   as AGGREGATE; it then walks back to the nearest INCLUSIVE taking the
+//   maximum (phj::lookback_warp with phj::LookbackMax) and publishes the
+//   tile's INCLUSIVE.
+//   A status value is the biased key uint32(key) ^ 0x80000000, whose
+//   unsigned order is the signed order of the keys (INT32_MIN -> 0, the
+//   identity of the maximum);
+// - each thread then runs its inclusive max-scan seeded with the carry
+//   before its first row, counts its hits, and the tile adds its count to
+//   the 64-bit total with one atomicAdd.
+// The status words, the tile counter and the total share one scratch
+// buffer, zeroed by one cudaMemsetAsync per call.
 //
 // C interface for ctypes: phj_merge_count returns cudaGetLastError() after
-// the last launch (and after any launch that fails), so a refused launch
-// reaches the caller.
+// the launch (or the memset's error), so a refused launch reaches the
+// caller.
 
 #include <cstdint>
 
 #include <cuda_runtime.h>
 
+#include "lookback.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 512;
 constexpr int kRowsPerThread = 16;
-constexpr int kTile = kThreads * kRowsPerThread;  // rows per block
+constexpr int kTile = kThreads * kRowsPerThread;  // rows per tile
+static_assert(kRowsPerThread == 16, "a thread's tags are one uint4 load");
 constexpr int kWarps = kThreads / 32;
-constexpr int kScanThreads = 1024;
 constexpr int32_t kInt32Min = -2147483647 - 1;
+constexpr unsigned int kFull = 0xffffffffu;
 
-__device__ __forceinline__ int32_t warp_max(int32_t v) {
+__device__ __forceinline__ unsigned long long biased(int32_t key) {
+  return static_cast<unsigned long long>(static_cast<uint32_t>(key) ^
+                                         0x80000000u);
+}
+
+__device__ __forceinline__ int32_t unbiased(unsigned long long value) {
+  return static_cast<int32_t>(static_cast<uint32_t>(value) ^ 0x80000000u);
+}
+
+// Bits e set where byte e of the 16 bytes (w0..w3) is nonzero.
+__device__ __forceinline__ unsigned int nonzero_bytes(uint4 w) {
+  const unsigned int words[4] = {w.x, w.y, w.z, w.w};
+  unsigned int mask = 0;
 #pragma unroll
-  for (int offset = 16; offset > 0; offset >>= 1) {
-    v = max(v, __shfl_down_sync(0xffffffffu, v, offset));
+  for (int q = 0; q < 4; ++q) {
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      mask |= ((words[q] >> (8 * b)) & 0xffu) ? 1u << (4 * q + b) : 0u;
+    }
   }
-  return v;  // lane 0 holds the warp's maximum
+  return mask;
 }
 
 // Exclusive max-scan of v across the warp: lane l gets max(v of lanes < l),
-// INT32_MIN for lane 0.
-__device__ __forceinline__ int32_t warp_exclusive_max(int32_t v, int lane) {
+// INT32_MIN for lane 0; *inclusive gets the scan including lane l.
+__device__ __forceinline__ int32_t warp_scan_max(int32_t v, int lane,
+                                                 int32_t* inclusive) {
   int32_t inc = v;
 #pragma unroll
   for (int offset = 1; offset < 32; offset <<= 1) {
-    const int32_t up = __shfl_up_sync(0xffffffffu, inc, offset);
+    const int32_t up = __shfl_up_sync(kFull, inc, offset);
     if (lane >= offset) {
       inc = max(inc, up);
     }
   }
-  const int32_t exc = __shfl_up_sync(0xffffffffu, inc, 1);
+  *inclusive = inc;
+  const int32_t exc = __shfl_up_sync(kFull, inc, 1);
   return lane == 0 ? kInt32Min : exc;
 }
 
 __global__ void __launch_bounds__(kThreads)
-    block_max_kernel(const int32_t* __restrict__ keys,
-                     const uint8_t* __restrict__ is_build, int64_t n,
-                     int32_t* __restrict__ block_max) {
-  __shared__ int32_t warp_best[kWarps];
-  const int64_t tile_begin = static_cast<int64_t>(blockIdx.x) * kTile;
-  int32_t best = kInt32Min;
-#pragma unroll 4
-  for (int k = 0; k < kRowsPerThread; ++k) {
-    // strided rows: a warp's loads are coalesced
-    const int64_t row =
-        tile_begin + static_cast<int64_t>(k) * kThreads + threadIdx.x;
-    if (row < n && __ldg(is_build + row) != 0) {
-      best = max(best, __ldg(keys + row));
-    }
-  }
-  best = warp_max(best);
+    merge_count_kernel(const int32_t* __restrict__ keys,
+                       const uint8_t* __restrict__ is_build, int64_t n,
+                       int lead, bool tags_vector,
+                       unsigned long long* status, unsigned int* counter,
+                       unsigned long long* __restrict__ total) {
+  __shared__ int32_t s_warp[kWarps];
+  __shared__ unsigned int s_found[kWarps];
+  __shared__ long long s_tile;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  if (lane == 0) {
-    warp_best[warp] = best;
+  if (threadIdx.x == 0) {
+    s_tile = phj::claim_tile(counter);
   }
   __syncthreads();
-  if (warp == 0) {
-    best = warp_max(lane < kWarps ? warp_best[lane] : kInt32Min);
-    if (lane == 0) {
-      block_max[blockIdx.x] = best;
-    }
-  }
-}
-
-// One block of kScanThreads: carry[t] = max(block_max[0 .. t-1]).
-__global__ void __launch_bounds__(kScanThreads)
-    carry_scan_kernel(const int32_t* __restrict__ block_max, int64_t n_blocks,
-                      int32_t* __restrict__ carry) {
-  __shared__ int32_t warp_inc[kScanThreads / 32];
-  const int64_t per_thread = (n_blocks + kScanThreads - 1) / kScanThreads;
-  const int64_t begin = static_cast<int64_t>(threadIdx.x) * per_thread;
-  const int64_t end =
-      begin + per_thread < n_blocks ? begin + per_thread : n_blocks;
-  int32_t mine = kInt32Min;
-  for (int64_t t = begin; t < end; ++t) {
-    mine = max(mine, block_max[t]);
-  }
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  int32_t prefix = warp_exclusive_max(mine, lane);
-  if (lane == 31) {
-    warp_inc[warp] = max(prefix, mine);
-  }
-  __syncthreads();
-  if (warp == 0) {
-    const int32_t w = warp_inc[lane];  // kScanThreads / 32 == 32 warps
-    warp_inc[lane] = warp_exclusive_max(w, lane);
-  }
-  __syncthreads();
-  prefix = max(prefix, warp_inc[warp]);
-  for (int64_t t = begin; t < end; ++t) {
-    carry[t] = prefix;
-    prefix = max(prefix, block_max[t]);
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-    count_kernel(const int32_t* __restrict__ keys,
-                 const uint8_t* __restrict__ is_build, int64_t n,
-                 const int32_t* __restrict__ carry,
-                 unsigned long long* __restrict__ total) {
-  __shared__ int32_t warp_inc[kWarps];
-  __shared__ unsigned int warp_counts[kWarps];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  // thread t owns kRowsPerThread consecutive rows, so its serial scan runs
-  // in stream order
-  const int64_t first = static_cast<int64_t>(blockIdx.x) * kTile +
-                        static_cast<int64_t>(threadIdx.x) * kRowsPerThread;
+  const long long tile = s_tile;
+  // the thread's first row; rows < 0 or >= n are dead
+  const int64_t row0 = tile * kTile +
+                       static_cast<int64_t>(threadIdx.x) * kRowsPerThread -
+                       lead;
 
   int32_t key[kRowsPerThread];
-  bool build[kRowsPerThread];
+  unsigned int build = 0;  // bit e: row0 + e is a build row
+  if (row0 >= 0 && row0 + kRowsPerThread <= n) {
+    const int4* k4 = reinterpret_cast<const int4*>(keys + row0);
+#pragma unroll
+    for (int q = 0; q < kRowsPerThread / 4; ++q) {
+      const int4 v = __ldg(k4 + q);
+      key[4 * q] = v.x;
+      key[4 * q + 1] = v.y;
+      key[4 * q + 2] = v.z;
+      key[4 * q + 3] = v.w;
+    }
+    if (tags_vector) {
+      build = nonzero_bytes(
+          __ldg(reinterpret_cast<const uint4*>(is_build + row0)));
+    } else {
+#pragma unroll
+      for (int e = 0; e < kRowsPerThread; ++e) {
+        build |= __ldg(is_build + row0 + e) != 0 ? 1u << e : 0u;
+      }
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < kRowsPerThread; ++e) {
+      const int64_t row = row0 + e;
+      const bool live = row >= 0 && row < n;
+      key[e] = live ? __ldg(keys + row) : kInt32Min;
+      build |= live && __ldg(is_build + row) != 0 ? 1u << e : 0u;
+    }
+  }
+
   int32_t mine = kInt32Min;
 #pragma unroll
-  for (int k = 0; k < kRowsPerThread; ++k) {
-    const int64_t row = first + k;
-    const bool live = row < n;
-    key[k] = live ? __ldg(keys + row) : kInt32Min;
-    build[k] = live && __ldg(is_build + row) != 0;
-    if (build[k]) {
-      mine = max(mine, key[k]);
+  for (int e = 0; e < kRowsPerThread; ++e) {
+    if ((build >> e) & 1u) {
+      mine = max(mine, key[e]);
     }
   }
-
-  // running max before this thread's first row: the block's carry, the
-  // warps before this one, the lanes before this one
-  int32_t prefix = warp_exclusive_max(mine, lane);
+  int32_t lane_inclusive;
+  const int32_t lane_exclusive = warp_scan_max(mine, lane, &lane_inclusive);
   if (lane == 31) {
-    warp_inc[warp] = max(prefix, mine);
+    s_warp[warp] = lane_inclusive;
   }
   __syncthreads();
   if (warp == 0) {
-    const int32_t w = lane < kWarps ? warp_inc[lane] : kInt32Min;
-    const int32_t exc = warp_exclusive_max(w, lane);
+    int32_t warp_inclusive;
+    const int32_t warp_exclusive = warp_scan_max(
+        lane < kWarps ? s_warp[lane] : kInt32Min, lane, &warp_inclusive);
+    const int32_t aggregate = __shfl_sync(kFull, warp_inclusive, kWarps - 1);
+    unsigned long long carry = 0;  // biased maximum over the tiles before
+    if (tile == 0) {
+      if (lane == 0) {
+        phj::status_publish(status, phj::kStatusInclusive, biased(aggregate));
+      }
+    } else {
+      if (lane == 0) {
+        phj::status_publish(status + tile, phj::kStatusAggregate,
+                            biased(aggregate));
+      }
+      carry = phj::lookback_warp(status, tile, phj::LookbackMax());
+      if (lane == 0) {
+        const unsigned long long mine_b = biased(aggregate);
+        phj::status_publish(status + tile, phj::kStatusInclusive,
+                            carry > mine_b ? carry : mine_b);
+      }
+    }
     if (lane < kWarps) {
-      warp_inc[lane] = exc;
+      s_warp[lane] = max(warp_exclusive, unbiased(carry));
     }
   }
   __syncthreads();
-  prefix = max(prefix, max(warp_inc[warp], carry[blockIdx.x]));
 
+  // running max before this thread's first row: the carry and the warps
+  // before this one (s_warp), the lanes before this one
+  int32_t prefix = max(s_warp[warp], lane_exclusive);
   unsigned int found = 0;
 #pragma unroll
-  for (int k = 0; k < kRowsPerThread; ++k) {
-    if (build[k]) {
-      prefix = max(prefix, key[k]);
-    } else if (first + k < n && key[k] != kInt32Min && key[k] == prefix) {
-      ++found;
+  for (int e = 0; e < kRowsPerThread; ++e) {
+    if ((build >> e) & 1u) {
+      prefix = max(prefix, key[e]);
+    } else if (key[e] != kInt32Min && key[e] == prefix) {
+      ++found;  // dead rows hold INT32_MIN and are never counted
     }
   }
-
-#pragma unroll
-  for (int offset = 16; offset > 0; offset >>= 1) {
-    found += __shfl_down_sync(0xffffffffu, found, offset);
-  }
+  found = __reduce_add_sync(kFull, found);
   if (lane == 0) {
-    warp_counts[warp] = found;
+    s_found[warp] = found;
   }
   __syncthreads();
   if (warp == 0) {
-    found = lane < kWarps ? warp_counts[lane] : 0u;
-#pragma unroll
-    for (int offset = 16; offset > 0; offset >>= 1) {
-      found += __shfl_down_sync(0xffffffffu, found, offset);
-    }
+    found = __reduce_add_sync(kFull, lane < kWarps ? s_found[lane] : 0u);
     if (lane == 0 && found != 0) {
       atomicAdd(total, static_cast<unsigned long long>(found));
     }
   }
 }
 
+// Rows before keys[0] back to its 16-byte boundary (keys is 4-byte aligned).
+int lead_rows(const int32_t* keys) {
+  return static_cast<int>((reinterpret_cast<uintptr_t>(keys) & 15u) / 4u);
+}
+
 }  // namespace
 
 extern "C" {
 
-// Rows per block; the Python wrapper checks it against its own copy and
+// Rows per tile; the Python wrapper checks it against its own copy and
 // sizes the scratch buffer from it.
 int phj_merge_count_tile_rows() { return kTile; }
 
-// Adds to *total the count described at the top.  keys (int32) and is_build
-// (one byte per row, nonzero = build row) are device pointers to n rows in
-// merged sorted order; scratch is a device buffer of 2 * ceil(n / kTile)
-// int32; *total is a zeroed 64-bit counter.  Launches on `stream` and does
-// not synchronise.  Returns cudaGetLastError() (0 = ok).
+// Adds to scratch[0] (as a 64-bit count) the count described at the top.
+// keys (int32, 4-byte aligned) and is_build (one byte per row, nonzero =
+// build row) are device pointers to n rows; scratch is a device buffer of
+// scratch_words int64, at least 2 + ceil((n + lead) / kTile) where lead =
+// (address of keys mod 16) / 4 <= 3, so 3 + ceil(n / kTile) always do: the
+// total, the tile counter, then one status word per tile.  It is zeroed here.  One memset and one launch on
+// `stream`, no synchronisation.  Returns cudaGetLastError() (0 = ok).
 int phj_merge_count(const int32_t* keys, const uint8_t* is_build, int64_t n,
-                    int32_t* scratch, unsigned long long* total,
+                    int64_t* scratch, int64_t scratch_words,
                     cudaStream_t stream) {
   if (n <= 0) {
     return static_cast<int>(cudaSuccess);
   }
-  const int64_t blocks = (n + kTile - 1) / kTile;
-  if (blocks > 0x7fffffffLL) {
+  if ((reinterpret_cast<uintptr_t>(keys) & 3u) != 0) {
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  }
+  const int lead = lead_rows(keys);
+  const int64_t tiles = (n + lead + kTile - 1) / kTile;
+  if (tiles > 0x7fffffffLL || scratch_words < 2 + tiles) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  int32_t* block_max = scratch;
-  int32_t* carry = scratch + blocks;
-  const unsigned int grid = static_cast<unsigned int>(blocks);
-  block_max_kernel<<<grid, kThreads, 0, stream>>>(keys, is_build, n,
-                                                  block_max);
-  cudaError_t err = cudaGetLastError();
+  // the tags of every fully live thread are 16-byte aligned iff tags - lead is
+  const bool tags_vector =
+      ((reinterpret_cast<uintptr_t>(is_build) - lead) & 15u) == 0;
+  auto* total = reinterpret_cast<unsigned long long*>(scratch);
+  auto* counter = reinterpret_cast<unsigned int*>(scratch + 1);
+  auto* status = reinterpret_cast<unsigned long long*>(scratch + 2);
+  cudaError_t err = cudaMemsetAsync(
+      scratch, 0, static_cast<size_t>(2 + tiles) * sizeof(int64_t), stream);
   if (err != cudaSuccess) {
     return static_cast<int>(err);
   }
-  carry_scan_kernel<<<1, kScanThreads, 0, stream>>>(block_max, blocks, carry);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) {
-    return static_cast<int>(err);
-  }
-  count_kernel<<<grid, kThreads, 0, stream>>>(keys, is_build, n, carry, total);
+  merge_count_kernel<<<static_cast<unsigned int>(tiles), kThreads, 0,
+                       stream>>>(keys, is_build, n, lead, tags_vector, status,
+                                 counter, total);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -5,10 +5,12 @@ merge_count_sorted``.  Over the merged, sorted stream of the sort-merge join
 (int32 keys ascending, build rows before equal-keyed probe rows), it counts
 the probe rows whose key equals the running maximum of
 ``where(is_build, key, INT32_MIN)``, INT32_MIN excluded (the caller corrects
-for INT32_MIN keys).  On a CUDA tensor it launches the hand-written kernels
-in ``csrc/merge_count.cu``; on a CPU tensor it runs
-``merge_count_sorted_plain``, the plain PyTorch version of the same contract,
-which tests and ``chip_smoke.py`` also hold the kernel against.
+for INT32_MIN keys).  The count is defined, and computed, for rows in any
+order.  On a CUDA tensor it launches the hand-written one-pass kernel in
+``csrc/merge_count.cu`` (a decoupled look-back carries the running maximum
+across tiles); on a CPU tensor it runs ``merge_count_sorted_plain``, the
+plain PyTorch version of the same contract, which tests and
+``chip_smoke.py`` also hold the kernel against.
 """
 
 from __future__ import annotations
@@ -23,10 +25,9 @@ INT32_MIN = -(2**31)
 
 #: Rows per thread block; equals kTile in csrc/merge_count.cu (checked when
 #: the library loads).  Tests use it to place runs on block edges.
-TILE_ROWS = 4096
+TILE_ROWS = 8192
 
-#: Calls that launched the kernels since the last reset (set to 0 to reset).
-#: One call launches three kernels on one stream and adds one.
+#: Calls that launched the kernel since the last reset (set to 0 to reset).
 LAUNCHES = 0
 
 _SIGNATURES = {
@@ -36,8 +37,8 @@ _SIGNATURES = {
             ctypes.c_void_p,  # keys
             ctypes.c_void_p,  # is_build (one byte per row)
             ctypes.c_int64,  # n
-            ctypes.c_void_p,  # scratch (2 * blocks int32)
-            ctypes.c_void_p,  # total (uint64 counter)
+            ctypes.c_void_p,  # scratch (int64: total, tile counter, status)
+            ctypes.c_int64,  # scratch words
             ctypes.c_void_p,  # cudaStream_t
         ),
         ctypes.c_int,
@@ -54,6 +55,15 @@ def load_library() -> ctypes.CDLL:
             f"merge_count.cu tiles {tile} rows, the wrapper expects {TILE_ROWS}"
         )
     return lib
+
+
+def scratch_words(n: int) -> int:
+    """int64 words of the kernel's scratch for n rows: the total, the tile
+    counter and one look-back status word per tile.  The kernel lays its
+    tiles out from the 16-byte boundary at or before ``keys[0]``, up to 3
+    rows earlier, so n rows span at most one tile more than ceil(n /
+    TILE_ROWS); the C entry refuses a shorter buffer."""
+    return 3 + -(-n // TILE_ROWS)
 
 
 def merge_count_sorted_plain(
@@ -100,7 +110,7 @@ def merge_count_sorted(
 ) -> torch.Tensor:
     """Probe hits over the merged sorted stream (see the module note), as a
     0-dim int64 tensor on the inputs' device.  ``is_build_sorted`` is bool or
-    uint8 (nonzero = build row).  A CUDA input launches the kernels or
+    uint8 (nonzero = build row).  A CUDA input launches the kernel or
     raises."""
     global LAUNCHES
     _check(keys_sorted, is_build_sorted)
@@ -109,20 +119,20 @@ def merge_count_sorted(
         return merge_count_sorted_plain(keys_sorted, is_build_sorted)
     if device.type != "cuda":
         raise ValueError(f"unsupported device {device}")
-    total = torch.zeros((), dtype=torch.int64, device=device)
     n = keys_sorted.shape[0]
     if n == 0:
-        return total
-    blocks = -(-n // TILE_ROWS)
-    scratch = torch.empty((2 * blocks,), dtype=torch.int32, device=device)
+        return torch.zeros((), dtype=torch.int64, device=device)
+    words = scratch_words(n)
+    # zeroed by the kernel's entry; word 0 receives the count
+    scratch = torch.empty((words,), dtype=torch.int64, device=device)
     lib = load_library()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.phj_merge_count(
             keys_sorted.data_ptr(), is_build_sorted.data_ptr(), n,
-            scratch.data_ptr(), total.data_ptr(), stream,
+            scratch.data_ptr(), words, stream,
         )
     if err != 0:
         raise RuntimeError(f"merge_count kernel launch failed: CUDA error {err}")
     LAUNCHES += 1
-    return total
+    return scratch[0]

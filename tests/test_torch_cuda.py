@@ -257,7 +257,31 @@ def _merge_count_cases():
         "block_edges": _merged(np.arange(0, 3 * t, 7),
                                np.repeat(np.arange(0, 3 * t, 3), 2)),
         "full_domain": _merged(a, b),
+        "n_1": _merged([], [7]),
+        "tile_minus_1": _merged(rng.integers(-300, 300, 1000),
+                                rng.integers(-300, 300, t - 1001)),
+        "tile_plus_1": _merged(rng.integers(-300, 300, 1000),
+                               rng.integers(-300, 300, t - 999)),
+        "unsorted": _unsorted(rng, 1_000_003),
+        "carry_1001_tiles": _carry_tiles(rng, 1001 * t + 17),
     }
+
+
+def _unsorted(rng, n):
+    """Rows in no order (the count is defined for any): keys on a random
+    walk that falls back often, random tags."""
+    keys = np.cumsum(rng.integers(-3, 5, n)).astype(np.int32)
+    return keys, rng.random(n) < 0.3
+
+
+def _carry_tiles(rng, n):
+    """The largest build key is the first row; smaller build keys follow in
+    every tile, and the last rows probe the first key."""
+    keys = rng.integers(-50, 50, n).astype(np.int32)
+    is_build = rng.random(n) < 0.01
+    keys[0], is_build[0] = 60, True
+    keys[-5:], is_build[-5:] = 60, False
+    return keys, is_build
 
 
 @pytest.mark.parametrize("tag_dtype", [torch.bool, torch.uint8])
@@ -273,6 +297,23 @@ def test_merge_count_kernel_matches_plain(cuda, case, tag_dtype):
     assert got.device == k.device and got.dtype == torch.int64 and got.dim() == 0
     assert int(got) == int(want)
     assert mc.LAUNCHES == before + (1 if k.numel() else 0)
+
+
+@pytest.mark.parametrize("key_off,tag_off", [(1, 1), (3, 3), (1, 5), (0, 3), (2, 0)])
+def test_merge_count_kernel_on_unaligned_views(cuda, key_off, tag_off):
+    """Views off a 16-byte boundary: the kernel's tiles start before keys[0]
+    and tags with another offset than the keys are read byte by byte."""
+    keys, is_build = _unsorted(np.random.default_rng(43), 200_003)
+    n = keys.size
+    k_buf = torch.zeros(n + 8, dtype=torch.int32, device=cuda)
+    t_buf = torch.zeros(n + 16, dtype=torch.bool, device=cuda)
+    k_buf[key_off:key_off + n] = torch.from_numpy(keys)
+    t_buf[tag_off:tag_off + n] = torch.from_numpy(is_build)
+    k, t = k_buf[key_off:key_off + n], t_buf[tag_off:tag_off + n]
+    got = mc.merge_count_sorted(k, t)
+    want = mc.merge_count_sorted_plain(k, t)
+    assert int(got) == int(want) == int(mc.merge_count_sorted_plain(
+        torch.from_numpy(keys), torch.from_numpy(is_build)))
 
 
 def test_sort_merge_counts_on_card_match_cpu(cuda):
@@ -720,3 +761,31 @@ def test_zipf_kernel_matches_plain(cuda, card):
     assert int(differ.sum()) <= n * 1e-4
     assert int((keys - plain).abs().max()) <= 2
     assert (gen.zipf_keys_pallas(11, 1000, 1.05, card, rounds=0, device=cuda) == 1).all()
+
+
+@pytest.mark.parametrize("m", [1, 33, 2_047, 1_000_003])
+def test_zipf_kernel_prefix_property(cuda, m):
+    """The first m of n keys equal the m keys drawn alone, exactly: a slot's
+    key depends on the seed and the slot only, not on the warp or the step
+    that drew it (the ranges per warp differ between the two calls)."""
+    whole = gen.zipf_keys_pallas(13, 4_000_000, 1.05, 10_000_000, device=cuda)
+    part = gen.zipf_keys_pallas(13, m, 1.05, 10_000_000, device=cuda)
+    torch.cuda.synchronize()
+    assert torch.equal(part, whole[:m])
+
+
+@pytest.mark.parametrize("rounds", [0, 1])
+def test_zipf_kernel_few_rounds(cuda, rounds):
+    """0 rounds: every key 1; 1 round: a rejected slot gets key 1; both as
+    the plain version (keys within the same rounding gate)."""
+    n = 1_000_000
+    keys = gen.zipf_keys_pallas(17, n, 1.05, 10_000_000, rounds, device=cuda)
+    plain = gen.zipf_keys_plain(17, n, 1.05, 10_000_000, rounds, device=cuda)
+    torch.cuda.synchronize()
+    if rounds == 0:
+        assert (keys == 1).all() and (plain == 1).all()
+    else:
+        # ~3.5% rejected (key 1) beside the ~7% whose sample is 1
+        assert 0.05 < float((keys == 1).float().mean()) < 0.2
+    assert int((keys != plain).sum()) <= n * 1e-4
+    assert int((keys - plain).abs().max()) <= 2

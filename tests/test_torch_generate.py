@@ -10,7 +10,10 @@ CPU.
   needs the TPU's hardware generator and cannot run here, and the port draws
   from Philox instead, so the keys are held to the JAX test's distribution
   criterion (TV distance < 0.035 from the exact pmf); the Philox generator
-  is held to the published known-answer vectors.
+  is held to the published known-answer vectors.  A slot's key and
+  uniforms depend on the seed, the slot and the round alone, so the first m
+  of n keys (or uniforms) are the m drawn alone: the property the CUDA
+  kernel's schedule relies on.
 """
 
 import numpy as np
@@ -172,3 +175,19 @@ def test_zipf_rounds_and_first_accept():
     assert torch.equal(keys, torch.where(ok, sample, 1))
     with pytest.raises(ValueError):
         gen.zipf_keys_pallas(3, 10, 0.001, 1000, device="cpu")
+
+
+@pytest.mark.parametrize("m", [1, 33, 2_047, 4_099])
+def test_zipf_keys_plain_prefix(m):
+    n = 5_000
+    whole = gen.zipf_keys_plain(9, n, 1.05, 10_000_000, device="cpu")
+    assert torch.equal(gen.zipf_keys_plain(9, m, 1.05, 10_000_000, device="cpu"),
+                       whole[:m])
+
+
+@pytest.mark.parametrize("round_", [0, 7])
+@pytest.mark.parametrize("m", [1, 2_047])
+def test_philox_uniforms_plain_prefix(m, round_):
+    whole = gen.philox_uniforms_plain(9, torch.arange(5_000), round_)
+    for w, part in zip(whole, gen.philox_uniforms_plain(9, torch.arange(m), round_)):
+        assert torch.equal(part, w[:m])

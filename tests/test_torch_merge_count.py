@@ -2,14 +2,19 @@
 package, on the CPU.
 
 ``merge_count_sorted`` on CPU tensors runs its plain PyTorch version; it
-must equal the JAX Pallas kernel (interpret mode) exactly on the cases of
-tests/test_pallas_kernels.py.  ``sort_merge_count``, ``anti_count`` and
+must equal the JAX Pallas kernel (interpret mode) and a numpy running
+maximum exactly on the cases of tests/test_pallas_kernels.py, on rows in
+any order (the count is defined for every order) and on a carry across
+many of the CUDA kernel's tiles.  The wrapper's tile and scratch sizes
+must follow ``csrc/merge_count.cu``.  ``sort_merge_count``, ``anti_count`` and
 ``sort_merge_count_all`` must equal the JAX functions on the same numpy
 inputs: masked and unmasked, int32 and int64 (JAX under x64), including
 keys equal to the dtype minimum (the fast path's correction).  JAX's
 ``sort_merge_count_all`` returns a (hi, lo) uint32 pair, compared through
 ``widesum.pair_to_int``; the port returns an int64 scalar.
 """
+
+import re
 
 import jax
 import jax.numpy as jnp
@@ -21,6 +26,7 @@ from partitionedhashjoin_tpu.ops import sort_merge as jax_sm
 from partitionedhashjoin_tpu.ops.pallas import merge_count as jax_mc
 from partitionedhashjoin_tpu.utils.widesum import pair_to_int
 from partitionedhashjoin_tpu_torch.ops import sort_merge as sm
+from partitionedhashjoin_tpu_torch.ops.kernels import _build
 from partitionedhashjoin_tpu_torch.ops.kernels import merge_count as mc
 
 I32_MAX = np.iinfo(np.int32).max
@@ -56,6 +62,32 @@ def _run_without_build(n):
     return keys, is_build
 
 
+def _unsorted(n):
+    """Keys on a random walk that falls back often, so the running maximum
+    is often not the last build key; random tags."""
+    rng = np.random.default_rng(n)
+    keys = np.cumsum(rng.integers(-3, 5, n)).astype(np.int32)
+    return keys, rng.random(n) < 0.3
+
+
+def _carry_many_tiles(n):
+    """The first row is the largest build key; later, smaller build keys in
+    every tile must not replace it, and the last rows probe it."""
+    rng = np.random.default_rng(n)
+    keys = rng.integers(-50, 50, n).astype(np.int32)
+    is_build = rng.random(n) < 0.01
+    keys[0], is_build[0] = 60, True
+    keys[-5:], is_build[-5:] = 60, False
+    return keys, is_build
+
+
+def _numpy_count(keys, is_build):
+    last = np.maximum.accumulate(np.where(is_build, keys, I32_MIN))
+    return int((~is_build & (last == keys) & (keys != I32_MIN)).sum())
+
+
+# The JAX kernel in interpret mode compiles once per input length, so new
+# cases reuse the lengths of the old ones (25,000 and BLOCK + 17 rows).
 KERNEL_CASES = {
     "random_100x400": lambda: _random(100, 400),
     "random_5000x20000": lambda: _random(5000, 20000),
@@ -73,6 +105,8 @@ KERNEL_CASES = {
         np.arange(0, 3 * mc.TILE_ROWS, 7),
         np.repeat(np.arange(0, 3 * mc.TILE_ROWS, 3), 2),
     ),
+    "unsorted": lambda: _unsorted(25000),
+    "carry_across_many_tiles": lambda: _carry_many_tiles(jax_mc.BLOCK + 17),
 }
 
 
@@ -84,10 +118,36 @@ def test_plain_matches_jax_kernel(case):
     ))
     got = mc.merge_count_sorted(torch.from_numpy(keys), torch.from_numpy(is_build))
     assert got.dtype == torch.int64 and got.dim() == 0
-    assert int(got) == want
+    assert int(got) == want == _numpy_count(keys, is_build)
     tags = torch.from_numpy(is_build.astype(np.uint8))
     assert int(mc.merge_count_sorted(torch.from_numpy(keys), tags)) == want
     assert mc.LAUNCHES == 0  # CPU tensors never reach the kernel
+
+
+def test_new_cases_have_their_geometry():
+    keys, is_build = KERNEL_CASES["unsorted"]()
+    assert (np.diff(keys) < 0).any() and _numpy_count(keys, is_build) > 1000
+    keys, is_build = KERNEL_CASES["carry_across_many_tiles"]()
+    assert keys.size // mc.TILE_ROWS >= 8 and is_build[1:].sum() > 100
+    assert _numpy_count(keys, is_build) == 5  # only the last rows match
+
+
+def test_tile_and_scratch_sizes_follow_the_source():
+    """TILE_ROWS is the kernel's kTile, and the wrapper's scratch is never
+    shorter than the C entry's least size, 2 + ceil((n + lead) / kTile)
+    words for the 0..3 rows (``lead``) before keys[0] back to its 16-byte
+    boundary; the entry refuses a shorter buffer."""
+    src = (_build.CSRC_DIR / "merge_count.cu").read_text()
+    threads = int(re.search(r"constexpr int kThreads = (\d+);", src).group(1))
+    rows = int(re.search(r"constexpr int kRowsPerThread = (\d+);", src).group(1))
+    assert "constexpr int kTile = kThreads * kRowsPerThread;" in src
+    assert mc.TILE_ROWS == threads * rows
+    assert "scratch_words < 2 + tiles" in src
+    t = mc.TILE_ROWS
+    for n in (1, 2, t - 3, t - 1, t, t + 1, 3 * t - 2, 3 * t, 3 * t + 5):
+        least = max(2 + -(-(n + lead) // t) for lead in range(4))
+        assert least <= mc.scratch_words(n) <= least + 1
+    assert [mc.scratch_words(n) for n in (1, t, t + 1, 3 * t)] == [4, 4, 5, 6]
 
 
 def test_wrapper_rejects_bad_inputs():
