@@ -8,8 +8,10 @@ and raises on the first failure:
 1. device  — needs ``torch.cuda.is_available()``; prints the card's name and
              power limit (nvidia-smi) and the torch / CUDA versions.
 2. build   — builds every kernel library from ``csrc/`` with nvcc into
-             ``build/kernels/``, one nvcc per source, all started together;
-             prints the build time and ptxas' report of each.
+             ``build/kernels/``, one nvcc per source, and the host runtime
+             library from ``native/phj_host.cpp`` with g++ into
+             ``build/host/``, all started together; prints the build time
+             and ptxas' report of each.
 3. parity  — each kernel against its plain PyTorch version on the card,
              exactly, over edge cases and random runs of >= 1M rows:
              K1 (int32 merge-probe count, ``exclude_int32_max`` off and on;
@@ -55,7 +57,8 @@ and raises on the first failure:
              K2, ``two_run_count_i64`` and an int64 ``PreparedBuild`` through
              K3, each exact.
 5. main    — ``cli.main`` at the reference workload (10M sequential build
-             ⋈ 200M Zipf(1.05) probe, with its warmup run) for the default
+             ⋈ 200M Zipf(1.05) probe drawn by the alias sampler, the CLI's
+             rule up to 2^24 primary rows, with its warmup run) for the default
              join (no-partitioning), radix-partitioning, planned, sort-merge
              and sort-merge with int64 keys.  Each must count exactly
              200,000,000, print the JAX CLI's parameters, and launch its
@@ -86,8 +89,23 @@ and raises on the first failure:
              build counts exactly 200,000,000; the TV distance of the 1,000
              hottest keys' frequencies from the exact pmf and the distinct
              keys reached are printed.
+9. alias   — the host alias tables for Zipf(1.05) over [1, 10M] (host
+             clock), 200M ``zipf_keys_alias`` draws timed with CUDA events,
+             and the CLI's generation (``zipf_table(method="alias")``, seed
+             20260816): its join with the sequential build counts
+             200,000,000 (K1), and its distinct keys lie within ±0.5% of
+             the exact law's sum of 1 - (1 - p_k)^n (7,949,313).
+10. multi-key — ``multi_key_count`` at 10M ⋈ 200M on the keys of phase 9
+             split as (key >> 12, key & 4095) (K3 on the packed pair) and
+             (key >> 20, (key >> 10) & 1023, key & 1023), under "xla" and
+             "pallas" (K6 too for k = 2); each equals the native
+             ``host_join_count`` of the unsplit keys.
+11. bench  — ``python -m partitionedhashjoin_tpu_torch.bench`` at 10M ⋈ 200M
+             as a subprocess: exactly one JSON line with ``bench.py``'s keys
+             plus ``device``; every algo counts 200,000,000 and launches K1
+             in its measured run (read from its ``launches`` lines).
 
-Kernel launch counts are set to 0 just before each path of phases 4 to 8
+Kernel launch counts are set to 0 just before each path of phases 4 to 11
 and read just after; a kernel's ``launches`` is the sum over the paths that
 run it.  Comparison launches in phase 3 are not counted.  The script prints
 one JSON line describing the kernels and, last, the ``"ok"`` line.  Without a
@@ -197,13 +215,17 @@ def phase_build() -> None:
         merge_probe,
     )
 
+    from partitionedhashjoin_tpu_torch.data import host_loader
+
     names = ("merge_probe", "merge_count", "compact", "bitonic_sort",
              "radix_sort", "generate")
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(names)) as pool:
+    with ThreadPoolExecutor(len(names) + 1) as pool:
+        host = pool.submit(host_loader.build)  # g++, for the alias tables
         paths = list(pool.map(_build.build, names))
-    log(f"[build] {', '.join(p.name for p in paths)} in "
-        f"{time.perf_counter() - t0:.2f} s (parallel nvcc)")
+        host_path = host.result()
+    log(f"[build] {', '.join(p.name for p in paths)}, {host_path.name} in "
+        f"{time.perf_counter() - t0:.2f} s (parallel nvcc and g++)")
     merge_probe.load_library()  # loads each and checks its tile size
     merge_count.load_library()
     compact.load_library()
@@ -1617,6 +1639,15 @@ def _group_oracle(torch, b_keys, b_pay):
             "min": mins[present], "max": maxs[present]}
 
 
+def _exact_distinct(torch, device, alpha, card, n):
+    """Expected distinct keys of n draws from the exact Zipf(alpha) over
+    [1, card]: sum over k of 1 - (1 - p_k)^n, in float64."""
+    k = torch.arange(1, card + 1, dtype=torch.float64, device=device)
+    p = k ** -alpha
+    p /= p.sum()
+    return float((-torch.expm1(n * torch.log1p(-p))).sum())
+
+
 def _zipf_reach(torch, device):
     """(keys the Zipf sampler can draw at all, expected distinct keys of an
     exact Zipf(SKEW) in N_SECONDARY draws): every float32 uniform in
@@ -1626,10 +1657,7 @@ def _zipf_reach(torch, device):
     u = torch.arange(1 << 24, dtype=torch.float32, device=device) * 2.0**-24
     keys, _ = generators.zipf_candidates(u, torch.zeros_like(u), SKEW, N_PRIMARY)
     reach = int(torch.unique(keys).numel())
-    k = torch.arange(1, N_PRIMARY + 1, dtype=torch.float64, device=device)
-    p = k ** -SKEW
-    p /= p.sum()
-    return reach, float((1 - torch.exp(-N_SECONDARY * p)).sum())
+    return reach, _exact_distinct(torch, device, SKEW, N_PRIMARY, N_SECONDARY)
 
 
 def _run_path(torch, tag, launches, name, fn, kernels):
@@ -1856,6 +1884,146 @@ def phase_generate(torch, device, launches):
         f"reachable from float32 uniforms)")
 
 
+def phase_alias(torch, device, launches, card_line):
+    """Phase 9: the alias sampler at 10M ⋈ 200M — the host tables, 200M
+    draws timed with CUDA events, the CLI's generation (``zipf_table``
+    with ``method="alias"`` and the seed of phase 5) joined against the
+    sequential build, and its distinct keys against the exact law.
+    Returns the 200M keys."""
+    from partitionedhashjoin_tpu_torch.data import host_loader
+    from partitionedhashjoin_tpu_torch.ops import generators, merge_join
+
+    t0 = time.perf_counter()
+    prob, alias = host_loader.build_zipf_alias(SKEW, N_PRIMARY)
+    table_s = time.perf_counter() - t0
+    prob = torch.from_numpy(prob).to(device)
+    alias = torch.from_numpy(alias).to(device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED)
+    draw_ms = _time_ms(torch, lambda: generators.zipf_keys_alias(
+        N_SECONDARY, prob, alias, gen, device), reps=5)
+    del prob, alias
+    log(f"[time alias] {card_line}: host alias tables ({N_PRIMARY:,} keys) "
+        f"{table_s * 1e3:.3f} ms host clock; zipf_keys_alias {N_SECONDARY:,} "
+        f"draws {draw_ms:.4f} ms ({N_SECONDARY / (draw_ms * 1e-3):.4e} keys/s, "
+        "CUDA events)")
+
+    run = functools.partial(_run_path, torch, "alias", launches)
+    keys = run(f"zipf_table(method='alias') {N_SECONDARY:,} keys over "
+               f"[1, {N_PRIMARY:,}]", lambda: generators.zipf_table(
+                   N_SECONDARY, SKEW, (1, N_PRIMARY), seed=SEED,
+                   method="alias", device=device).keys, ())
+    a = generators.sequential_keys(N_PRIMARY, device=device)
+    count = run("two_run_count against the sequential build",
+                lambda: merge_join.two_run_count(a, keys), ("k1",))
+    _check("alias join", int(count) == N_SECONDARY, f"count {int(count)}")
+    distinct = int((torch.bincount(keys, minlength=N_PRIMARY + 1)[1:] > 0).sum())
+    reach, exact = _zipf_reach(torch, device)
+    _check("alias distinct keys", abs(distinct / exact - 1) <= 0.005,
+           f"{distinct} against {exact:.1f}")
+    log(f"[alias] join {int(count):,} ok; distinct keys {distinct:,} against "
+        f"the exact law's {exact:,.1f} ({(distinct / exact - 1) * 100:+.4f}%, "
+        f"gate ±0.5%); the rejection sampler reaches {reach:,}")
+    return a, keys
+
+
+def phase_multi_key(torch, launches, a, b, card_line):
+    """Phase 10: composite-key counts at 10M ⋈ 200M — the keys of phase 9
+    split into 2 columns (K3 on the packed pair; K6 too under "pallas")
+    and 3 columns (the lexicographic sort-merge path), each equal to the
+    native host join count of the unsplit keys, under both sorter
+    settings."""
+    from partitionedhashjoin_tpu_torch.data import host_loader
+    from partitionedhashjoin_tpu_torch.ops import merge_join, multi_key
+
+    t0 = time.perf_counter()
+    want = host_loader.host_join_count(a.cpu().numpy(), b.cpu().numpy())
+    log(f"[multi-key] oracle host_join_count of the unsplit keys: {want:,} "
+        f"({(time.perf_counter() - t0) * 1e3:.3f} ms host clock)")
+    _check("multi-key oracle", want == N_SECONDARY, f"{want}")
+    splits = {
+        2: lambda k: (k >> 12, k & 4095),
+        3: lambda k: (k >> 20, (k >> 10) & 1023, k & 1023),
+    }
+    run = functools.partial(_run_path, torch, "multi-key", launches)
+    for impl in ("xla", "pallas"):
+        merge_join.set_sort_impl(impl)
+        try:
+            for k, split in splits.items():
+                kernels = {2: ("k3",), 3: ()}[k]
+                if impl == "pallas" and k == 2:
+                    kernels += ("k6",)
+                cols_a, cols_b = split(a), split(b)
+                got = run(f"multi_key_count k={k} under {impl!r}",
+                          lambda: multi_key.multi_key_count(cols_a, cols_b),
+                          kernels)
+                _check(f"multi-key k={k} {impl}", int(got) == want, f"{int(got)}")
+                dev_ms = _time_ms(torch, lambda: multi_key.multi_key_count(
+                    cols_a, cols_b), reps=3)
+                log(f"[time multi-key] {card_line}: k={k} under {impl!r}, "
+                    f"{_shape()}: {int(got):,} == host_join_count; "
+                    f"{dev_ms:.4f} ms (CUDA events, warm)")
+                del cols_a, cols_b
+        finally:
+            merge_join.set_sort_impl("xla")
+    # the k >= 3 path spreads each run's start prefix with a cumsum and two
+    # gathers, where the JAX function takes a cummax
+    n = N_PRIMARY + N_SECONDARY
+    gen = torch.Generator(device=a.device)
+    gen.manual_seed(SEED)
+    starts = torch.rand((n,), generator=gen, device=a.device) < 0.04
+    starts[0] = True
+    prefix = torch.cumsum(starts, dim=0)
+    snapshot = torch.where(starts, prefix, -1)
+    cummax_ms = _time_ms(torch, lambda: torch.cummax(snapshot, dim=0), reps=1)
+    spread_ms = _time_ms(torch, lambda: prefix[torch.nonzero(starts).squeeze(1)][
+        torch.cumsum(starts, dim=0).sub_(1)], reps=3)
+    log(f"[time multi-key] {card_line}: a run's start prefix spread over "
+        f"{n:,} rows: torch.cummax {cummax_ms:.4f} ms, cumsum + nonzero + "
+        f"gathers {spread_ms:.4f} ms (CUDA events)")
+
+
+def phase_bench(torch, launches, card_line):
+    """Phase 11: ``python -m partitionedhashjoin_tpu_torch.bench`` at
+    10M ⋈ 200M as a subprocess: exactly one JSON line with bench.py's keys
+    plus the card's name; each algo counts 200,000,000 (the bench raises
+    otherwise) and launches K1 in its measured run (its ``launches`` lines
+    on stderr)."""
+    import os
+
+    torch.cuda.empty_cache()
+    env = dict(os.environ, PHJ_BENCH_PRIMARY=str(N_PRIMARY),
+               PHJ_BENCH_SECONDARY=str(N_SECONDARY), PHJ_BENCH_SKEW=str(SKEW),
+               PHJ_SORT_IMPL="xla")
+    env.pop("PHJ_BENCH_ALGOS", None)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", f"{PKG}.bench"], env=env,
+                          capture_output=True, text=True, timeout=600)
+    wall_s = time.perf_counter() - t0
+    for line in proc.stderr.splitlines():
+        log(f"[bench] {line}")
+    _check("bench", proc.returncode == 0, f"exit {proc.returncode}")
+    lines = proc.stdout.splitlines()
+    _check("bench", len(lines) == 1, f"{len(lines)} stdout lines")
+    doc = json.loads(lines[0])
+    keys = {"metric", "value", "unit", "vs_baseline", "generation_path",
+            "sort_impl", "roofline_fraction_single_touch", "device"}
+    _check("bench", set(doc) == keys, f"keys {sorted(doc)}")
+    _check("bench", doc["device"] == torch.cuda.get_device_name(0)
+           and doc["metric"].endswith(f"_{N_PRIMARY}x{N_SECONDARY}_skew{SKEW}"),
+           f"{doc}")
+    for algo in ("sort-merge", "radix"):
+        line = [x for x in proc.stderr.splitlines()
+                if x.startswith(f"launches {algo}: ")]
+        _check("bench", len(line) == 1, f"no launches line for {algo}")
+        got = json.loads(line[0].split(": ", 1)[1]).get("merge_probe.LAUNCHES", 0)
+        _check("bench", got > 0, f"{algo}: k1 was never launched")
+        launches["k1"] += got
+    log(f"[time bench] {card_line}: {doc['metric']} = {doc['value']} rows/s "
+        f"(vs_baseline {doc['vs_baseline']}), subprocess wall {wall_s:.3f} s")
+    log(f"[bench] {lines[0]}")
+
+
 def main() -> int:
     import torch
 
@@ -1882,6 +2050,10 @@ def main() -> int:
     phase_sorter(torch, device, launches, xla_groups, xla_hot)
     del xla_groups, xla_hot
     phase_generate(torch, device, launches)
+    a, b = phase_alias(torch, device, launches, card)
+    phase_multi_key(torch, launches, a, b, card)
+    del a, b
+    phase_bench(torch, launches, card)
     described = (
         ("merge_probe_count", "k1", "merge_probe.cu", "merge_probe.py:292"),
         ("merge_probe_count_i64", "k3", "merge_probe.cu",

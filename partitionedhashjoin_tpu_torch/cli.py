@@ -152,12 +152,13 @@ def parse_arguments(argv: Optional[Sequence[str]] = None) -> "tuple[Configuratio
 def generate_tables(config: Configuration, log, device):
     """Generate both relations on ``device`` (main.cpp:35-79).
 
-    The secondary relation uses the rejection sampler.  The JAX CLI picks
-    the alias sampler for primaries up to 2^24 rows (its cli.py:175-177);
-    that sampler is not ported yet, so the two CLIs draw from the same
-    distribution by different methods.
+    The secondary relation uses the alias sampler (exact, from host-built
+    Vose tables) for primaries up to 2^24 rows and the rejection sampler
+    above, the JAX CLI's rule (its cli.py:175-177), for int32 and int64
+    keys alike.
     """
     from partitionedhashjoin_tpu_torch.ops.generators import (
+        ALIAS_MAX_CARDINALITY,
         sequential_table,
         zipf_table,
     )
@@ -175,13 +176,18 @@ def generate_tables(config: Configuration, log, device):
     table_a = sequential_table(
         config.primary_relation_size, dtype=dtype, device=device
     )
+    method = (
+        "alias"
+        if config.primary_relation_size <= ALIAS_MAX_CARDINALITY
+        else "rejection"
+    )
     table_b = zipf_table(
         config.secondary_relation_size,
         alpha=config.skew_parameter,
         key_range=(1, config.primary_relation_size),
         seed=config.seed,
         dtype=dtype,
-        method="rejection",
+        method=method,
         device=device,
     )
     sync(device)

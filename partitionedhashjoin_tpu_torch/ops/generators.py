@@ -9,13 +9,14 @@ reference's src/DataGenerator/:
   reference's inverse-CDF-proposal rejection sampler
   (src/DataGenerator/Zipf.cpp:14-56), as one oversampled round of candidates
   whose accepted draws are kept in draw order, plus a refill loop.
+- ``zipf_keys_alias`` / ``zipf_table(method="alias")``: exact Zipf(alpha)
+  ids from Vose alias tables built on the host (``data/host_loader.py``,
+  ``native/phj_host.cpp``): one integer bin and one float32 uniform per draw.
 - ``uniform_keys`` / ``uniform_table``: Zipf(0), the uniform distribution.
 
 Every random draw comes from an explicit ``torch.Generator`` (Philox on CUDA,
 Mersenne Twister on the CPU), seeded from ``seed``.  The streams differ from
 JAX's threefry, so the two packages agree in distribution, not in samples.
-The JAX package's ``method="alias"`` (host-built Vose tables from
-``native/``) is not ported yet.
 """
 
 from __future__ import annotations
@@ -149,6 +150,49 @@ def zipf_keys(
     return parts[0] if len(parts) == 1 else torch.cat(parts)
 
 
+#: Largest cardinality of the alias sampler, as in the JAX package.
+ALIAS_MAX_CARDINALITY = 1 << 24
+#: Bits of the integer behind each alias bin: bin = (r * card) >> BITS for r
+#: uniform in [0, 2^BITS), so a bin's weight is within card / 2^BITS
+#: (< 3.1e-5 of 1/card for card <= 2^24) of exact, and r * card < 2^63.
+_BIN_BITS = 39
+
+
+def zipf_keys_alias(
+    n: int,
+    prob: torch.Tensor,
+    alias: torch.Tensor,
+    generator: torch.Generator,
+    device,
+) -> torch.Tensor:
+    """n Zipf samples via Vose alias tables (exact, rejection-free), int32
+    over [1, card] with card = ``prob.shape[0]``.
+
+    ``(prob float32, alias int32)`` come from the native library
+    (``data/host_loader.py::build_zipf_alias``) and lie on ``device``.  Each
+    draw is one integer bin, uniform over [0, card), and a float32 uniform
+    u2: emit bin if u2 < prob[bin] else alias[bin] (+1 for the 1-based key
+    range).  The bin is drawn as an integer: a float32 uniform has only
+    2^23 or 2^24 values, which leaves bins unreachable or unevenly weighted
+    (the JAX function's ``floor(u1 * card)``).
+    """
+    card = prob.shape[0]
+    if card > ALIAS_MAX_CARDINALITY:
+        raise ValueError(
+            "alias sampler requires cardinality <= 2^24; use zipf_keys"
+        )
+    bins = torch.randint(
+        0, 1 << _BIN_BITS, (n,), generator=generator, dtype=torch.int64,
+        device=device,
+    )
+    bins.mul_(card).bitwise_right_shift_(_BIN_BITS)
+    u2 = torch.rand((n,), generator=generator, dtype=torch.float32, device=device)
+    take_bin = u2 < prob[bins]
+    del u2
+    out = torch.where(take_bin, bins.to(torch.int32), alias[bins])
+    return out.add_(1)
+
+
 def uniform_keys(
     n: int,
     lo: int,
@@ -221,8 +265,12 @@ def zipf_table(
     """Secondary relation: Zipf ids over closed [lo, hi], payload = row index.
 
     Mirrors Zipf::FillTable (Zipf.cpp:58-108): range validation, closed-range
-    cardinality, and the ``lo - 1`` correction.  ``method`` is "rejection";
-    "alias" needs the native Vose-table construction and is not ported yet.
+    cardinality, and the ``lo - 1`` correction.
+
+    ``method``: "rejection" (the reference's sampler math, on the device) or
+    "alias" (Vose tables built on the host by the native library, moved to
+    the device once, then two gathers per draw — exact and rejection-free;
+    requires cardinality <= 2^24).
     """
     lo, hi = key_range
     if lo >= hi:
@@ -232,14 +280,27 @@ def zipf_table(
     if float(alpha) == 0.0:
         # Zipf(0) is the uniform distribution
         return uniform_table(n, key_range, seed=seed, dtype=dtype, device=device)
+    cardinality = int(hi - lo + 1)
+    gen = _generator(seed, device)
     if method == "alias":
-        raise NotImplementedError(
-            "zipf_table(method='alias') is not ported yet (ROADMAP.md, "
-            "Queue 1: the alias sampler); use method='rejection'"
-        )
-    if method != "rejection":
+        if cardinality > ALIAS_MAX_CARDINALITY:
+            raise ValueError(
+                "alias sampling requires cardinality <= 2^24; "
+                "use method='rejection'"
+            )
+        from partitionedhashjoin_tpu_torch.data.host_loader import build_zipf_alias
+
+        # same clamped alpha as the rejection path (Zipf.cpp:22-26), so both
+        # methods target the same distribution for any skew
+        alpha_c, _, _ = _zipf_params(float(alpha), cardinality)
+        prob, alias = build_zipf_alias(alpha_c, cardinality)
+        prob = torch.from_numpy(prob).to(device)
+        alias = torch.from_numpy(alias).to(device)
+        ids = zipf_keys_alias(n, prob, alias, gen, device)
+        del prob, alias
+    elif method == "rejection":
+        ids = zipf_keys(n, float(alpha), cardinality, gen, device)
+    else:
         raise ValueError(f"unknown Zipf sampling method: {method!r}")
-    cardinality = hi - lo + 1
-    ids = zipf_keys(n, float(alpha), int(cardinality), _generator(seed, device), device)
     ids = (ids + (lo - 1)).to(dtype)
     return make_table(ids, torch.arange(n, dtype=dtype, device=device))

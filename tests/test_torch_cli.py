@@ -137,3 +137,24 @@ def test_default_configuration_matches_jax():
     assert config.join_type.value == jax_config.join_type.value
     assert config.radix_clustering_config.number_of_partitions == 32
     assert args.platform == "cuda"
+
+
+@pytest.mark.parametrize("primary,method", [
+    (1024, "alias"), (1 << 24, "alias"), ((1 << 24) + 1, "rejection"),
+])
+@pytest.mark.parametrize("key_dtype", ["int32", "int64"])
+def test_generation_method_follows_jax_rule(primary, method, key_dtype, monkeypatch):
+    """The alias sampler for primaries up to 2^24, rejection above, for both
+    key widths (the JAX CLI's cli.py:175-177)."""
+    import logging
+
+    from partitionedhashjoin_tpu_torch.ops import generators
+
+    calls = []
+    monkeypatch.setattr(generators, "sequential_table", lambda n, **kw: None)
+    monkeypatch.setattr(generators, "zipf_table",
+                        lambda *a, **kw: calls.append(kw["method"]))
+    config, _ = cli.parse_arguments(["--primary", str(primary), "--join", "sort-merge",
+                                     "--key-dtype", key_dtype])
+    cli.generate_tables(config, logging.getLogger("test"), "cpu")
+    assert calls == [method]

@@ -789,3 +789,103 @@ def test_zipf_kernel_few_rounds(cuda, rounds):
         assert 0.05 < float((keys == 1).float().mean()) < 0.2
     assert int((keys != plain).sum()) <= n * 1e-4
     assert int((keys - plain).abs().max()) <= 2
+
+
+# ------------------------------------------ multi-key, alias sampler, bench
+
+
+@pytest.mark.parametrize("sort_impl", ["xla", "pallas"])
+@pytest.mark.parametrize("k", [1, 2, 3, 4])
+def test_multi_key_on_card_matches_cpu(cuda, k, sort_impl):
+    """Counts on the card equal the CPU's (the kernels' plain versions);
+    k = 2 launches K3, and K6 under "pallas"."""
+    from partitionedhashjoin_tpu_torch.ops import multi_key
+
+    rng = np.random.default_rng(80 + k)
+    a = [rng.integers(-6, 6, 40_000).astype(np.int32) for _ in range(k)]
+    b = [rng.integers(-6, 6, 300_000).astype(np.int32) for _ in range(k)]
+    for c in a + b:
+        c[:4] = [I32_MIN, I32_MAX, I32_MAX, 0]
+    cpu_a, cpu_b = [torch.from_numpy(c) for c in a], [torch.from_numpy(c) for c in b]
+    dev_a, dev_b = [c.to(cuda) for c in cpu_a], [c.to(cuda) for c in cpu_b]
+    want = (int(multi_key.multi_key_count(cpu_a, cpu_b)),
+            int(multi_key.multi_key_count_all(cpu_a, cpu_b)))
+    merge_join.set_sort_impl(sort_impl)
+    try:
+        before = (mp.LAUNCHES_I64, bs.LAUNCHES_SORT)
+        got = multi_key.multi_key_count(dev_a, dev_b)
+        grew = (mp.LAUNCHES_I64 - before[0], bs.LAUNCHES_SORT - before[1])
+        got_all = multi_key.multi_key_count_all(dev_a, dev_b)
+    finally:
+        merge_join.set_sort_impl("xla")
+    assert got.device.type == got_all.device.type == "cuda"
+    assert (int(got), int(got_all)) == want
+    if k == 2:
+        assert grew[0] == 1 and (grew[1] > 0) == (sort_impl == "pallas")
+
+
+def test_alias_sampler_on_card(cuda):
+    """200K draws over [1, 1000] at alpha 1.05 within the CPU tests' TV bound
+    of the pmf; an integer bin at card = 3 * 2^22 (a float32 one would put
+    half the mass on bins = 0 mod 3)."""
+    from partitionedhashjoin_tpu_torch.data import host_loader
+    from partitionedhashjoin_tpu_torch.ops import generators
+
+    card, n = 1000, 200_000
+    prob, alias = host_loader.build_zipf_alias(1.05, card)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    keys = generators.zipf_keys_alias(n, torch.from_numpy(prob).to(cuda),
+                                      torch.from_numpy(alias).to(cuda), g, cuda)
+    assert keys.device.type == "cuda" and keys.dtype == torch.int32
+    freq = np.bincount(keys.cpu().numpy(), minlength=card + 1)[1:] / n
+    pmf = np.arange(1, card + 1, dtype=np.float64) ** -1.05
+    assert 0.5 * np.abs(freq - pmf / pmf.sum()).sum() < 0.035
+    card = 3 << 22
+    keys = generators.zipf_keys_alias(
+        60_000, torch.ones(card, device=cuda),
+        torch.arange(card, dtype=torch.int32, device=cuda), g, cuda)
+    share = np.bincount((keys.cpu().numpy() - 1) % 3, minlength=3) / 60_000
+    np.testing.assert_allclose(share, 1 / 3, atol=0.02)
+    table = generators.zipf_table(n, 1.05, (1, 1000), seed=3, method="alias",
+                                  device=cuda)
+    assert table.keys.device.type == "cuda"
+    assert int(table.keys.min()) >= 1 and int(table.keys.max()) <= 1000
+
+
+def test_bench_on_card(cuda, monkeypatch, capsys):
+    """The bench at 100K ⋈ 2M on the card: one JSON line naming the card,
+    and K1 launched in each measured run."""
+    import json
+
+    from partitionedhashjoin_tpu_torch import bench
+
+    monkeypatch.setenv("PHJ_BENCH_PRIMARY", "100000")
+    monkeypatch.setenv("PHJ_BENCH_SECONDARY", "2000000")
+    monkeypatch.delenv("PHJ_BENCH_ALGOS", raising=False)
+    monkeypatch.delenv("PHJ_SORT_IMPL", raising=False)
+    assert bench.main(["--platform", "cuda"]) == 0
+    out, err = capsys.readouterr()
+    lines = out.splitlines()
+    assert len(lines) == 1
+    doc = json.loads(lines[0])
+    assert doc["device"] == torch.cuda.get_device_name(0)
+    assert doc["metric"].endswith("_100000x2000000_skew1.05") and doc["value"] > 0
+    for algo in ("sort-merge", "radix"):
+        line = next(x for x in err.splitlines() if x.startswith(f"launches {algo}: "))
+        launched = json.loads(line.split(": ", 1)[1])
+        assert launched.get("merge_probe.LAUNCHES", 0) >= 1, line
+
+
+def test_trace_records_the_card(cuda, tmp_path):
+    """``utils.profiling.trace`` writes a Chrome trace holding the card's
+    kernels beside the CPU's operators."""
+    import json
+
+    from partitionedhashjoin_tpu_torch.utils import profiling
+
+    x = torch.arange(1 << 20, device=cuda)
+    with profiling.trace(str(tmp_path)):
+        (x * 3).sum().item()
+    events = json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
+    cats = {e.get("cat") for e in events}
+    assert "kernel" in cats and "cpu_op" in cats, cats

@@ -9,6 +9,10 @@
 - ``zipf_keys``: JAX threefry and torch's generators never give the same
   bits, so both samplers are held to the true Zipf pmf by total-variation
   distance, with the bound tests/test_generators.py uses (0.035).
+- ``zipf_keys_alias``: on the JAX package's own alias tables, both samplers
+  are held to the pmf by the same bound, and to each other by 0.05 (two
+  samples, each within 0.035 of the pmf).  The port draws the bin as an
+  integer; a test fails if it comes from a float32 uniform.
 """
 
 import numpy as np
@@ -17,6 +21,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+from partitionedhashjoin_tpu.data import host_loader as jax_hl
 from partitionedhashjoin_tpu.ops import generators as jax_gen
 from partitionedhashjoin_tpu_torch.ops import generators as gen
 
@@ -126,5 +131,62 @@ def test_zipf_table_validation():
         gen.zipf_table(10, 0.001, (1, 100), seed=1, device="cpu")
     with pytest.raises(ValueError):
         gen.zipf_table(10, 1.05, (1, 100), seed=1, method="bogus", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        gen.zipf_table(10, 1.05, (1, 100), seed=1, method="alias", device="cpu")
+    with pytest.raises(ValueError, match="2\\^24"):
+        gen.zipf_table(10, 1.05, (1, (1 << 24) + 1), seed=1, method="alias",
+                       device="cpu")
+    with pytest.raises(ValueError):
+        gen.zipf_table(10, 0.001, (1, 100), seed=1, method="alias", device="cpu")
+
+
+def test_alias_sampler_distribution_matches_jax_sampler():
+    """200K draws over [1, 1000] at alpha 1.05 from the JAX package's alias
+    tables: the port's and JAX's samples against the pmf and each other."""
+    card, alpha, n = 1000, 1.05, 200_000
+    prob, alias = jax_hl.build_zipf_alias(alpha, card)
+    g = torch.Generator().manual_seed(0)
+    keys = gen.zipf_keys_alias(n, torch.from_numpy(prob), torch.from_numpy(alias),
+                               generator=g, device="cpu").numpy()
+    jkeys = np.asarray(jax_gen.zipf_keys_alias(
+        jax.random.PRNGKey(0), n, jnp.asarray(prob), jnp.asarray(alias)))
+    assert keys.dtype == np.int32 and keys.shape == jkeys.shape == (n,)
+    assert keys.min() >= 1 and keys.max() <= card
+    assert _tv_to_zipf(keys, card, alpha) < 0.035
+    assert _tv_to_zipf(jkeys, card, alpha) < 0.035
+    f = np.bincount(keys, minlength=card + 1) / n
+    jf = np.bincount(jkeys, minlength=card + 1) / n
+    assert 0.5 * np.abs(f - jf).sum() < 0.05
+
+
+def test_alias_bin_is_not_a_float32_uniform():
+    """With every bin kept (prob 1, alias = itself) a key is its bin + 1.  At
+    card = 3 * 2^22 a bin floor(u * card) from a float32 uniform u (2^24
+    values) puts half the mass on bins = 0 mod 3 (2^23 values: none on
+    bins = 2 mod 3); an integer bin puts a third on each class."""
+    card, n = 3 << 22, 60_000
+    prob = torch.ones(card, dtype=torch.float32)
+    alias = torch.arange(card, dtype=torch.int32)
+    g = torch.Generator().manual_seed(11)
+    keys = gen.zipf_keys_alias(n, prob, alias, generator=g, device="cpu")
+    share = np.bincount((keys.numpy() - 1) % 3, minlength=3) / n
+    np.testing.assert_allclose(share, 1 / 3, atol=0.02)
+    assert int(keys.min()) >= 1 and int(keys.max()) <= card
+
+
+def test_alias_table_range_correction_and_uniform():
+    t1 = gen.zipf_table(20_000, 1.05, (101, 600), seed=3, method="alias", device="cpu")
+    t2 = gen.zipf_table(20_000, 1.05, (101, 600), seed=3, method="alias", device="cpu")
+    assert torch.equal(t1.keys, t2.keys) and t1.keys.dtype == torch.int32
+    assert int(t1.keys.min()) >= 101 and int(t1.keys.max()) <= 600
+    vals, counts = np.unique(t1.keys.numpy(), return_counts=True)
+    assert vals[np.argmax(counts)] == 101  # the lo - 1 correction
+    assert torch.equal(t1.payloads, torch.arange(20_000, dtype=torch.int32))
+    t64 = gen.zipf_table(1000, 1.05, (101, 600), seed=3, method="alias",
+                         dtype=torch.int64, device="cpu")
+    assert t64.keys.dtype == torch.int64
+    # alpha 0 keeps the uniform branch whatever the method
+    u = gen.zipf_table(20_000, 0.0, (1, 50), seed=3, method="alias", device="cpu")
+    assert torch.equal(u.keys, gen.uniform_table(20_000, (1, 50), seed=3,
+                                                 device="cpu").keys)
+    big = torch.empty((1 << 24) + 1, dtype=torch.float32)
+    with pytest.raises(ValueError, match="2\\^24"):
+        gen.zipf_keys_alias(10, big, big.view(torch.int32), torch.Generator(), "cpu")
