@@ -104,8 +104,28 @@ and raises on the first failure:
              as a subprocess: exactly one JSON line with ``bench.py``'s keys
              plus ``device``; every algo counts 200,000,000 and launches K1
              in its measured run (read from its ``launches`` lines).
+12. sql    — the SQL front end over the query layer at 10M ⋈ 200M: (a) the
+             shell ``python -m partitionedhashjoin_tpu_torch.sql --table
+             a=sequential:10000000 --table b=zipf:200000000:1.05:1:10000000
+             "SELECT COUNT(*) FROM b JOIN a USING (key)"`` as a subprocess
+             prints 200000000 (run through ``runpy``, which then reports
+             K1's launches) and its ``--explain`` shows R1; on the
+             pipeline's relations, (b) SELECT key, COUNT/SUM/MIN/MAX ... JOIN
+             ... GROUP BY key ORDER BY count DESC LIMIT 10 through
+             ``execute_sql`` equals ``bench_pipeline.run_query``'s top 10 and
+             the phase-6 oracle, EXPLAIN R3 and R4, K4 launched; (c) the same
+             with ``WHERE b.payload % 2 = 0`` takes R7 (K5, K4) and equals the
+             oracle over the kept rows; (d) ``SELECT COUNT(*) FROM b ANTI
+             JOIN a USING (key) WHERE a.key % 2 = 0`` equals the probe rows
+             with an odd key, with ``torch.cummax`` refused, and its
+             multiplicity scan is timed against a version that carries
+             each run's start by ``torch.cummax`` (the JAX function's scan)
+             on the same sort;
+             (e) zero divisors and INT32_MIN // -1 through ``_compile_expr``
+             on 1M card rows equal the CPU port bit for bit; (f) (b) under
+             "pallas" (K6) equals the "xla" run.
 
-Kernel launch counts are set to 0 just before each path of phases 4 to 11
+Kernel launch counts are set to 0 just before each path of phases 4 to 12
 and read just after; a kernel's ``launches`` is the sum over the paths that
 run it.  Comparison launches in phase 3 are not counted.  The script prints
 one JSON line describing the kernels and, last, the ``"ok"`` line.  Without a
@@ -2024,6 +2044,217 @@ def phase_bench(torch, launches, card_line):
     log(f"[bench] {lines[0]}")
 
 
+#: Runs the SQL shell module as ``python -m`` does (``runpy``), then prints
+#: K1's launch count to stderr, so the shell's own process reports it.
+_SHELL_WITH_COUNTS = (
+    "import json, runpy, sys\n"
+    "from partitionedhashjoin_tpu_torch.ops.kernels import merge_probe as mp\n"
+    "try:\n"
+    "    runpy.run_module('partitionedhashjoin_tpu_torch.sql', run_name='__main__',"
+    " alter_sys=True)\n"
+    "finally:\n"
+    "    print('launches ' + json.dumps({'k1': mp.LAUNCHES}), file=sys.stderr)\n"
+)
+SQL_PIPELINE = (
+    "SELECT key, COUNT(*), SUM(b.payload), MIN(b.payload), MAX(b.payload) "
+    "FROM b JOIN a USING (key) {where}GROUP BY key ORDER BY count DESC LIMIT 10")
+SQL_ANTI = "SELECT COUNT(*) FROM b ANTI JOIN a USING (key) WHERE a.key % 2 = 0"
+
+
+def _host_ms(torch, fn):
+    """Host-clock ms of one run of ``fn`` after a warmup, closed by a
+    barrier."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def _top10(torch, groups):
+    """The oracle's groups ordered by COUNT descending, ties by key (the
+    group table's row order), first 10."""
+    order = torch.sort(groups["count"], descending=True, stable=True).indices[:10]
+    return {f: c[order].cpu().numpy() for f, c in groups.items()}
+
+
+def _check_sql_rows(name, r, want):
+    """The SQL result's columns equal ``want``'s (key, count, sum, min,
+    max), exactly."""
+    import numpy as np
+
+    _check(name, r.row_count == 10 and list(r.columns) == [
+        "key", "count", "sum", "min", "max"], f"{r.row_count} rows {list(r.columns)}")
+    for col, w in zip(r.columns, (want["keys"], want["count"], want["sum"],
+                                  want["min"], want["max"])):
+        _check(name, np.array_equal(r.columns[col], w), f"{col}: {r.columns[col]} != {w}")
+
+
+@contextlib.contextmanager
+def _no_cummax(torch):
+    """``torch.cummax`` raises inside the block."""
+    real = torch.cummax
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("torch.cummax was called")
+
+    torch.cummax = refuse
+    try:
+        yield
+    finally:
+        torch.cummax = real
+
+
+def _multiplicity_by_cummax(torch, build_keys, probe_keys, build_valid):
+    """``sort_merge._merged_multiplicity``'s third output with each run's
+    start prefix carried by ``torch.cummax``, as the JAX function carries it
+    (for the before/after time): the same sort, another scan."""
+    from partitionedhashjoin_tpu_torch.ops import sort_merge
+
+    keys_s, is_build_s, order = sort_merge._merged_sort(build_keys, probe_keys)
+    valid_s = torch.cat([build_valid, torch.ones_like(probe_keys, dtype=torch.bool)])[order]
+    counted = (is_build_s & valid_s).to(torch.int64)
+    build_prefix = torch.cumsum(counted, dim=0)
+    new_key = torch.ones_like(is_build_s)
+    new_key[1:] = keys_s[1:] != keys_s[:-1]
+    snapshot = torch.where(new_key, build_prefix - counted, -1)
+    return build_prefix - torch.cummax(snapshot, dim=0).values
+
+
+def phase_sql(torch, device, launches, card_line):
+    """Phase 12: the SQL front end and the query layer at 10M ⋈ 200M; adds
+    each path's launches."""
+    import numpy as np
+
+    from partitionedhashjoin_tpu_torch import bench_pipeline
+    from partitionedhashjoin_tpu_torch.data.table import make_table
+    from partitionedhashjoin_tpu_torch.ops import merge_join, sort_merge
+    from partitionedhashjoin_tpu_torch.sql import _compile_expr, execute_sql, explain_sql
+    from partitionedhashjoin_tpu_torch.sql import parse_sql
+
+    run = functools.partial(_run_path, torch, "sql", launches)
+
+    # (a) the shell, as a subprocess, at the reference workload: the count
+    # (through runpy, reporting K1's launches) and --explain, side by side
+    torch.cuda.empty_cache()
+    argv = ["--table", f"a=sequential:{N_PRIMARY}",
+            "--table", f"b=zipf:{N_SECONDARY}:{SKEW}:1:{N_PRIMARY}"]
+    stmt = "SELECT COUNT(*) FROM b JOIN a USING (key)"
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True)
+             for cmd in ([sys.executable, "-c", _SHELL_WITH_COUNTS, *argv, stmt],
+                         [sys.executable, "-m", f"{PKG}.sql", *argv, "--explain", stmt])]
+    (count_out, count_err), (plan_out, plan_err) = (p.communicate(timeout=600)
+                                                     for p in procs)
+    wall_s = time.perf_counter() - t0
+    for tag, text in (("count", count_err), ("explain", plan_err)):
+        for line in text.splitlines():
+            log(f"[sql shell {tag}] {line}")
+    _check("sql shell", [p.returncode for p in procs] == [0, 0],
+           f"exit {[p.returncode for p in procs]}")
+    _check("sql shell", count_out == f"count\n{N_SECONDARY}\n(1 rows)\n", repr(count_out))
+    _check("sql shell --explain", "R1" in plan_out, plan_out)
+    k1 = json.loads(count_err.splitlines()[-1].removeprefix("launches "))["k1"]
+    _check("sql shell", k1 > 0, "k1 was never launched")
+    launches["k1"] += k1
+    log(f"[time sql] {card_line}: (a) python -m {PKG}.sql {' '.join(argv)} "
+        f"'{stmt}': prints {N_SECONDARY:,}, k1 launches {k1}, --explain shows R1; "
+        f"both subprocesses {wall_s:.3f} s wall (startup, generation, count)")
+    log("[sql shell] --explain:\n" + plan_out.rstrip())
+
+    # (b)-(f) share the pipeline's relations (scripts/bench_pipeline.py)
+    a_keys, a_pay, b_keys, b_pay = _query_relations(torch, device)
+    db = {"a": make_table(a_keys, a_pay), "b": make_table(b_keys, b_pay)}
+    kw = dict(group_capacity=GROUP_CAPACITY)
+    _, hot, _ = bench_pipeline.run_query(a_keys, a_pay, b_keys, b_pay,
+                                         GROUP_CAPACITY, True)
+    hand = (hot.payloads.cpu().numpy(), hot.keys.cpu().numpy())
+    want = _top10(torch, _group_oracle(torch, b_keys, b_pay))
+    _check("sql oracle", np.array_equal(hand[0], want["keys"])
+           and np.array_equal(hand[1], want["count"]), "hand-built plan != oracle")
+    del hot
+
+    # (b) the pipeline statement
+    sql_b = SQL_PIPELINE.format(where="")
+    plan = explain_sql(sql_b, db, **kw)
+    _check("sql (b) explain", "R3" in plan and "R4" in plan, plan)
+    b_ms = _host_ms(torch, lambda: execute_sql(sql_b, db, **kw))
+    rb = run("(b) " + sql_b, lambda: execute_sql(sql_b, db, **kw), ("k4", "k5"))
+    _check_sql_rows("sql (b)", rb, want)
+    log(f"[time sql] {card_line}: (b) {b_ms:.3f} ms host clock (warm); 10 rows == "
+        f"bench_pipeline.run_query's ordered plan == the bincount / scatter_add "
+        f"mod 2^32 oracle; EXPLAIN R3 + R4")
+
+    # (c) the same statement filtered: R7, K5 then K4
+    sql_c = SQL_PIPELINE.format(where="WHERE b.payload % 2 = 0 ")
+    plan = explain_sql(sql_c, db, **kw)
+    _check("sql (c) explain", "R7" in plan, plan)
+    keep = (b_pay % 2) == 0
+    want_c = _top10(torch, _group_oracle(torch, b_keys[keep], b_pay[keep]))
+    del keep
+    c_ms = _host_ms(torch, lambda: execute_sql(sql_c, db, **kw))
+    rc = run("(c) " + sql_c, lambda: execute_sql(sql_c, db, **kw), ("k5", "k4"))
+    _check_sql_rows("sql (c)", rc, want_c)
+    log(f"[time sql] {card_line}: (c) {c_ms:.3f} ms host clock (warm); == the "
+        f"oracle over the kept rows; EXPLAIN R7")
+
+    # (d) the masked anti count: sort_merge._merged_multiplicity at 210M
+    # rows, with torch.cummax refused
+    odd = int(torch.bincount(b_keys, minlength=N_PRIMARY + 1)[1::2].sum())
+    with _no_cummax(torch):
+        d_ms = _host_ms(torch, lambda: execute_sql(SQL_ANTI, db))
+        rd = run("(d) " + SQL_ANTI, lambda: execute_sql(SQL_ANTI, db), ())
+    _check("sql (d)", int(rd.columns["count"][0]) == odd,
+           f"{int(rd.columns['count'][0])} != {odd} probe rows with an odd key")
+    even = a_keys % 2 == 0
+    _check("sql (d) multiplicity", torch.equal(
+        sort_merge._merged_multiplicity(a_keys, b_keys, even, None)[2],
+        _multiplicity_by_cummax(torch, a_keys, b_keys, even)),
+        "the cummax and gather scans differ")
+    cummax_ms = _time_ms(torch, lambda: _multiplicity_by_cummax(
+        torch, a_keys, b_keys, even), reps=1)
+    gather_ms = _time_ms(torch, lambda: sort_merge._merged_multiplicity(
+        a_keys, b_keys, even, None), reps=3)
+    del even
+    log(f"[time sql] {card_line}: (d) {SQL_ANTI}: {odd:,} ok, {d_ms:.3f} ms host "
+        f"clock (warm, no torch.cummax); sort_merge._merged_multiplicity over "
+        f"{N_PRIMARY + N_SECONDARY:,} rows (sort and scan) {gather_ms:.4f} ms, "
+        f"with a torch.cummax scan {cummax_ms:.4f} ms (CUDA events, equal)")
+
+    # (e) zero divisors and INT32_MIN // -1 on 1M card rows == the CPU port
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 12)
+    k = torch.randint(-6, 6, (1 << 20,), generator=gen, dtype=torch.int32, device=device)
+    p = torch.randint(-3, 3, (1 << 20,), generator=gen, dtype=torch.int32, device=device)
+    k[:4] = torch.tensor([I32_MIN, I32_MIN, 0, I32_MAX], dtype=torch.int32)
+    p[:4] = torch.tensor([-1, 0, 0, -1], dtype=torch.int32)
+    texts = ("key // payload", "key % payload", "key / 0", "key % 0", "payload // key",
+             "(key * payload) // (payload - payload)", "key // -1", "key % -1")
+    for text in texts:
+        fn = _compile_expr(parse_sql(f"SELECT key FROM b WHERE {text} = 0").where.left)
+        got = fn(k, p)
+        _check(f"sql (e) {text}", torch.equal(got.cpu(), fn(k.cpu(), p.cpu())),
+               "card != CPU")
+    log(f"[sql] (e) {len(texts)} expressions with zero divisors and "
+        f"INT32_MIN // -1 over {1 << 20:,} card rows: bit-equal to the CPU port")
+    del k, p
+
+    # (f) (b) under the sorter switch's "pallas": K6, equal to the "xla" run
+    merge_join.set_sort_impl("pallas")
+    try:
+        f_ms = _host_ms(torch, lambda: execute_sql(sql_b, db, **kw))
+        rf = run("(f) " + sql_b + " under 'pallas'", lambda: execute_sql(sql_b, db, **kw),
+                 ("k6", "k4", "k5"))
+    finally:
+        merge_join.set_sort_impl("xla")
+    _check("sql (f)", all(np.array_equal(rf.columns[c], rb.columns[c]) for c in rb.columns),
+           "differs from the 'xla' run")
+    log(f"[time sql] {card_line}: (f) {f_ms:.3f} ms host clock (warm) under "
+        "'pallas'; == the 'xla' run")
+
+
 def main() -> int:
     import torch
 
@@ -2054,6 +2285,7 @@ def main() -> int:
     phase_multi_key(torch, launches, a, b, card)
     del a, b
     phase_bench(torch, launches, card)
+    phase_sql(torch, device, launches, card)
     described = (
         ("merge_probe_count", "k1", "merge_probe.cu", "merge_probe.py:292"),
         ("merge_probe_count_i64", "k3", "merge_probe.cu",

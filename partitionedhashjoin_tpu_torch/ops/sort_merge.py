@@ -5,8 +5,10 @@ Counterpart of ``partitionedhashjoin_tpu/ops/sort_merge.py``:
 - ``sort_merge_count``: the Get-semantics count over ONE sort of the
   concatenated ``[build; probe]`` keys.  Unmasked int32 keys go through the
   fused merge-count kernel K2 (``ops/kernels/merge_count.py``); unmasked
-  int64 keys through ``cummax``; masked keys through the multiplicity scan
-  of ``_merged_multiplicity`` (no kernel in the JAX package either).
+  int64 keys through a gather of the last build key; masked keys through
+  the multiplicity scan of ``_merged_multiplicity`` (no kernel in the JAX
+  package either).  None of them calls ``torch.cummax``, whose CUDA version
+  scans one long row in one thread block (PERF.md).
 - ``sort_merge_count_all``: the full inner-join cardinality (``GetAll``
   semantics).  A 0-dim int64 tensor, where the JAX package returns a
   ``uint32[2]`` (hi, lo) pair because it runs without x64.
@@ -97,11 +99,13 @@ def _merged_multiplicity(build_keys, probe_keys, build_valid, probe_valid):
     build_prefix = torch.cumsum(counted, dim=0)
     new_key = torch.ones_like(is_build_s)
     new_key[1:] = keys_s[1:] != keys_s[:-1]
-    # exclusive prefix at each run start, -1 elsewhere; cummax carries the
-    # current run's snapshot (snapshots never decrease)
-    snapshot = torch.where(new_key, build_prefix - counted, -1)
-    run_start_prefix = torch.cummax(snapshot, dim=0).values
-    return ~is_build_s, valid_s, build_prefix - run_start_prefix
+    # the exclusive prefix at each run's start, spread over its run by the
+    # run's index (a prefix count of run starts).  The JAX function carries
+    # it with a cummax; torch.cummax of one long row runs in one thread
+    # block on CUDA, as in ops/multi_key.py
+    at_start = (build_prefix - counted)[torch.nonzero(new_key).squeeze(1)]
+    run_index = torch.cumsum(new_key, dim=0).sub_(1)
+    return ~is_build_s, valid_s, build_prefix - at_start[run_index]
 
 
 def sort_merge_count(
@@ -116,17 +120,19 @@ def sort_merge_count(
             build_keys, probe_keys, build_valid, probe_valid
         )
         return (is_probe & valid & (mult > 0)).sum()
-    # Fast path: ``last_build = running max of build keys`` is the most
-    # recent build key because keys ascend; the dtype minimum doubles as "no
-    # build key yet", so probe rows with that key are added back below.
+    # Fast path: ``last_build``, the most recent build key at each row, is
+    # the running max of build keys because keys ascend; the dtype minimum
+    # doubles as "no build key yet", so probe rows with that key are added
+    # back below.
     keys_s, is_build_s, _ = _merged_sort(build_keys, probe_keys)
     kmin = torch.iinfo(keys_s.dtype).min
     if keys_s.dtype == torch.int32:
         count = merge_count.merge_count_sorted(keys_s, is_build_s)
     else:
-        last_build = torch.cummax(
-            torch.where(is_build_s, keys_s, kmin), dim=0
-        ).values
+        # the build keys in order behind a kmin slot, gathered by the
+        # number of build rows so far (no torch.cummax: see above)
+        build_seq = torch.cat([keys_s.new_full((1,), kmin), keys_s[is_build_s]])
+        last_build = build_seq[torch.cumsum(is_build_s, dim=0)]
         count = (~is_build_s & (last_build == keys_s) & (keys_s != kmin)).sum()
     # correction: probe keys equal to the dtype minimum match iff any build
     # key does
@@ -174,9 +180,11 @@ def _match_probe_rows(build_keys, probe_keys, build_payloads=None,
 
     The build side is sorted stably, so each key's build rows ascend by row,
     and a right ``searchsorted`` of a probe key lands just past its key's
-    last build row.  With ``build_valid``, a ``cummax`` over the sorted build
-    carries the last valid position forward, so an invalid build row never
-    matches (exact over the full int32/int64 key domain, no sentinel)."""
+    last build row.  With ``build_valid``, that position moves back to the
+    last valid sorted build row at or before it (the valid positions behind
+    a -1 slot, gathered by the number of valid rows so far), so an invalid
+    build row never matches (exact over the full int32/int64 key domain, no
+    sentinel key)."""
     n_a, n_b = build_keys.shape[0], probe_keys.shape[0]
     device = probe_keys.device
     if n_a == 0 or n_b == 0:
@@ -193,9 +201,11 @@ def _match_probe_rows(build_keys, probe_keys, build_payloads=None,
     last = torch.searchsorted(a_sorted, q, right=True) - 1
     if build_valid is not None:
         valid_s = build_valid.to(torch.bool)[a_row]
-        rank = torch.arange(n_a, device=device)
-        last_valid = torch.cummax(torch.where(valid_s, rank, -1), 0).values
-        last = torch.where(last >= 0, last_valid[last.clamp(min=0)], -1)
+        valid_pos = torch.cat([last.new_full((1,), -1),
+                               torch.nonzero(valid_s).squeeze(1)])
+        valid_through = torch.cumsum(valid_s, dim=0)
+        last = torch.where(last >= 0,
+                           valid_pos[valid_through[last.clamp(min=0)]], -1)
     at = last.clamp(min=0)
     hit = (last >= 0) & (a_sorted[at] == q)
     build_row = torch.where(hit, a_row[at], 0).to(torch.int32)

@@ -889,3 +889,94 @@ def test_trace_records_the_card(cuda, tmp_path):
     events = json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
     cats = {e.get("cat") for e in events}
     assert "kernel" in cats and "cpu_op" in cats, cats
+
+
+# --------------------------------------------------------------- query / SQL
+
+_SQL_PIPELINE = (
+    "SELECT key, COUNT(*), SUM(b.payload), MIN(b.payload), MAX(b.payload), "
+    "AVG(b.payload) FROM b JOIN a USING (key) {where}GROUP BY key "
+    "ORDER BY count DESC LIMIT 10")
+_SQL_STATEMENTS = (
+    _SQL_PIPELINE.format(where=""),
+    _SQL_PIPELINE.format(where="WHERE b.payload % 2 = 0 "),
+    "SELECT COUNT(*) FROM b JOIN a USING (key) WHERE b.payload > 0",
+    "SELECT COUNT(*) FROM b ANTI JOIN a USING (key) WHERE a.key % 2 = 0",
+    "SELECT key, SUM(a.payload) FROM b LEFT JOIN a USING (key) WHERE a.key > 50 "
+    "GROUP BY key HAVING count > 3 ORDER BY sum DESC LIMIT 20",
+    "SELECT key, payload FROM b WHERE payload // 0 = -2 AND key % 0 = 0 "
+    "ORDER BY payload DESC LIMIT 15",
+    "SELECT COUNT(*), SUM(payload), MIN(payload), MAX(payload), "
+    "COUNT(DISTINCT payload) FROM b WHERE key BETWEEN 10 AND 900",
+    "SELECT DISTINCT key FROM b SEMI JOIN a USING (key) ORDER BY key LIMIT 40",
+)
+
+
+def _sql_tables(device):
+    from partitionedhashjoin_tpu_torch.ops import generators
+
+    gen = torch.Generator().manual_seed(12)
+    a_keys = torch.randperm(30_000, generator=gen)[:20_000].to(torch.int32) + 1
+    b = generators.zipf_table(300_000, 1.05, (1, 30_000), seed=5, device="cpu")
+    b_pay = torch.randint(-(1 << 20), 1 << 20, (300_000,), generator=gen,
+                          dtype=torch.int32)
+    return {"a": make_table(a_keys.to(device), (a_keys ^ 0x5A17).to(device)),
+            "b": make_table(b.keys.to(device), b_pay.to(device))}
+
+
+@pytest.mark.parametrize("sort_impl", ["xla", "pallas"])
+@pytest.mark.parametrize("sql", _SQL_STATEMENTS)
+def test_sql_on_card_matches_cpu(cuda, sql, sort_impl):
+    """Each statement on the card (K1, K4, K5; K6 under "pallas") equals the
+    port's CPU run (the kernels' plain versions), column for column."""
+    from partitionedhashjoin_tpu_torch.sql import execute_sql
+
+    want = execute_sql(sql, _sql_tables("cpu"))
+    merge_join.set_sort_impl(sort_impl)
+    try:
+        got = execute_sql(sql, _sql_tables(cuda))
+    finally:
+        merge_join.set_sort_impl("xla")
+    assert got.row_count == want.row_count and list(got.columns) == list(want.columns)
+    for name, w in want.columns.items():
+        assert got.columns[name].dtype == w.dtype
+        if name == "avg":
+            np.testing.assert_allclose(got.columns[name], w, rtol=1e-6)
+        else:
+            np.testing.assert_array_equal(got.columns[name], w, err_msg=name)
+
+
+def test_sql_paths_launch_their_kernels(cuda):
+    from partitionedhashjoin_tpu_torch.sql import execute_sql
+
+    db = _sql_tables(cuda)
+    for sql, counter in ((_SQL_STATEMENTS[2], (mp, "LAUNCHES")),
+                         (_SQL_STATEMENTS[0], (mpay, "LAUNCHES")),
+                         (_SQL_STATEMENTS[1], (kc, "LAUNCHES"))):
+        module, name = counter
+        before = getattr(module, name)
+        execute_sql(sql, db)
+        assert getattr(module, name) > before, sql
+
+
+def test_division_by_zero_on_card_equals_cpu(cuda):
+    from partitionedhashjoin_tpu_torch.sql import _compile_expr, parse_sql
+
+    gen = torch.Generator().manual_seed(2)
+    k = torch.randint(-5, 5, (1 << 20,), generator=gen, dtype=torch.int32)
+    p = torch.randint(-3, 3, (1 << 20,), generator=gen, dtype=torch.int32)
+    k[:4] = torch.tensor([I32_MIN, I32_MIN, 0, I32_MAX], dtype=torch.int32)
+    p[:4] = torch.tensor([-1, 0, 0, -1], dtype=torch.int32)
+    for text in ("key // payload", "key % payload", "key / 0", "key % 0",
+                 "(key * payload) // (payload - payload)"):
+        fn = _compile_expr(parse_sql(f"SELECT key FROM b WHERE {text} = 0").where.left)
+        assert torch.equal(fn(k.to(cuda), p.to(cuda)).cpu(), fn(k, p)), text
+
+
+def test_sql_shell_on_card(cuda, capsys):
+    from partitionedhashjoin_tpu_torch import sql
+
+    argv = ["--table", "a=sequential:100000", "--table", "b=zipf:2000000:1.05:1:100000",
+            "SELECT COUNT(*) FROM b JOIN a USING (key)"]
+    assert sql.main(argv) == 0
+    assert capsys.readouterr().out == "count\n2000000\n(1 rows)\n"

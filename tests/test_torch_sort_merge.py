@@ -106,3 +106,39 @@ def test_cli_cuda_platform_without_a_card_raises():
     with pytest.raises(RuntimeError, match="cuda"):
         cli.main(["--join", "sort-merge", "--primary", "10", "--secondary",
                   "20", "--output", "stdout"])
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+def test_counts_and_match_over_one_run_spanning_the_input(dtype):
+    """Every key equal, so one run spans the merged stream, and the build
+    side's last valid row lies far before most probe positions: the run's
+    start prefix and the last build key / valid position are spread over
+    the whole input.  Every mask combination, against a numpy oracle."""
+    from partitionedhashjoin_tpu_torch.ops import sort_merge as sm
+
+    rng = np.random.default_rng(11)
+    n_a, n_b = 300, 900
+    a = torch.full((n_a,), 5, dtype=dtype)
+    b = torch.full((n_b,), 5, dtype=dtype)
+    b[::7] = 6  # a second run at the end, with no build row
+    av = torch.from_numpy(rng.random(n_a) < 0.02)
+    av[-5:] = False  # the last valid build row sits well before the end
+    bv = torch.from_numpy(rng.random(n_b) < 0.5)
+    a_pay = torch.arange(n_a, dtype=torch.int32) * 3
+    for build_valid in (None, av, torch.zeros(n_a, dtype=torch.bool)):
+        ok_a = np.ones(n_a, bool) if build_valid is None else build_valid.numpy()
+        for probe_valid in (None, bv):
+            ok_b = np.ones(n_b, bool) if probe_valid is None else probe_valid.numpy()
+            hit = (b.numpy() == 5) & ok_a.any() & ok_b
+            assert int(sm.sort_merge_count(a, b, build_valid, probe_valid)) == hit.sum()
+            assert int(sm.anti_count(a, b, build_valid, probe_valid)) == ok_b.sum() - hit.sum()
+            assert int(sm.sort_merge_count_all(a, b, build_valid, probe_valid)) == (
+                hit.sum() * ok_a.sum())
+        got_hit, row, pay = sm._match_probe_rows(a, b, a_pay, build_valid=build_valid)
+        last = int(np.flatnonzero(ok_a)[-1]) if ok_a.any() else -1
+        want_hit = (b.numpy() == 5) & (last >= 0)
+        assert torch.equal(got_hit, torch.from_numpy(want_hit))
+        assert torch.equal(row, torch.from_numpy(np.where(want_hit, max(last, 0), 0)
+                                                 .astype(np.int32)))
+        assert torch.equal(pay, torch.from_numpy(np.where(want_hit, 3 * max(last, 0), 0)
+                                                 .astype(np.int32)))
