@@ -124,8 +124,25 @@ and raises on the first failure:
              (e) zero divisors and INT32_MIN // -1 through ``_compile_expr``
              on 1M card rows equal the CPU port bit for bit; (f) (b) under
              "pallas" (K6) equals the "xla" run.
+13. hash   — the hash-table layer at 10M ⋈ 200M on phase 12's relations
+             (no new keys drawn): (a) ``NoPartitioningHashJoiner`` in mode
+             "chained" and (b) ``RadixHashJoiner`` chained with 256
+             partitions each count exactly 200,000,000 (with their phase
+             times), and ``PHJ_BENCH_ALGOS=radix-chained python -m
+             partitionedhashjoin_tpu_torch.bench`` prints its one JSON line;
+             (c) ``run_materialize`` returns every probe row in probe order
+             with payload key ^ 0x5A17; (d) ``hash_aggregate`` and
+             ``filter_aggregate`` (payload % 2 == 0) equal
+             ``sort_aggregate`` / ``filter_sort_aggregate`` in key order,
+             their groups in first-row order; (e) ``build_hash_table`` over
+             the 10M build keys, then ``probe_exists``, ``probe_get`` and
+             ``probe_count_all`` over the 200M probe keys: all found, each
+             row found holds its key, multiplicity 1.  Each step prints its
+             host ms, its device ms between CUDA events, its peak allocated
+             bytes and its K5/K7 launches; every hash runs on K7, (c)'s
+             compaction on K5.
 
-Kernel launch counts are set to 0 just before each path of phases 4 to 12
+Kernel launch counts are set to 0 just before each path of phases 4 to 13
 and read just after; a kernel's ``launches`` is the sum over the paths that
 run it.  Comparison launches in phase 3 are not counted.  The script prints
 one JSON line describing the kernels and, last, the ``"ok"`` line.  Without a
@@ -2124,7 +2141,7 @@ def _multiplicity_by_cummax(torch, build_keys, probe_keys, build_valid):
 
 def phase_sql(torch, device, launches, card_line):
     """Phase 12: the SQL front end and the query layer at 10M ⋈ 200M; adds
-    each path's launches."""
+    each path's launches.  Returns the pipeline's relations."""
     import numpy as np
 
     from partitionedhashjoin_tpu_torch import bench_pipeline
@@ -2253,6 +2270,201 @@ def phase_sql(torch, device, launches, card_line):
            "differs from the 'xla' run")
     log(f"[time sql] {card_line}: (f) {f_ms:.3f} ms host clock (warm) under "
         "'pallas'; == the 'xla' run")
+    return a_keys, a_pay, b_keys, b_pay
+
+
+def _hash_step(torch, launches, card_line, name, fn, kernels):
+    """One step of phase 13: ``fn`` run with every count set to 0 just
+    before and read just after (each of ``kernels`` must launch; their
+    launches are added to ``launches``), then once more warm (the
+    allocator keeps its cache).  Prints the host ms and the device ms
+    between two CUDA events of both runs, the peak allocated bytes of the
+    first and its K5/K7 launches.  Returns the first run's result."""
+    times = []
+    torch.cuda.empty_cache()
+    for counted in (True, False):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        if counted:
+            _reset_counts()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0 = time.perf_counter()
+        start.record()
+        out = fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(((time.perf_counter() - t0) * 1e3, start.elapsed_time(end)))
+        if counted:
+            first, counts = out, _read_counts()
+            peak = torch.cuda.max_memory_allocated()
+            for k in kernels:
+                _check(f"hash {name}", counts[k] > 0, f"{k} was never launched ({counts})")
+                launches[k] += counts[k]
+        del out
+    log(f"[time hash] {card_line}: {name}: host {times[0][0]:.3f} ms, device "
+        f"{times[0][1]:.4f} ms (CUDA events); warm host {times[1][0]:.3f} ms, device "
+        f"{times[1][1]:.4f} ms; peak allocated {peak} B; launches k5 {counts['k5']}, "
+        f"k7 {counts['k7']}")
+    return first
+
+
+def _timed_join(make, a, b):
+    """(count, partition, build, probe ms) of ``make().run(a, b)`` under a
+    HashJoinTimer (each phase closed by a barrier)."""
+    from partitionedhashjoin_tpu_torch.utils.results import HashJoinTimer, Parameters
+
+    timer = HashJoinTimer(Parameters())
+    count = make().run(a, b, timer)
+    r = timer.get_result()
+    return (count, r.get_partitioning_phase_duration() * 1e3,
+            r.get_build_phase_duration() * 1e3, r.get_probe_phase_duration() * 1e3)
+
+
+def _first_rows(torch, groups):
+    """Each group's first row index (int64[num_groups])."""
+    g = int(groups.num_groups)
+    of = groups.group_of_row.to(torch.int64)
+    rows = torch.arange(of.numel(), device=of.device)
+    first = torch.full((g + 1,), of.numel(), dtype=torch.int64, device=of.device)
+    return first.scatter_reduce_(0, torch.where(of >= 0, of, g), rows, "amin")[:g]
+
+
+def _hash_equals_sort(torch, name, hashed, sorted_):
+    """The hash GROUP BY's groups, put in key order, equal the sort
+    GROUP BY's on every field; its group order is first occurrence."""
+    g = int(hashed.num_groups)
+    _check(name, g == int(sorted_.num_groups), f"{g} != {int(sorted_.num_groups)} groups")
+    order = torch.argsort(hashed.keys[:g])
+    for f in ("keys", "count", "sum", "min", "max"):
+        _check(name, torch.equal(getattr(hashed, f)[:g][order], getattr(sorted_, f)[:g]),
+               f"{f} differs from the sort GROUP BY")
+    first = _first_rows(torch, hashed)
+    _check(name, bool((first[1:] > first[:-1]).all()), "groups not in first-row order")
+    return g
+
+
+def phase_hash(torch, device, launches, card_line, rel):
+    """Phase 13: the hash-table layer at 10M ⋈ 200M on the pipeline's
+    relations (``rel``, from phase 12: build keys 1..N with payload
+    key ^ 0x5A17, 200M Zipf(1.05) probe keys, probe payloads in
+    [0, 2^20)); adds each step's K5/K7 launches."""
+    from partitionedhashjoin_tpu_torch.config import (
+        NoPartitioningConfiguration,
+        RadixClusteringConfiguration,
+    )
+    from partitionedhashjoin_tpu_torch.data.table import make_table
+    from partitionedhashjoin_tpu_torch.ops import aggregate
+    from partitionedhashjoin_tpu_torch.ops import hash_table as ht
+    from partitionedhashjoin_tpu_torch.ops.no_partitioning import (
+        NoPartitioningHashJoiner,
+    )
+    from partitionedhashjoin_tpu_torch.ops.radix_cluster import RadixHashJoiner
+
+    a_keys, a_pay, b_keys, b_pay = rel
+    table_a, table_b = make_table(a_keys, a_pay), make_table(b_keys, b_pay)
+    step = functools.partial(_hash_step, torch, launches, card_line)
+
+    # (a), (b): the chained count joins, with their phase times
+    joins = (
+        ("(a) no-partitioning chained", lambda: NoPartitioningHashJoiner(
+            NoPartitioningConfiguration(mode="chained"), seed=SEED)),
+        ("(b) radix chained, 256 partitions", lambda: RadixHashJoiner(
+            RadixClusteringConfiguration(number_of_partitions=256, mode="chained"),
+            seed=SEED)),
+    )
+    for name, make in joins:
+        count = step(name, lambda: make().run(table_a, table_b), ("k7",))
+        _check(name, count == N_SECONDARY, f"count {count}")
+        count, part, build, probe = _timed_join(make, table_a, table_b)
+        _check(name, count == N_SECONDARY, f"count {count}")
+        log(f"[time hash] {card_line}: {name}: {count:,} ok; phases partition "
+            f"{part:.3f} / build {build:.3f} / probe {probe:.3f} ms (host clock, "
+            "each closed by a barrier, warm)")
+    _phase_hash_bench(torch, launches, card_line)
+
+    # (c) run_materialize: every probe row, in probe order
+    joined = step("(c) run_materialize", lambda: NoPartitioningHashJoiner(
+        seed=SEED).run_materialize(table_a, table_b), ("k7", "k5"))
+    _check("(c) run_materialize", int(joined.count) == N_SECONDARY
+           and torch.equal(joined.keys, b_keys)
+           and torch.equal(joined.payloads_a, b_keys ^ SALT)
+           and torch.equal(joined.payloads_b, b_pay), f"count {int(joined.count)}")
+    del joined
+    log(f"[hash] (c) run_materialize: {N_SECONDARY:,} rows == the probe keys in order, "
+        "payloads_a == key ^ 0x5A17, payloads_b == the probe payloads: ok")
+
+    # (d) the hash GROUP BY against the sort GROUP BY
+    hashed = step("(d) hash_aggregate", lambda: aggregate.hash_aggregate(
+        table_b, seed=SEED), ("k7",))
+    groups = _hash_equals_sort(torch, "(d) hash_aggregate", hashed, aggregate.sort_aggregate(
+        table_b, group_capacity=GROUP_CAPACITY))
+    del hashed
+
+    def even(k, p):
+        return p % 2 == 0
+
+    hashed, n_hashed = step("(d) filter_aggregate payload % 2 == 0",
+                            lambda: aggregate.filter_aggregate(table_b, even, seed=SEED),
+                            ("k7",))
+    sorted_, n_sorted = aggregate.filter_sort_aggregate(
+        table_b, even, group_capacity=GROUP_CAPACITY)
+    _check("(d) filter_aggregate", int(n_hashed) == int(n_sorted), "selected rows")
+    kept = _hash_equals_sort(torch, "(d) filter_aggregate", hashed, sorted_)
+    del hashed, sorted_
+    log(f"[hash] (d) hash_aggregate: {groups:,} groups, filter_aggregate: {kept:,} groups "
+        f"of {int(n_hashed):,} rows; each == the sort GROUP BY in key order, groups in "
+        "first-row order: ok")
+
+    # (e) the open-addressing table: build over A, three probes with B
+    size = ht.table_size_for(N_PRIMARY)
+    table = step(f"(e) build_hash_table, {size:,} slots",
+                 lambda: ht.build_hash_table(a_keys, SEED, size), ("k7",))
+    _check("(e) build", not bool(table.overflowed), "overflowed")
+    found = step("(e) probe_exists", lambda: ht.probe_exists(table, b_keys), ("k7",))
+    _check("(e) probe_exists", bool(found.all()), "a key was not found")
+    del found
+    found, row = step("(e) probe_get", lambda: ht.probe_get(table, b_keys), ("k7",))
+    _check("(e) probe_get", bool(found.all())
+           and torch.equal(a_keys[row.to(torch.int64)], b_keys), "rows")
+    del found, row
+    mult = step("(e) probe_count_all", lambda: ht.probe_count_all(table, b_keys), ("k7",))
+    _check("(e) probe_count_all", bool((mult == 1).all()), "multiplicity")
+    log(f"[hash] (e) build_hash_table over {N_PRIMARY:,} keys (max_probe "
+        f"{int(table.max_probe)}), probe_exists / probe_get / probe_count_all over "
+        f"{N_SECONDARY:,} keys: all found, rows hold the probed keys, multiplicity 1: ok")
+
+
+def _phase_hash_bench(torch, launches, card_line):
+    """Phase 13 (b): ``PHJ_BENCH_ALGOS=radix-chained python -m
+    partitionedhashjoin_tpu_torch.bench`` at 10M ⋈ 200M: its one JSON line
+    and its measured run's K7 launches."""
+    import os
+
+    torch.cuda.empty_cache()
+    env = dict(os.environ, PHJ_BENCH_PRIMARY=str(N_PRIMARY),
+               PHJ_BENCH_SECONDARY=str(N_SECONDARY), PHJ_BENCH_SKEW=str(SKEW),
+               PHJ_BENCH_ALGOS="radix-chained", PHJ_SORT_IMPL="xla")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", f"{PKG}.bench"], env=env,
+                          capture_output=True, text=True, timeout=600)
+    wall_s = time.perf_counter() - t0
+    for line in proc.stderr.splitlines():
+        log(f"[hash bench] {line}")
+    _check("hash bench", proc.returncode == 0, f"exit {proc.returncode}")
+    lines = proc.stdout.splitlines()
+    _check("hash bench", len(lines) == 1, f"{len(lines)} stdout lines")
+    doc = json.loads(lines[0])
+    metric = f"join_rows_per_s_radix-chained_{N_PRIMARY}x{N_SECONDARY}_skew{SKEW}"
+    _check("hash bench", doc["metric"] == metric and doc["value"] > 0
+           and doc["device"] == torch.cuda.get_device_name(0), f"{doc}")
+    line = [x for x in proc.stderr.splitlines() if x.startswith("launches radix-chained: ")]
+    _check("hash bench", len(line) == 1, "no launches line")
+    got = json.loads(line[0].split(": ", 1)[1]).get("generate.LAUNCHES_HASH", 0)
+    _check("hash bench", got > 0, "k7 was never launched")
+    launches["k7"] += got
+    log(f"[time hash] {card_line}: (b) bench radix-chained: {doc['value']} rows/s, "
+        f"k7 launches {got}, subprocess wall {wall_s:.3f} s")
+    log(f"[hash bench] {lines[0]}")
 
 
 def main() -> int:
@@ -2285,7 +2497,9 @@ def main() -> int:
     phase_multi_key(torch, launches, a, b, card)
     del a, b
     phase_bench(torch, launches, card)
-    phase_sql(torch, device, launches, card)
+    rel = phase_sql(torch, device, launches, card)
+    phase_hash(torch, device, launches, card, rel)
+    del rel
     described = (
         ("merge_probe_count", "k1", "merge_probe.cu", "merge_probe.py:292"),
         ("merge_probe_count_i64", "k3", "merge_probe.cu",

@@ -30,8 +30,8 @@ Run from the repository root:
         python -m partitionedhashjoin_tpu_torch.bench --platform cpu  # smoke
 
 Env knobs: PHJ_BENCH_PRIMARY, PHJ_BENCH_SECONDARY, PHJ_BENCH_SKEW,
-PHJ_BENCH_ALGOS (comma list of sort-merge, radix, no-partitioning, planned;
-default sort-merge,radix), PHJ_BENCH_DEADLINE_S (the watchdog's deadline,
+PHJ_BENCH_ALGOS (comma list of sort-merge, radix, radix-chained,
+no-partitioning, planned; default sort-merge,radix), PHJ_BENCH_DEADLINE_S (the watchdog's deadline,
 default 2400) and PHJ_SORT_IMPL (the sorter switch,
 ``merge_join.set_sort_impl_from_env``).  The probe keys come from the
 rejection sampler ``zipf_keys`` on the device, from a ``torch.Generator``
@@ -159,9 +159,13 @@ def make_joiner(name: str, seed: int):
             seed=seed,
         )
     if name == "radix-chained":
-        from partitionedhashjoin_tpu_torch.ops.no_partitioning import resolve_mode
+        from partitionedhashjoin_tpu_torch.config import RadixClusteringConfiguration
+        from partitionedhashjoin_tpu_torch.ops.radix_cluster import RadixHashJoiner
 
-        resolve_mode("chained")  # raises: the chained mode is not ported yet
+        return RadixHashJoiner(
+            RadixClusteringConfiguration(number_of_partitions=256, mode="chained"),
+            seed=seed,
+        )
     raise ValueError(f"unknown algo {name}")
 
 

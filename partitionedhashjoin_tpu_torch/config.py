@@ -159,7 +159,8 @@ class NoPartitioningConfiguration:
     #: hash table probed by HBM gathers (the literal table analogue),
     #: "auto" = vmem when the kernel backend is available.  In the port
     #: "vmem" is the sorted run probed by the CUDA merge-probe kernel,
-    #: "auto" is "vmem" on every device, and "chained" is not ported yet.
+    #: "auto" is "vmem" on every device, and "chained" is the chained table
+    #: of ops/hash_table.py probed in one call (probe_chunk_rows is unused).
     mode: str = "auto"
 
 
@@ -187,8 +188,7 @@ class RadixClusteringConfiguration:
     #:             (the reference's exact structure, HashJoin.hpp:243-440)
     #:   "auto"    "vmem" when the Mosaic kernel runs on this backend,
     #:             else "chained"
-    #: In the port "auto" is "vmem" on every device and "chained" is not
-    #: ported yet (ops/radix_cluster.py).
+    #: In the port "auto" is "vmem" on every device (ops/radix_cluster.py).
     mode: str = "auto"
 
 

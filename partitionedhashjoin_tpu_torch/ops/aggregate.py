@@ -1,9 +1,21 @@
-"""GROUP BY key with COUNT / SUM / MIN / MAX: the sort-based family.
+"""GROUP BY key with COUNT / SUM / MIN / MAX: the hash and the sort family.
 
-Counterpart of the sort-based half of
-``partitionedhashjoin_tpu/ops/aggregate.py``.  One sort puts every group in
-a contiguous run ordered by (valid, key, payload), so the run starts give
-the groups and everything else falls out of prefix sums:
+Counterpart of ``partitionedhashjoin_tpu/ops/aggregate.py``.
+
+**Hash family** (``hash_aggregate``, ``filter_aggregate``): the dedup claim
+loop (``ops/hash_table.build_dedup_hash_table``) maps every row to its key's
+representative, the key's smallest valid row id, in rounds set by
+distinct-key collisions, not by duplication.  Representatives are numbered
+in row order, so groups come in the order of their keys' first valid rows;
+COUNT and SUM are ``index_add_`` and MIN/MAX ``scatter_reduce`` with
+``include_self`` over the dtype's max/min onto the group vector.  Outputs
+are ``n`` long with JAX's fill values past ``num_groups`` (0 for keys,
+counts and sums, the dtype's max for MIN, its min for MAX).  A filter's
+rejected rows are never inserted and join no group.
+
+**Sort family**: one sort puts every group in a contiguous run ordered by
+(valid, key, payload), so the run starts give the groups and everything
+else falls out of prefix sums:
 
   pass 1   one sort on (key, payload), valid rows first (skipped by
            ``aggregate_sorted``, whose input is already in key order):
@@ -19,17 +31,15 @@ the groups and everything else falls out of prefix sums:
   count    S_{g+1} - S_g from the compacted start positions
   sum      csx[S_{g+1}] - csx[S_g], in the payload dtype
 
-Integer SUMs wrap like the JAX package's (mod 2^32 for int32 payloads): the
-cumsum runs in int64 and is cast back to the payload dtype with
-``_wrap``, so sums, and the GROUP BY results built from them, are
-bit-identical to JAX's even for groups whose sum overflows.
-
 Group order is key-ascending.  Outputs are ``group_capacity`` long; the
 valid prefix is ``[0, num_groups)``, and ``num_groups`` is exact even when
 it exceeds the capacity (retry with a larger one).
 
-``hash_aggregate`` and ``filter_aggregate`` (the hash-table GROUP BY) wait
-for ``ops/hash_table.py`` (ROADMAP Queue 1 item 7) and raise.
+Integer SUMs wrap like the JAX package's (mod 2^32 for int32 payloads) in
+both families: they accumulate in int64 and are cast back to the payload
+dtype with ``_wrap``, so sums, and the GROUP BY results built from them,
+are bit-identical to JAX's even for groups whose sum overflows.  Float sums
+are taken in another order than JAX's.
 """
 
 from __future__ import annotations
@@ -41,6 +51,7 @@ import torch
 
 from partitionedhashjoin_tpu_torch.data.table import Table
 from partitionedhashjoin_tpu_torch.ops import filter as filter_ops
+from partitionedhashjoin_tpu_torch.ops import hash_table as ht
 from partitionedhashjoin_tpu_torch.ops import merge_join
 from partitionedhashjoin_tpu_torch.ops.sort import sort_by_key_payload
 from partitionedhashjoin_tpu_torch.ops.kernels import bitonic_sort
@@ -77,20 +88,77 @@ class GroupByResult:
         return masked_mean(self.count, self.sum, dtype)
 
 
-def hash_aggregate(table: Table, seed: int = 0) -> GroupByResult:
-    """The hash-table GROUP BY: not ported yet."""
-    raise NotImplementedError(
-        "hash_aggregate needs ops/hash_table.py (ROADMAP.md, Queue 1 item 7); "
-        "use sort_aggregate"
+def _group_and_aggregate(keys, payloads, seed, size, valid=None,
+                         has_valid=False) -> GroupByResult:
+    """The hash GROUP BY over a dedup table of ``size`` slots: outputs of
+    ``n`` rows, groups in the order of their keys' first valid rows."""
+    n = keys.shape[0]
+    device = keys.device
+    _, rep_row = ht.build_dedup_hash_table(keys, seed, size, valid=valid,
+                                           has_valid=has_valid)
+    # every rep_row value is a row that owns its slot, and an owner is its
+    # own representative, so the rows JAX flags by scattering 1 at each
+    # row's rep_row are exactly the rows with rep_row[i] == i
+    is_rep = rep_row == torch.arange(n, dtype=torch.int32, device=device)
+    dense = torch.cumsum(is_rep, 0, dtype=torch.int32) - is_rep.to(torch.int32)
+    valid_row = rep_row >= 0
+    group_of_row = torch.where(
+        valid_row, dense.index_select(0, torch.clamp(rep_row, min=0)), -1)
+    # only rows of a group scatter (JAX drops the others into a dump slot,
+    # which on the card would serialize every rejected row on one address)
+    rows = torch.nonzero(valid_row).squeeze(1)
+    gid = group_of_row[rows].to(torch.int64)
+    pay = payloads[rows]
+
+    def scatter(fill, dtype, values, reduce):
+        out = torch.full((n,), fill, dtype=dtype, device=device)
+        if reduce == "sum":
+            return out.index_add_(0, gid, values)
+        return out.scatter_reduce_(0, gid, values, reduce)
+
+    count = scatter(0, torch.int32, torch.ones_like(gid, dtype=torch.int32), "sum")
+    pdt = payloads.dtype
+    if pdt.is_floating_point:
+        sum_ = scatter(0, pdt, pay, "sum")
+        info = torch.finfo(pdt)
+    else:
+        # int64 accumulation, wrapped back: int32 sums wrap mod 2^32 as
+        # JAX's scatter-add does
+        sum_ = _wrap(scatter(0, torch.int64, pay.to(torch.int64), "sum"), pdt)
+        info = torch.iinfo(pdt)
+    group_keys = torch.zeros((n,), dtype=keys.dtype, device=device)
+    reps = torch.nonzero(is_rep).squeeze(1)
+    group_keys[: reps.shape[0]] = keys[reps]
+    return GroupByResult(
+        keys=group_keys,
+        count=count,
+        sum=sum_,
+        min=scatter(info.max, pdt, pay, "amin"),
+        max=scatter(info.min, pdt, pay, "amax"),
+        num_groups=is_rep.sum(dtype=torch.int32),
+        group_of_row=group_of_row,
     )
+
+
+def hash_aggregate(table: Table, seed: int = 0) -> GroupByResult:
+    """GROUP BY ``table.keys``, aggregating ``table.payloads``, through the
+    dedup hash table."""
+    return _group_and_aggregate(table.keys, table.payloads, seed & 0xFFFFFFFF,
+                                ht.table_size_for(table.size))
 
 
 def filter_aggregate(table: Table, predicate, seed: int = 0):
-    """The hash-table filter → GROUP BY: not ported yet."""
-    raise NotImplementedError(
-        "filter_aggregate needs ops/hash_table.py (ROADMAP.md, Queue 1 item "
-        "7); use filter_sort_aggregate"
+    """Filter → hash-aggregate pipeline (BASELINE.json configs[3]): rows
+    failing ``predicate(keys, payloads)`` are never inserted into the dedup
+    table and join no group, so no filtered table is
+    materialized.  Returns ``(GroupByResult of the selected rows,
+    selected_row_count)``; ``group_of_row`` is -1 for filtered-out rows."""
+    mask = predicate(table.keys, table.payloads).to(torch.bool)
+    g = _group_and_aggregate(
+        table.keys, table.payloads, seed & 0xFFFFFFFF,
+        ht.table_size_for(table.size), valid=mask, has_valid=True,
     )
+    return g, mask.sum()
 
 
 def _wrap(values: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:

@@ -1,30 +1,42 @@
 """No-partitioning join (Blanas SIGMOD'11, algorithm 1), the CLI's default.
 
 Counterpart of ``partitionedhashjoin_tpu/ops/no_partitioning.py::
-NoPartitioningHashJoiner`` in its "vmem" mode, and of the reference's
+NoPartitioningHashJoiner`` and of the reference's
 src/NoPartitioning/HashJoin.hpp:14-187: one global structure built over the
 whole build relation, then the probe relation streamed against it, counting
-probe rows that find a match (``Get`` != null, HashJoin.hpp:144-157).
+probe rows that find a match (``Get`` != null, HashJoin.hpp:144-157).  No
+partitioning phase, so the timer's partition phase stays 0, as in the
+reference.  Two layouts of the global structure
+(``NoPartitioningConfiguration.mode``):
 
-The global structure is the SORTED build run (``merge_join.PreparedBuild``):
-build = one sort of A; probe = one sort of B and the merge-probe kernel (K1
-for int32 keys, K3 for int64).  No partitioning phase, so the timer's
-partition phase stays 0, as in the reference.
+- ``"vmem"`` (and ``"auto"``, which is "vmem" on every device): the SORTED
+  build run (``merge_join.PreparedBuild``).  Build = one sort of A; probe =
+  one sort of B and the merge-probe kernel (K1 for int32 keys, K3 for
+  int64).  The JAX joiner's dispatch windows (``vmem_probe_chunk_rows``)
+  exist for the TPU's watchdog and are not ported: the port probes in one
+  call.
+- ``"chained"``: the literal hash table, ``ops/hash_table.py``'s chained
+  table.  Build = the hash (K7 on the card) and one stable sort by bucket;
+  probe = window gathers along each chain, in one call (no
+  ``probe_chunk_rows`` windows).  int32 keys only.
 
-Ported: mode "vmem", and "auto", which is "vmem" on every device.  The
-"chained" mode (the literal hash table probed by gathers) and ``build()``
-raise ``NotImplementedError`` (ROADMAP Queue 1 item 7).  The JAX joiner's
-dispatch windows (``vmem_probe_chunk_rows``) exist for the TPU's watchdog
-and are not ported: the port probes in one call.
+``run_materialize`` (an engine extension) builds the chained table and
+returns the matching probe rows, first build match each, compacted to the
+front in probe order by the stream-compaction kernel K5.
 """
 
 from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
+import torch
+
 from partitionedhashjoin_tpu_torch.config import NoPartitioningConfiguration
-from partitionedhashjoin_tpu_torch.data.table import Table
+from partitionedhashjoin_tpu_torch.data.table import JoinedTable, Table
+from partitionedhashjoin_tpu_torch.ops import hash_table as ht
 from partitionedhashjoin_tpu_torch.ops import merge_join
+from partitionedhashjoin_tpu_torch.ops.kernels import compact as kcompact
 from partitionedhashjoin_tpu_torch.utils.device import sync
 from partitionedhashjoin_tpu_torch.utils.logger import get_new_logger
 from partitionedhashjoin_tpu_torch.utils.results import (
@@ -32,19 +44,49 @@ from partitionedhashjoin_tpu_torch.utils.results import (
     NoOpHashJoinTimer,
 )
 
-_CHAINED = (
-    "the chained hash-table mode is not ported yet (ROADMAP.md, Queue 1 "
-    "item 7); use mode 'vmem' or 'auto'"
-)
-
 
 def resolve_mode(mode: str) -> str:
-    """"auto" → "vmem"; "chained" raises; anything else is an error."""
-    if mode in ("auto", "vmem"):
+    """"auto" → "vmem"; "vmem" and "chained" as they are; anything else is
+    an error."""
+    if mode == "auto":
         return "vmem"
-    if mode == "chained":
-        raise NotImplementedError(_CHAINED)
-    raise ValueError(f"unknown mode {mode!r}")
+    if mode not in ("vmem", "chained"):
+        raise ValueError(f"unknown mode {mode!r}")
+    return mode
+
+
+def hash_seed(seed: Optional[int]) -> int:
+    """A joiner's 32-bit hash seed: ``seed & 0xFFFFFFFF``, or OS entropy
+    when it is None (the per-instance random hasher, XXHasher.hpp:12-17)."""
+    if seed is None:
+        seed = int(np.random.SeedSequence().entropy & 0xFFFFFFFF)
+    return seed & 0xFFFFFFFF
+
+
+def _as_i32_column(col: torch.Tensor) -> torch.Tensor:
+    if col.element_size() != 4:
+        raise TypeError(
+            f"run_materialize carries 32-bit columns, got {col.dtype}"
+        )
+    return col.contiguous().view(torch.int32)
+
+
+def _probe_gather(table: ht.ChainedHashTable, probe_keys, build_payloads,
+                  probe_payloads):
+    """``(keys, pay_a, pay_b, count)``: the probe rows that match, each with
+    its first build match's payload, compacted to the front in probe order
+    with a zero tail (K5 on the card)."""
+    found, build_row = ht.probe_chained_get(table, probe_keys)
+    n = probe_keys.shape[0]
+    if build_payloads.numel():
+        pay_a = build_payloads.index_select(0, torch.clamp(build_row, min=0))
+    else:  # no build row: nothing matches
+        pay_a = build_payloads.new_zeros((n,))
+    cols = (probe_keys, pay_a, probe_payloads)
+    count, _, *outs = kcompact.compact_rows(
+        found, [_as_i32_column(c) for c in cols], n)
+    keys, pay_a, pay_b = (o.view(c.dtype) for o, c in zip(outs, cols))
+    return keys, pay_a, pay_b, count
 
 
 class NoPartitioningHashJoiner:
@@ -52,7 +94,8 @@ class NoPartitioningHashJoiner:
 
     ``run(table_a, table_b, timer)`` builds over ``table_a`` and probes with
     ``table_b`` (HashJoin.hpp:54-74).  Each phase ends with a device barrier
-    before its timer stops, so build/probe attribution is exact.
+    before its timer stops, so build/probe attribution is exact.  ``seed``
+    seeds the chained table's hash (OS entropy when None).
     """
 
     def __init__(
@@ -61,13 +104,16 @@ class NoPartitioningHashJoiner:
         seed: Optional[int] = None,
     ) -> None:
         self._config = configuration or NoPartitioningConfiguration()
-        # seed is unused (the sorted structure is hash-free); kept for API
-        # symmetry with the JAX joiner
+        self._seed = hash_seed(seed)
         self._logger = get_new_logger("NoPartitioningHashJoiner")
 
-    def build(self, table_a: Table):
-        """The chained hash table's build; not ported yet."""
-        raise NotImplementedError(_CHAINED)
+    def build(self, table_a: Table) -> ht.ChainedHashTable:
+        """The chained table over A: one hash and one stable sort (the
+        reference's parallel latched insert loop, HashJoin.hpp:76-126)."""
+        num_buckets = ht.chained_num_buckets(table_a.size)
+        table = ht.build_chained(table_a.keys, self._seed, num_buckets)
+        sync(table.entry_rows.device)
+        return table
 
     def run(
         self,
@@ -75,21 +121,49 @@ class NoPartitioningHashJoiner:
         table_b: Table,
         timer: Optional[IHashJoinTimer] = None,
     ) -> int:
-        """Build over A, probe with B, return the match count.
-
-        Build = ``PreparedBuild(table_a.keys)`` (the sort of A); probe =
-        ``prepared.count(table_b.keys)`` (the sort of B and the kernel),
-        closed by ``.item()``.
-        """
-        resolve_mode(self._config.mode)
+        """Build over A, probe with B, return the match count; each phase
+        is closed by a barrier (the probe's by ``.item()``)."""
         timer = timer or NoOpHashJoinTimer()
+        chained = resolve_mode(self._config.mode) == "chained"
         timer.set_build_phase_begin()
-        prepared = merge_join.PreparedBuild(table_a.keys)
-        sync(prepared.a_sorted.device)
+        if chained:
+            structure = self.build(table_a)
+        else:
+            structure = merge_join.PreparedBuild(table_a.keys)
+            sync(structure.a_sorted.device)
         timer.set_build_phase_end()
 
         timer.set_probe_phase_begin()
-        count = int(prepared.count(table_b.keys).item())
+        if chained:
+            count = ht.probe_chained_count(structure, table_b.keys)
+        else:
+            count = structure.count(table_b.keys)
+        count = int(count.item())
         timer.set_probe_phase_end()
         self._logger.info("Number of joined tuples: %d", count)
         return count
+
+    def run_materialize(
+        self,
+        table_a: Table,
+        table_b: Table,
+        timer: Optional[IHashJoinTimer] = None,
+    ) -> JoinedTable:
+        """The first-match join rows: a ``JoinedTable`` whose first
+        ``count`` rows are the matching probe rows in probe order (probe
+        key, the first build row's payload, probe payload), zeros after
+        them.  Builds the chained table whatever the mode."""
+        timer = timer or NoOpHashJoinTimer()
+        timer.set_build_phase_begin()
+        hash_tbl = self.build(table_a)
+        timer.set_build_phase_end()
+
+        timer.set_probe_phase_begin()
+        keys, pay_a, pay_b, count = _probe_gather(
+            hash_tbl, table_b.keys, table_a.payloads, table_b.payloads
+        )
+        sync(count.device)
+        timer.set_probe_phase_end()
+        return JoinedTable(
+            keys=keys, payloads_a=pay_a, payloads_b=pay_b, count=count
+        )

@@ -5,11 +5,14 @@ Run on a machine with an NVIDIA GPU, from the repository root:
     python -m partitionedhashjoin_tpu_torch.profile_joins
 
 At the reference workload (10M sequential ⋈ 200M Zipf(1.05) keys, seed
-20260816) it runs, for each count-join path, and for the materializing join
+20260816) it runs, for each count-join path (the chained no-partitioning
+and radix joins, 256 partitions, among them), and for the materializing join
 and the ordered JOIN → GROUP BY → top-10 pipeline over the relations of
 ``bench_pipeline`` (its own Zipf seed; build payload key ^ 0x5A17, probe
 payloads uniform in [0, 2^20)), and for the materializing join once more
 with probe keys uniform over [1, 2·N] (half miss: the compaction runs),
+and the hash GROUP BY (``hash_aggregate``, ``filter_aggregate``) of the
+pipeline's probe rows,
 two untimed joins and then five joins
 under ``torch.profiler`` (CPU and CUDA activities).  Per join it prints the
 device time of each kernel (the CUDA events summed by name), the device
@@ -66,19 +69,30 @@ def _tables(data, device):
 def _paths():
     """(name, relations, join(a, b) -> int) of every path."""
     from partitionedhashjoin_tpu_torch import bench_pipeline
-    from partitionedhashjoin_tpu_torch.ops import merge_join, sort_merge
+    from partitionedhashjoin_tpu_torch.config import (
+        NoPartitioningConfiguration,
+        RadixClusteringConfiguration,
+    )
+    from partitionedhashjoin_tpu_torch.ops import aggregate, merge_join, sort_merge
     from partitionedhashjoin_tpu_torch.ops.no_partitioning import (
         NoPartitioningHashJoiner,
     )
     from partitionedhashjoin_tpu_torch.ops.planner import PlannedJoiner
     from partitionedhashjoin_tpu_torch.ops.radix_cluster import RadixHashJoiner
 
-    def joiner(cls):
-        return lambda a, b: cls().run(a, b)
+    def joiner(cls, *args):
+        return lambda a, b: cls(*args).run(a, b)
 
     def materialize(a, b):
         return int(merge_join.two_run_materialize(
             a.keys, a.payloads, b.keys, b.payloads)[3])
+
+    def hash_groups(a, b):
+        return int(aggregate.hash_aggregate(b, seed=SEED).num_groups)
+
+    def filtered_hash_groups(a, b):
+        return int(aggregate.filter_aggregate(
+            b, lambda k, p: p % 2 == 0, seed=SEED)[0].num_groups)
 
     def pipeline(a, b):
         return int(bench_pipeline.run_query(
@@ -88,6 +102,11 @@ def _paths():
     return (
         ("no-partitioning", "int32", joiner(NoPartitioningHashJoiner)),
         ("radix-partitioning", "int32", joiner(RadixHashJoiner)),
+        ("no-partitioning (chained)", "int32", joiner(
+            NoPartitioningHashJoiner, NoPartitioningConfiguration(mode="chained"))),
+        ("radix (chained)", "int32", joiner(
+            RadixHashJoiner,
+            RadixClusteringConfiguration(number_of_partitions=256, mode="chained"))),
         ("planned", "int32", joiner(PlannedJoiner)),
         ("sort-merge", "int32", joiner(sort_merge.SortMergeJoiner)),
         ("sort-merge int64", "int64", joiner(sort_merge.SortMergeJoiner)),
@@ -95,6 +114,8 @@ def _paths():
          lambda a, b: int(sort_merge.sort_merge_count(a.keys, b.keys))),
         ("two_run_materialize", "query", materialize),
         ("pipeline (ordered)", "query", pipeline),
+        ("hash_aggregate (probe rows)", "query", hash_groups),
+        ("filter_aggregate (payload % 2 == 0)", "query", filtered_hash_groups),
         ("two_run_materialize (half miss)", "half miss", materialize),
     )
 

@@ -71,8 +71,10 @@ def test_main_prints_one_json_line(monkeypatch, capsys):
 
 
 def test_radix_chained_raises_not_ported():
-    with pytest.raises(NotImplementedError, match="not ported"):
-        bench.make_joiner("radix-chained", seed=7)
+    """radix-chained is ported now: the bench builds the JAX bench's joiner
+    (256 partitions, chained mode); only an unknown algo raises."""
+    joiner = bench.make_joiner("radix-chained", seed=7)
+    assert joiner.num_partitions == 256 and joiner._config.mode == "chained"
     with pytest.raises(ValueError, match="unknown algo"):
         bench.make_joiner("bogus", seed=7)
     assert bench.make_joiner("radix", seed=7).num_partitions == 256

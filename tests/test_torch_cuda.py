@@ -11,7 +11,10 @@ import numpy as np
 import pytest
 import torch
 
-from partitionedhashjoin_tpu_torch.config import RadixClusteringConfiguration
+from partitionedhashjoin_tpu_torch.config import (
+    NoPartitioningConfiguration,
+    RadixClusteringConfiguration,
+)
 from partitionedhashjoin_tpu_torch.data.table import make_table, table_from_numpy
 from partitionedhashjoin_tpu_torch.ops import aggregate, hashing, merge_join, sort_merge
 from partitionedhashjoin_tpu_torch.ops.kernels import bitonic_sort as bs
@@ -980,3 +983,125 @@ def test_sql_shell_on_card(cuda, capsys):
             "SELECT COUNT(*) FROM b JOIN a USING (key)"]
     assert sql.main(argv) == 0
     assert capsys.readouterr().out == "count\n2000000\n(1 rows)\n"
+
+
+# ---------------------------------------------------------------- hash tables
+
+
+def _hash_relations(seed, n_a=4_000, n_b=70_000):
+    """Build keys over the int32 domain with INT32_MIN/MAX and duplicates,
+    probe keys half drawn from the build."""
+    rng = np.random.default_rng(seed)
+    a = rng.integers(I32_MIN, I32_MAX, n_a, dtype=np.int64).astype(np.int32)
+    b = rng.integers(I32_MIN, I32_MAX, n_b, dtype=np.int64).astype(np.int32)
+    b[: n_b // 2] = rng.choice(a, n_b // 2)
+    a[:5], a[5:9], a[9:40] = I32_MAX, I32_MIN, a[40]
+    b[::97] = I32_MAX
+    return torch.from_numpy(a), torch.from_numpy(b)
+
+
+def _same_fields(got, want, fields):
+    for f in fields:
+        g, w = getattr(got, f), getattr(want, f)
+        assert g.device.type == "cuda" and torch.equal(g.cpu(), w), f
+
+
+def test_hash_tables_on_card_match_cpu(cuda):
+    """Every table and probe of ops/hash_table.py on the card equals the CPU
+    port bit for bit, with every hash through K7."""
+    from partitionedhashjoin_tpu_torch.ops import hash_table as ht
+
+    a, b = _hash_relations(1)
+    ac, bc = a.to(cuda), b.to(cuda)
+    valid = torch.arange(a.numel()) % 3 != 0
+    before = gen.LAUNCHES_HASH
+    size = ht.table_size_for(a.numel())
+    fields = ("slot_keys", "slot_rows", "max_probe", "overflowed")
+    t_cpu, t_gpu = ht.build_hash_table(a, 7, size), ht.build_hash_table(ac, 7, size)
+    _same_fields(t_gpu, t_cpu, fields)
+    for fn in (ht.probe_exists, ht.probe_count_all):
+        assert torch.equal(fn(t_gpu, bc).cpu(), fn(t_cpu, b))
+    for g, w in zip(ht.probe_get(t_gpu, bc), ht.probe_get(t_cpu, b)):
+        assert torch.equal(g.cpu(), w)
+    (d_gpu, r_gpu), (d_cpu, r_cpu) = (
+        ht.build_dedup_hash_table(k, 7, size, valid=v, has_valid=True)
+        for k, v in ((ac, valid.to(cuda)), (a, valid)))
+    _same_fields(d_gpu, d_cpu, fields)
+    assert torch.equal(r_gpu.cpu(), r_cpu)
+    nb = ht.chained_num_buckets(a.numel())
+    c_cpu, c_gpu = ht.build_chained(a, 9, nb), ht.build_chained(ac, 9, nb)
+    _same_fields(c_gpu, c_cpu, ("entry_keys", "entry_rows", "offsets", "max_chain"))
+    assert int(ht.probe_chained_count(c_gpu, bc)) == int(ht.probe_chained_count(c_cpu, b))
+    assert torch.equal(ht.probe_chained_count_all(c_gpu, bc).cpu(),
+                       ht.probe_chained_count_all(c_cpu, b))
+    for g, w in zip(ht.probe_chained_get(c_gpu, bc), ht.probe_chained_get(c_cpu, b)):
+        assert torch.equal(g.cpu(), w)
+    torch.cuda.synchronize()
+    assert gen.LAUNCHES_HASH > before
+
+
+def test_tail_and_fallback_on_card_match_cpu(cuda):
+    """Both branches of the chained count: a short tail and the full
+    fallback (a 4,096-row chain that every probe row walks)."""
+    from partitionedhashjoin_tpu_torch.ops import hash_table as ht
+
+    for build, probe in ((torch.arange(64, dtype=torch.int32),
+                          torch.arange(2048, dtype=torch.int32) % 80),
+                         (torch.full((4096,), 77, dtype=torch.int32),
+                          torch.full((4096,), 78, dtype=torch.int32))):
+        zeros = torch.zeros_like(build)
+        t_cpu = ht.build_chained_from_buckets(zeros, build, 1, 2)
+        t_gpu = ht.build_chained_from_buckets(zeros.to(cuda), build.to(cuda), 1, 2)
+        bucket = torch.zeros_like(probe)
+        for skip in (None, 5):
+            want = ht._probe_chained_count_chunk(t_cpu, probe, bucket, skip=skip)
+            got = ht._probe_chained_count_chunk(t_gpu, probe.to(cuda), bucket.to(cuda),
+                                                skip=skip)
+            assert int(got) == int(want)
+
+
+def test_radix_partition_on_card_matches_cpu(cuda):
+    from partitionedhashjoin_tpu_torch.ops import radix
+
+    a, _ = _hash_relations(2, n_a=50_000)
+    pay = torch.arange(a.numel(), dtype=torch.int32)
+    fields = ("keys", "payloads", "row_ids", "histogram", "offsets")
+    _same_fields(radix.radix_partition(a.to(cuda), pay.to(cuda), 3, 256),
+                 radix.radix_partition(a, pay, 3, 256), fields)
+    _same_fields(radix.radix_partition_padded(a.to(cuda), pay.to(cuda), 3, 64, 128),
+                 radix.radix_partition_padded(a, pay, 3, 64, 128), fields)
+    for g, w in zip(radix.radix_partition_keys(a.to(cuda), 3, 256, passes=2),
+                    radix.radix_partition_keys(a, 3, 256)):
+        assert torch.equal(g.cpu(), w)
+
+
+def test_chained_paths_on_card_match_cpu(cuda):
+    """The chained joins, run_materialize (K5) and the hash GROUP BY on the
+    card equal the CPU port.  The float payloads are whole numbers with
+    sums under 2^24, so their sums are exact in any order."""
+    a, b = _hash_relations(3)
+    pa, pb = (torch.randint(-2**31, 2**31 - 1, (t.numel(),), dtype=torch.int32,
+                            generator=torch.Generator().manual_seed(4)) for t in (a, b))
+    cpu = (make_table(a, pa), make_table(b, pb))
+    gpu = tuple(make_table(t.keys.to(cuda), t.payloads.to(cuda)) for t in cpu)
+    chained = NoPartitioningConfiguration(mode="chained")
+    for make in (lambda: NoPartitioningHashJoiner(chained, seed=5),
+                 lambda: RadixHashJoiner(
+                     RadixClusteringConfiguration(number_of_partitions=256, mode="chained"),
+                     seed=5)):
+        assert make().run(*gpu) == make().run(*cpu)
+    before = kc.LAUNCHES
+    got = NoPartitioningHashJoiner(seed=5).run_materialize(*gpu)
+    want = NoPartitioningHashJoiner(seed=5).run_materialize(*cpu)
+    assert kc.LAUNCHES == before + 1 and int(got.count) == int(want.count)
+    _same_fields(got, want, ("keys", "payloads_a", "payloads_b"))
+    keys = b % 700
+    fields = ("keys", "count", "sum", "min", "max", "num_groups", "group_of_row")
+    for pay in (pb, (pb % 1000).to(torch.float32)):
+        t_cpu, t_gpu = make_table(keys, pay), make_table(keys.to(cuda), pay.to(cuda))
+        _same_fields(aggregate.hash_aggregate(t_gpu, seed=6),
+                     aggregate.hash_aggregate(t_cpu, seed=6), fields)
+        even = lambda k, p: (k % 2) == 0  # noqa: E731
+        (g, gn), (w, wn) = (aggregate.filter_aggregate(t, even, seed=6) for t in (t_gpu, t_cpu))
+        _same_fields(g, w, fields)
+        assert int(gn) == int(wn)

@@ -6,7 +6,8 @@ the Pallas kernel in interpret mode), ``RadixHashJoiner`` in its CPU mode
 ("auto" → chained) and the planner in its CPU plans (interval /
 sort-merge).  The port runs its vmem modes with the kernels' plain versions.
 Counts must be equal exactly; phase attribution, the power-of-two check,
-the unported chained modes and the plan names are checked beside them.
+the modes and the plan names are checked beside them (the chained modes
+against JAX in test_torch_hash_joiners.py).
 """
 
 import jax
@@ -166,18 +167,17 @@ def test_radix_rejects_other_counts_like_jax(partitions):
 
 
 def test_chained_modes_raise():
+    """Only an unknown mode raises: the chained modes run (since they were
+    ported) and count what "vmem" and "auto" count."""
     ta = tb = table_from_numpy(np.arange(4, dtype=np.int32), np.arange(4), "cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        NoPartitioningHashJoiner(NoPartitioningConfiguration(mode="chained")).run(ta, tb)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        NoPartitioningHashJoiner().build(ta)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        RadixHashJoiner(RadixClusteringConfiguration(mode="chained")).run(ta, tb)
-    with pytest.raises(ValueError):
-        RadixHashJoiner(RadixClusteringConfiguration(mode="other")).run(ta, tb)
-    for mode in ("auto", "vmem"):
+    for mode in ("auto", "vmem", "chained"):
         assert NoPartitioningHashJoiner(NoPartitioningConfiguration(mode=mode)).run(ta, tb) == 4
         assert RadixHashJoiner(RadixClusteringConfiguration(mode=mode)).run(ta, tb) == 4
+    assert int(NoPartitioningHashJoiner().build(ta).max_chain) >= 1
+    with pytest.raises(ValueError):
+        RadixHashJoiner(RadixClusteringConfiguration(mode="other")).run(ta, tb)
+    with pytest.raises(ValueError):
+        NoPartitioningHashJoiner(NoPartitioningConfiguration(mode="other")).run(ta, tb)
 
 
 PLAN_CASES = {
