@@ -142,7 +142,23 @@ and raises on the first failure:
              bytes and its K5/K7 launches; every hash runs on K7, (c)'s
              compaction on K5.
 
-Kernel launch counts are set to 0 just before each path of phases 4 to 13
+14. shuffle — the mesh and the distributed shuffle join at 10M ⋈ 200M on the
+             CLI's relations, every shard on the one card: (a) ``cli.main
+             --join shuffle --shards S`` for S = 1, 2 and 8 (Type
+             DistributedShuffle, NumberOfShards S, exactly 200,000,000,
+             with its phase times), then the library join on the same
+             relations at each S, and at S = 1 with int64 keys (K3); at
+             S = 8 (b) ``local_join="hash"`` (K7), (c) ``pipeline_chunks=4``
+             (K1 once per chunk and shard), (d) ``handle_skew=False`` (its
+             drops and retries) and validity masks (probe keys even, build
+             keys not divisible by 3) against the elementwise oracle.  Each
+             library step runs once untimed, then once timed: its host ms,
+             device ms between CUDA events, peak allocated bytes, exchange
+             bytes (S·S·(cap_a + cap_b) slots of key, payload and valid),
+             drop counts per attempt, planned hot keys and K1/K3/K7
+             launches.
+
+Kernel launch counts are set to 0 just before each path of phases 4 to 14
 and read just after; a kernel's ``launches`` is the sum over the paths that
 run it.  Comparison launches in phase 3 are not counted.  The script prints
 one JSON line describing the kernels and, last, the ``"ok"`` line.  Without a
@@ -1573,15 +1589,19 @@ def phase_library(torch, device, launches):
 
 
 class _JoinCounts(logging.Filter):
-    """Collects the counts the CLI logs as "Join produced %d matches"."""
+    """Collects the counts the CLI logs as "Join produced %d matches", and
+    what the shuffle join logs of each run ("Shuffle run: %s")."""
 
     def __init__(self):
         super().__init__()
         self.counts = []
+        self.shuffle_runs = []
 
     def filter(self, record):
         if record.msg == "Join produced %d matches":
             self.counts.append(int(record.args[0]))
+        elif record.msg == "Shuffle run: %s":
+            self.shuffle_runs.append(record.args[0])
         return True
 
 
@@ -1637,6 +1657,8 @@ def phase_main(torch, launches, runs=MAIN_RUNS, tag="main", kernels=()):
             f"probe {res['probe']} ms, cli.main wall {wall_s:.3f} s "
             f"(generation + warmup + timed run), peak allocated {peak} B"
         )
+        for run in counts.shuffle_runs:
+            log(f"[{tag}] {name}: {_describe_shuffle(run)}")
 
 
 def _query_relations(torch, device):
@@ -2467,6 +2489,113 @@ def _phase_hash_bench(torch, launches, card_line):
     log(f"[hash bench] {lines[0]}")
 
 
+# ---------------------------------------------------------------- shuffle
+
+#: Shard counts of phase 14, and the bytes of one exchange slot: an int32
+#: key, an int32 payload and a bool valid flag.
+SHUFFLE_SHARDS = (1, 2, 8)
+SLOT_BYTES = 9
+
+
+def _describe_shuffle(run):
+    """One line on a ``ShuffleRun``: capacities, exchange bytes, the drop
+    counts of each attempt and the hot keys planned."""
+    hottest = run.hot_keys[0] if run.hot_keys else None
+    return (f"S {run.num_shards}, cap_a {run.cap_a:,}, cap_b {run.cap_b:,}, "
+            f"hot_cap {run.hot_cap}, exchange {run.exchange_slots:,} slots = "
+            f"{run.exchange_slots * SLOT_BYTES:,} B each way, ShuffleStats "
+            f"(dropped a, b, hot) per attempt {run.drops}, retries {run.retries}, "
+            f"hot keys planned {len(run.hot_keys)} (hottest {hottest})")
+
+
+def _shuffle_step(torch, launches, card_line, name, make, tables, want, kernels,
+                  valid=None):
+    """One library step of phase 14: ``make().run(*tables)`` once untimed,
+    then once more with every count set to 0 just before and read just
+    after (each of ``kernels`` must launch; their launches are added to
+    ``launches``), between two CUDA events.  The count must be ``want``.
+    Returns the joiner and the timed run's launch counts."""
+    valid = valid or {}
+    torch.cuda.empty_cache()
+    _check(f"shuffle {name}", make().run(*tables, **valid) == want, "warm-up count")
+    joiner = make()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0 = time.perf_counter()
+    start.record()
+    count = joiner.run(*tables, **valid)
+    end.record()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    counts = _read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    _check(f"shuffle {name}", count == want, f"count {count:,}, want {want:,}")
+    for k in kernels:
+        _check(f"shuffle {name}", counts[k] > 0, f"{k} was never launched ({counts})")
+        launches[k] += counts[k]
+    log(f"[time shuffle] {card_line}: {name}: {count:,} ok; host {host_ms:.3f} ms, "
+        f"device {start.elapsed_time(end):.4f} ms (CUDA events, warm); peak allocated "
+        f"{peak} B; launches k1 {counts['k1']}, k3 {counts['k3']}, k7 {counts['k7']}")
+    log(f"[shuffle] {name}: {_describe_shuffle(joiner.last_run)}")
+    return joiner, counts
+
+
+def phase_shuffle(torch, device, launches, card_line):
+    """Phase 14: the mesh and the shuffle join at 10M ⋈ 200M, every shard
+    on the one card; adds each path's launches."""
+    from partitionedhashjoin_tpu_torch import cli
+    from partitionedhashjoin_tpu_torch.data.table import make_table
+    from partitionedhashjoin_tpu_torch.parallel import mesh as pm
+    from partitionedhashjoin_tpu_torch.parallel.shuffle import DistributedShuffleJoiner
+    from partitionedhashjoin_tpu_torch.utils import logger as logging_utils
+
+    # (a) the CLI at each shard count
+    for s in SHUFFLE_SHARDS:
+        run = (["--join", "shuffle", "--shards", str(s)],
+               {"Type": "DistributedShuffle", "NumberOfShards": str(s)}, "k1")
+        phase_main(torch, launches, (run,), "shuffle", () if s == 1 else ("k7",))
+
+    # the library on the CLI's relations (same flags, same seed)
+    config, _ = cli.parse_arguments([
+        "--primary", str(N_PRIMARY), "--secondary", str(N_SECONDARY),
+        "--skew", str(SKEW), "--seed", str(SEED), "--platform", "cuda"])
+    table_a, table_b = cli.generate_tables(
+        config, logging_utils.get_new_logger("Main"), device)
+    step = functools.partial(_shuffle_step, torch, launches, card_line)
+    meshes = {s: pm.make_mesh(s, devices=[device]) for s in SHUFFLE_SHARDS}
+
+    def on(s, a=table_a, b=table_b):
+        return pm.shard_table(a, meshes[s]), pm.shard_table(b, meshes[s])
+
+    def joiner(s, **kw):
+        return lambda: DistributedShuffleJoiner(meshes[s], seed=SEED, **kw)
+
+    for s in SHUFFLE_SHARDS:
+        step(f"(a) S={s} sort-merge", joiner(s), on(s), N_SECONDARY,
+             ("k1",) if s == 1 else ("k1", "k7"))
+    wide = tuple(make_table(t.keys.to(torch.int64), t.payloads) for t in (table_a, table_b))
+    step("(a) S=1 int64 keys", joiner(1), on(1, *wide), N_SECONDARY, ("k3",))
+    del wide
+
+    s8 = on(8)
+    step("(b) S=8 local_join=hash", joiner(8, local_join="hash"), s8, N_SECONDARY, ("k7",))
+    _, counts = step("(c) S=8 pipeline_chunks=4", joiner(8, pipeline_chunks=4), s8,
+                     N_SECONDARY, ("k1", "k7"))
+    _check("shuffle (c)", counts["k1"] == 4 * 8, f"k1 launched {counts['k1']} times, not 32")
+    step("(d) S=8 handle_skew=False", joiner(8, handle_skew=False), s8, N_SECONDARY,
+         ("k1", "k7"))
+    valid_a, valid_b = table_a.keys % 3 != 0, table_b.keys % 2 == 0
+    # a sequential build holds every probe key once: a valid probe row
+    # matches exactly when its key is even and not divisible by 3
+    want = int((valid_b & (table_b.keys % 3 != 0)).sum())
+    step("(d) S=8 masked (probe key even, build key % 3 != 0)", joiner(8), s8, want,
+         ("k1", "k7"), valid={"valid_a": pm.shard_array(valid_a, meshes[8]),
+                              "valid_b": pm.shard_array(valid_b, meshes[8])})
+    log(f"[shuffle] (d) masked oracle: {want:,} valid probe rows with a valid build key")
+
+
 def main() -> int:
     import torch
 
@@ -2500,6 +2629,7 @@ def main() -> int:
     rel = phase_sql(torch, device, launches, card)
     phase_hash(torch, device, launches, card, rel)
     del rel
+    phase_shuffle(torch, device, launches, card)
     described = (
         ("merge_probe_count", "k1", "merge_probe.cu", "merge_probe.py:292"),
         ("merge_probe_count_i64", "k3", "merge_probe.cu",

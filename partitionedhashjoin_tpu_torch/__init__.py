@@ -25,6 +25,8 @@ that each counterpart is easy to find:
   ``ops.multi_key``: composite-key counts.
 - ``ops.kernels`` + ``csrc/``: the hand-written CUDA kernels (K1–K8), each
   beside its plain PyTorch version, built with nvcc at first use.
+- ``parallel.mesh`` / ``parallel.shuffle``: a mesh of shards on one device
+  and the distributed shuffle join over it.
 - ``query`` / ``sql``: the fluent query layer and the SQL front end.
 - ``cli``: ``python -m partitionedhashjoin_tpu_torch``; ``bench``: the
   reference workload's one-line bench;
@@ -32,8 +34,9 @@ that each counterpart is easy to find:
   ``profile_joins``: a device-time breakdown of each path.
 
 The JAX package's convenience exports (``NoPartitioningHashJoiner``,
-``hash_aggregate``, ``scan``, ``execute_sql``, ...) resolve lazily to the
-port's modules.  Importing the package imports no joiner and builds no
+``DistributedShuffleJoiner``, ``hash_aggregate``, ``scan``, ``execute_sql``,
+...) and ``make_mesh`` / ``shard_table`` resolve lazily to the port's
+modules.  Importing the package imports no joiner and builds no
 kernel and no host library.
 """
 
@@ -62,6 +65,9 @@ _LAZY = {
     "SortMergeJoiner": ("ops.sort_merge", "SortMergeJoiner"),
     "NoPartitioningHashJoiner": ("ops.no_partitioning", "NoPartitioningHashJoiner"),
     "RadixHashJoiner": ("ops.radix_cluster", "RadixHashJoiner"),
+    "DistributedShuffleJoiner": ("parallel.shuffle", "DistributedShuffleJoiner"),
+    "make_mesh": ("parallel.mesh", "make_mesh"),
+    "shard_table": ("parallel.mesh", "shard_table"),
     "sequential_table": ("ops.generators", "sequential_table"),
     "zipf_table": ("ops.generators", "zipf_table"),
     "hash_aggregate": ("ops.aggregate", "hash_aggregate"),
@@ -77,10 +83,6 @@ _LAZY = {
 
 def __getattr__(name):
     """The JAX package's lazy exports, from the port's modules."""
-    if name == "DistributedShuffleJoiner":
-        raise NotImplementedError(
-            "DistributedShuffleJoiner is not yet ported (ROADMAP Queue 1 item 6)"
-        )
     if name in _LAZY:
         module, attr = _LAZY[name]
         return getattr(importlib.import_module(f"{__name__}.{module}"), attr)

@@ -5,13 +5,17 @@ src/main.cpp:141-293: parse flags → init logger → generate relations → run
 the join → render timing JSON.  The parser, flags, defaults and JSON schema
 are the JAX CLI's.
 
-Ported: ``--join no-partitioning`` (the default), ``radix-partitioning``,
-``sort-merge`` and ``planned``, with ``--key-dtype int64`` for sort-merge
-only (the other joins exit with the JAX CLI's message).  ``--join shuffle``
-and the shuffle / multi-host flags are parsed and rejected with exit code 2
-and "not yet ported (ROADMAP)".  ``--platform`` names the torch device,
-"cuda" (the default) or "cpu"; a missing card raises rather than falling
-back to the CPU.
+Every join is ported: ``--join no-partitioning`` (the default),
+``radix-partitioning``, ``sort-merge``, ``planned`` and ``shuffle`` (the
+mesh join, ``parallel/shuffle.py``, with ``--shards``, ``--local-join`` and
+``--pipeline-chunks``), with ``--key-dtype int64`` for sort-merge only (the
+other joins exit with the JAX CLI's message).  The shards of ``--join
+shuffle`` share the ``--platform`` device, so ``--shards`` defaults to 1
+where the JAX CLI takes every device.  The multi-host flags
+(``--coordinator``, ``--num-processes``, ``--process-id``) are parsed and
+rejected with exit code 2 and "not yet ported (ROADMAP Queue 1 item 6c)".
+``--platform`` names the torch device, "cuda" (the default) or "cpu"; a
+missing card raises rather than falling back to the CPU.
 """
 
 from __future__ import annotations
@@ -44,14 +48,8 @@ JOIN_CHOICES = (
     "planned",
 )
 
-#: Joins this package runs; the others are listed in ROADMAP.md.
-PORTED_JOINS = ("no-partitioning", "radix-partitioning", "sort-merge", "planned")
-
-#: Flags that only the shuffle join or multi-host runs read.
-_UNPORTED_FLAGS = (
-    "shards", "local_join", "pipeline_chunks", "coordinator",
-    "num_processes", "process_id",
-)
+#: Flags that only multi-host runs read (ROADMAP Queue 1 item 6c).
+_UNPORTED_FLAGS = ("coordinator", "num_processes", "process_id")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -67,7 +65,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--skew", type=float, default=1.05,
                    help="Zipf skew of the secondary relation (0 = uniform)")
     p.add_argument("--join", choices=JOIN_CHOICES, default="no-partitioning",
-                   help="join algorithm (shuffle is not ported yet)")
+                   help="join algorithm")
     p.add_argument("--partitions", type=int, default=None,
                    help="radix partition count (radix-partitioning only)")
     p.add_argument("--log", default="info", help="log severity level")
@@ -79,16 +77,17 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--filename", default="hashjoin.txt",
                    help="results file name (when --output file)")
     # engine extensions
-    p.add_argument("--shards", type=int, default=None,
-                   help="device count for --join shuffle (not yet ported)")
+    p.add_argument("--shards", type=int, default=1,
+                   help="shard count for --join shuffle (a power of 2; the "
+                   "shards share the --platform device)")
     p.add_argument("--seed", type=int, default=None,
                    help="data generation seed (default: fresh entropy)")
     p.add_argument("--local-join", default="sort-merge",
                    choices=("sort-merge", "hash"),
-                   help="shuffle join's per-shard join strategy "
-                   "(not yet ported)")
+                   help="shuffle join's per-shard join strategy")
     p.add_argument("--pipeline-chunks", type=int, default=1,
-                   help="shuffle join: probe exchange chunks (not yet ported)")
+                   help="shuffle join: split the probe exchange into K "
+                   "chunks, each counted by the per-chunk local join")
     p.add_argument("--key-dtype", default="int32", choices=("int32", "int64"),
                    help="tuple id width; int64 matches the reference's "
                    "Tuple::id (requires the sort-merge join)")
@@ -112,12 +111,10 @@ def build_parser() -> argparse.ArgumentParser:
 def parse_arguments(argv: Optional[Sequence[str]] = None) -> "tuple[Configuration, argparse.Namespace]":
     parser = build_parser()
     args = parser.parse_args(argv)
-    if args.join not in PORTED_JOINS:
-        parser.error(f"--join {args.join} is not yet ported (ROADMAP)")
     for dest in _UNPORTED_FLAGS:
         if getattr(args, dest) != parser.get_default(dest):
             flag = "--" + dest.replace("_", "-")
-            parser.error(f"{flag} is not yet ported (ROADMAP)")
+            parser.error(f"{flag} is not yet ported (ROADMAP Queue 1 item 6c)")
     config = Configuration()
     config.primary_relation_size = args.primary
     config.secondary_relation_size = args.secondary
@@ -207,9 +204,10 @@ def _base_parameters(config: Configuration) -> Parameters:
     return params
 
 
-def _make_joiner(join_name: str, config: Configuration, args, params: Parameters):
+def _make_joiner(join_name: str, config: Configuration, args, params: Parameters,
+                 mesh=None):
     """The selected joiner, with the join's own parameters set (the JAX
-    CLI's cli.py:210-246)."""
+    CLI's cli.py:210-263); ``shuffle`` runs over ``mesh``."""
     if join_name == "no-partitioning":
         from partitionedhashjoin_tpu_torch.ops.no_partitioning import (
             NoPartitioningHashJoiner,
@@ -243,7 +241,20 @@ def _make_joiner(join_name: str, config: Configuration, args, params: Parameters
 
         params.set_parameter("Type", "Planned")
         return PlannedJoiner()
-    raise ValueError(f"--join {join_name} is not yet ported (ROADMAP)")
+    if join_name == "shuffle":
+        from partitionedhashjoin_tpu_torch.parallel.shuffle import (
+            DistributedShuffleJoiner,
+        )
+
+        params.set_parameter("Type", "DistributedShuffle")
+        params.set_parameter("NumberOfShards", str(mesh.size))
+        return DistributedShuffleJoiner(
+            mesh,
+            seed=config.seed,
+            local_join=args.local_join,
+            pipeline_chunks=args.pipeline_chunks,
+        )
+    raise ValueError(f"unknown join {join_name!r}")
 
 
 def run_join(
@@ -253,7 +264,13 @@ def run_join(
     """Run the selected joiner (main.cpp:260-282) and return its timing."""
     params = _base_parameters(config)
     timer = HashJoinTimer(params)
-    joiner = _make_joiner(join_name, config, args, params)
+    mesh = None
+    if join_name == "shuffle":
+        from partitionedhashjoin_tpu_torch.parallel.mesh import make_mesh, shard_table
+
+        mesh = make_mesh(args.shards, devices=[table_a.keys.device])
+        table_a, table_b = shard_table(table_a, mesh), shard_table(table_b, mesh)
+    joiner = _make_joiner(join_name, config, args, params, mesh)
     if warmup:
         # untimed, so the phases measure the join and not the one-time
         # kernel build and CUDA start-up

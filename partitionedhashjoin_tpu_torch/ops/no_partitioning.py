@@ -22,7 +22,9 @@ reference.  Two layouts of the global structure
 
 ``run_materialize`` (an engine extension) builds the chained table and
 returns the matching probe rows, first build match each, compacted to the
-front in probe order by the stream-compaction kernel K5.
+front in probe order by the stream-compaction kernel K5.  Payloads of any
+width keep their dtype: K5 carries int32 lanes, so a 64-bit column rides as
+its two 32-bit halves and an 8- or 16-bit one widened from its bits.
 """
 
 from __future__ import annotations
@@ -63,19 +65,38 @@ def hash_seed(seed: Optional[int]) -> int:
     return seed & 0xFFFFFFFF
 
 
-def _as_i32_column(col: torch.Tensor) -> torch.Tensor:
-    if col.element_size() != 4:
-        raise TypeError(
-            f"run_materialize carries 32-bit columns, got {col.dtype}"
-        )
-    return col.contiguous().view(torch.int32)
+#: The int32 view K5 carries a column of each element size in, bit for bit.
+_NARROW_BITS = {1: torch.uint8, 2: torch.int16}
+
+
+def _i32_lanes(col: torch.Tensor) -> list:
+    """A column as int32 lanes that K5 can carry, bit for bit: a 32-bit
+    column viewed as int32, a 64-bit one as its two 32-bit halves, and an
+    8- or 16-bit one (bool and float16 included) widened from its bits."""
+    col = col.contiguous()
+    size = col.element_size()
+    if size == 4:
+        return [col.view(torch.int32)]
+    if size == 8:
+        return list(col.view(torch.int32).view(-1, 2).t().contiguous())
+    return [col.view(_NARROW_BITS[size]).to(torch.int32)]
+
+
+def _from_lanes(lanes: list, dtype: torch.dtype) -> torch.Tensor:
+    """The inverse of ``_i32_lanes`` for a column of ``dtype``."""
+    size = dtype.itemsize
+    if size == 4:
+        return lanes[0].view(dtype)
+    if size == 8:
+        return torch.stack(lanes, dim=1).view(dtype).view(-1)
+    return lanes[0].to(_NARROW_BITS[size]).view(dtype)
 
 
 def _probe_gather(table: ht.ChainedHashTable, probe_keys, build_payloads,
                   probe_payloads):
     """``(keys, pay_a, pay_b, count)``: the probe rows that match, each with
     its first build match's payload, compacted to the front in probe order
-    with a zero tail (K5 on the card)."""
+    with a zero tail (K5 on the card), each in its column's dtype."""
     found, build_row = ht.probe_chained_get(table, probe_keys)
     n = probe_keys.shape[0]
     if build_payloads.numel():
@@ -83,10 +104,14 @@ def _probe_gather(table: ht.ChainedHashTable, probe_keys, build_payloads,
     else:  # no build row: nothing matches
         pay_a = build_payloads.new_zeros((n,))
     cols = (probe_keys, pay_a, probe_payloads)
+    lanes = [_i32_lanes(c) for c in cols]
     count, _, *outs = kcompact.compact_rows(
-        found, [_as_i32_column(c) for c in cols], n)
-    keys, pay_a, pay_b = (o.view(c.dtype) for o, c in zip(outs, cols))
-    return keys, pay_a, pay_b, count
+        found, [lane for col in lanes for lane in col], n)
+    results = []
+    for col, col_lanes in zip(cols, lanes):
+        results.append(_from_lanes(outs[:len(col_lanes)], col.dtype))
+        outs = outs[len(col_lanes):]
+    return (*results, count)
 
 
 class NoPartitioningHashJoiner:

@@ -12,7 +12,9 @@ and the ordered JOIN → GROUP BY → top-10 pipeline over the relations of
 payloads uniform in [0, 2^20)), and for the materializing join once more
 with probe keys uniform over [1, 2·N] (half miss: the compaction runs),
 and the hash GROUP BY (``hash_aggregate``, ``filter_aggregate``) of the
-pipeline's probe rows,
+pipeline's probe rows, and the shuffle join over 2 and 8 shards on the one
+card (``parallel/shuffle.py``: sort-merge local joins, at 8 shards also
+without skew handling and with hash local joins),
 two untimed joins and then five joins
 under ``torch.profiler`` (CPU and CUDA activities).  Per join it prints the
 device time of each kernel (the CUDA events summed by name), the device
@@ -79,9 +81,16 @@ def _paths():
     )
     from partitionedhashjoin_tpu_torch.ops.planner import PlannedJoiner
     from partitionedhashjoin_tpu_torch.ops.radix_cluster import RadixHashJoiner
+    from partitionedhashjoin_tpu_torch.parallel import mesh as pm
+    from partitionedhashjoin_tpu_torch.parallel.shuffle import DistributedShuffleJoiner
 
     def joiner(cls, *args):
         return lambda a, b: cls(*args).run(a, b)
+
+    def shuffle(num_shards, **options):
+        mesh = pm.make_mesh(num_shards)
+        return lambda a, b: DistributedShuffleJoiner(mesh, seed=SEED, **options).run(
+            pm.shard_table(a, mesh), pm.shard_table(b, mesh))
 
     def materialize(a, b):
         return int(merge_join.two_run_materialize(
@@ -112,6 +121,10 @@ def _paths():
         ("sort-merge int64", "int64", joiner(sort_merge.SortMergeJoiner)),
         ("sort_merge_count", "int32",
          lambda a, b: int(sort_merge.sort_merge_count(a.keys, b.keys))),
+        ("shuffle, 2 shards", "int32", shuffle(2)),
+        ("shuffle, 8 shards", "int32", shuffle(8)),
+        ("shuffle, 8 shards, handle_skew=False", "int32", shuffle(8, handle_skew=False)),
+        ("shuffle, 8 shards, local_join=hash", "int32", shuffle(8, local_join="hash")),
         ("two_run_materialize", "query", materialize),
         ("pipeline (ordered)", "query", pipeline),
         ("hash_aggregate (probe rows)", "query", hash_groups),

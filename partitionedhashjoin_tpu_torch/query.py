@@ -34,7 +34,7 @@ Physical rewrite rules, with the JAX package's tags:
       ``lax.top_k``.
   R5  filter → GROUP BY compacts the survivors first (K5), so the
       aggregate's sort touches only them (``filter_sort_aggregate_staged``).
-  R6  execution on a device mesh: not yet ported (ROADMAP Queue 1 item 6);
+  R6  execution on a device mesh: not yet ported (ROADMAP Queue 1 item 6b);
       every ``mesh=`` raises ``PlanError``.
   R7  filtered JOIN → GROUP BY composes R5 with R3: K5 compacts the
       filtered probe, invalid build rows re-key to INT32_MIN (no surviving
@@ -303,7 +303,8 @@ class Query:
     def execute(self, mesh=None):
         """Run the plan.  Returns a ``GroupByResult`` for group-stage
         plans, a ``JoinedTable`` for a bare join, else a ``TableResult``.
-        ``mesh`` (R6) is not yet ported and raises ``PlanError``."""
+        ``mesh`` (R6) is not yet ported (ROADMAP Queue 1 item 6b) and
+        raises ``PlanError``."""
         plan = _compile(self._node, _Ctx.make(mesh))
         return plan.run()
 
@@ -363,7 +364,7 @@ class _Ctx:
         if mesh is not None:
             raise PlanError(
                 "mesh execution (R6) is not yet ported (ROADMAP Queue 1 "
-                "item 6); run the plan on one device"
+                "item 6b); run the plan on one device"
             )
         return cls()
 

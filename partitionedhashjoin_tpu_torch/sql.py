@@ -64,9 +64,9 @@ Semantics notes:
   module; a LIMIT 0 result's columns are int32 (avg float32) whatever the
   relations' dtypes, as in the JAX module.
 
-``mesh=`` (execution over several devices, R6) is not yet ported and
-raises ``SqlError``.  Run ``python -m partitionedhashjoin_tpu_torch.sql``
-for the shell (``main``).
+``mesh=`` (execution over a mesh of shards, R6) is not yet ported (ROADMAP
+Queue 1 item 6b) and raises ``SqlError``.  Run
+``python -m partitionedhashjoin_tpu_torch.sql`` for the shell (``main``).
 """
 
 from __future__ import annotations

@@ -1105,3 +1105,89 @@ def test_chained_paths_on_card_match_cpu(cuda):
         (g, gn), (w, wn) = (aggregate.filter_aggregate(t, even, seed=6) for t in (t_gpu, t_cpu))
         _same_fields(g, w, fields)
         assert int(gn) == int(wn)
+
+
+@pytest.mark.parametrize("dtype", [torch.int16, torch.uint8, torch.bool, torch.float16,
+                                   torch.int64, torch.float64])
+def test_run_materialize_payload_dtypes_on_card(cuda, dtype):
+    """Payloads of every width ride K5 as int32 lanes and come back in their
+    dtype, bit for bit the CPU port's."""
+    a, b = _hash_relations(5)
+    gen = torch.Generator().manual_seed(6)
+    pa, pb = (torch.randint(-2**31, 2**31 - 1, (t.numel(),), dtype=torch.int64,
+                            generator=gen) for t in (a, b))
+    if dtype.is_floating_point:
+        pa, pb = pa.to(torch.float64) / 7, pb.to(torch.float64) / 7
+    cpu = (make_table(a, pa.to(dtype)), make_table(b, pb.to(dtype)))
+    gpu = tuple(make_table(t.keys.to(cuda), t.payloads.to(cuda)) for t in cpu)
+    before = kc.LAUNCHES
+    got = NoPartitioningHashJoiner(seed=7).run_materialize(*gpu)
+    want = NoPartitioningHashJoiner(seed=7).run_materialize(*cpu)
+    assert kc.LAUNCHES == before + 1 and int(got.count) == int(want.count) > 0
+    for f in ("keys", "payloads_a", "payloads_b"):
+        g, w = getattr(got, f).cpu(), getattr(want, f)
+        assert g.dtype == w.dtype and torch.equal(g.view(torch.uint8), w.view(torch.uint8)), f
+
+
+def _shuffle_relations(n_a=1 << 20, n_b=1 << 23):
+    """A sequential build and a Zipf(1.05) probe over it, and uniform keys
+    with duplicate build keys over a wider range."""
+    from partitionedhashjoin_tpu_torch.ops import generators
+
+    zipf = (generators.sequential_table(n_a, device="cpu"),
+            generators.zipf_table(n_b, 1.05, (1, n_a), seed=9, device="cpu"))
+    gen = torch.Generator().manual_seed(10)
+    ka = torch.randint(0, 2 * n_a, (n_a,), dtype=torch.int32, generator=gen)
+    kb = torch.randint(0, 2 * n_a, (n_b,), dtype=torch.int32, generator=gen)
+    return {"zipf": zipf, "uniform": (make_table(ka, ka), make_table(kb, kb))}
+
+
+@pytest.mark.parametrize("num_shards", [1, 2, 8])
+@pytest.mark.parametrize("local_join", ["sort-merge", "hash"])
+def test_shuffle_join_on_card_counts_like_isin(cuda, num_shards, local_join):
+    """~1M ⋈ 8M rows over a mesh of shards on the card: the count equals
+    np.isin's, K1 counts the sort-merge local joins (and the one-shard fast
+    path), K7 hashes the owner shards, the hot-key sample and the hash
+    local joins."""
+    from partitionedhashjoin_tpu_torch.parallel import mesh as pm
+    from partitionedhashjoin_tpu_torch.parallel.shuffle import DistributedShuffleJoiner
+
+    mesh = pm.make_mesh(num_shards, devices=[cuda])
+    for name, (ta, tb) in _shuffle_relations().items():
+        want = int(np.isin(tb.keys.numpy(), ta.keys.numpy()).sum())
+        a, b = (pm.shard_table(make_table(t.keys.to(cuda), t.payloads.to(cuda)), mesh)
+                for t in (ta, tb))
+        k1, k7 = mp.LAUNCHES, gen.LAUNCHES_HASH
+        joiner = DistributedShuffleJoiner(mesh, seed=11, local_join=local_join)
+        assert joiner.run(a, b) == want, name
+        fast = num_shards == 1 and local_join == "sort-merge"
+        assert (mp.LAUNCHES - k1) == (0 if local_join == "hash" else 1 if fast else num_shards)
+        assert (gen.LAUNCHES_HASH > k7) == (not fast)
+        if name == "zipf" and not fast:
+            assert 1 in joiner.last_run.hot_keys
+
+
+def test_shuffle_options_on_card(cuda):
+    """Pipelined chunks (K1 once per chunk and shard), no skew handling,
+    validity masks, and int64 keys on one shard (K3)."""
+    from partitionedhashjoin_tpu_torch.parallel import mesh as pm
+    from partitionedhashjoin_tpu_torch.parallel.shuffle import DistributedShuffleJoiner
+
+    ta, tb = _shuffle_relations(1 << 18, 1 << 21)["zipf"]
+    mesh = pm.make_mesh(8, devices=[cuda])
+    a, b = (pm.shard_table(make_table(t.keys.to(cuda), t.payloads.to(cuda)), mesh)
+            for t in (ta, tb))
+    k1 = mp.LAUNCHES
+    assert DistributedShuffleJoiner(mesh, seed=12, pipeline_chunks=4).run(a, b) == tb.size
+    assert mp.LAUNCHES - k1 == 4 * 8
+    assert DistributedShuffleJoiner(mesh, seed=12, handle_skew=False).run(a, b) == tb.size
+    va, vb = ta.keys % 3 != 0, tb.keys % 2 == 0
+    want = int((vb & (tb.keys % 3 != 0)).sum())
+    assert DistributedShuffleJoiner(mesh, seed=12).run(
+        a, b, valid_a=pm.shard_array(va, mesh), valid_b=pm.shard_array(vb, mesh)) == want
+    mesh1 = pm.make_mesh(1, devices=[cuda])
+    a64, b64 = (pm.shard_table(make_table(t.keys.to(cuda, torch.int64),
+                                          t.payloads.to(cuda)), mesh1) for t in (ta, tb))
+    k3 = mp.LAUNCHES_I64
+    assert DistributedShuffleJoiner(mesh1, seed=12).run(a64, b64) == tb.size
+    assert mp.LAUNCHES_I64 == k3 + 1

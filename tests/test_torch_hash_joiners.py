@@ -149,10 +149,14 @@ def test_run_materialize_float_payloads():
     for f in ("keys", "payloads_a", "payloads_b"):
         w, g = np.asarray(getattr(want, f)), getattr(got, f).numpy()
         assert w.dtype == g.dtype and np.array_equal(w, g), f
-    with pytest.raises(TypeError, match="32-bit"):
-        NoPartitioningHashJoiner(seed=4).run_materialize(
-            table_from_numpy(a, pa.astype(np.float64), "cpu"),
-            table_from_numpy(b, pb, "cpu"))
+    # a 64-bit payload keeps its dtype (JAX has no x64 here: against numpy)
+    wide = NoPartitioningHashJoiner(seed=4).run_materialize(
+        table_from_numpy(a, pa.astype(np.float64), "cpu"),
+        table_from_numpy(b, pb, "cpu"))
+    c = int(wide.count)
+    assert wide.payloads_a.dtype == torch.float64 and not wide.payloads_a[c:].any()
+    assert np.array_equal(wide.payloads_a[:c].numpy(),
+                          pa.astype(np.float64)[b[np.isin(b, a)] - 1])
 
 
 def _timed(joiner, method, a, b):
@@ -296,6 +300,8 @@ LAZY = {
     "filter_table": "ops.filter", "sort_table": "ops.sort",
     "radix_sort_table": "ops.sort", "scan": "query", "Query": "query",
     "execute_sql": "sql", "explain_sql": "sql",
+    "DistributedShuffleJoiner": "parallel.shuffle", "make_mesh": "parallel.mesh",
+    "shard_table": "parallel.mesh",
 }
 
 
@@ -308,13 +314,13 @@ def test_lazy_exports_resolve_to_the_port(name):
 def test_lazy_exports_import_nothing_until_asked():
     code = ("import sys, partitionedhashjoin_tpu_torch as p\n"
             "assert not any(m.startswith('partitionedhashjoin_tpu_torch.ops') for m in sys.modules)\n"
-            "try:\n    p.DistributedShuffleJoiner\nexcept NotImplementedError as e:\n"
-            "    print(e)\n"
             "p.NoPartitioningHashJoiner\n"
-            "assert 'partitionedhashjoin_tpu_torch.ops.no_partitioning' in sys.modules\n")
+            "assert 'partitionedhashjoin_tpu_torch.ops.no_partitioning' in sys.modules\n"
+            "assert 'partitionedhashjoin_tpu_torch.parallel.shuffle' not in sys.modules\n"
+            "print(p.DistributedShuffleJoiner.__module__)\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                           text=True, timeout=120, env={"PYTHONPATH": str(REPO), "PATH": ""})
     assert proc.returncode == 0, proc.stderr
-    assert "not yet ported (ROADMAP Queue 1 item 6)" in proc.stdout
+    assert "partitionedhashjoin_tpu_torch.parallel.shuffle" in proc.stdout
     with pytest.raises(AttributeError):
         port.no_such_name

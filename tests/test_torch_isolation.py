@@ -17,7 +17,8 @@ for name in names:
     importlib.import_module(name)
 assert len(names) >= 12, names
 for needed in ("ops.hashing", "ops.hash_table", "ops.radix",
-               "ops.kernels.bitonic_sort", "ops.kernels.generate", "query", "sql"):
+               "ops.kernels.bitonic_sort", "ops.kernels.generate", "query", "sql",
+               "parallel.mesh", "parallel.shuffle"):
     assert pkg.__name__ + "." + needed in names, needed
 leaked = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "partitionedhashjoin_tpu.")))
 print("LEAKED", leaked)

@@ -77,27 +77,28 @@ def test_cli_output_schema_matches_jax(capsys):
     assert doc["results"]["partition"] == doc["results"]["build"] == "0"
 
 
-# The four joins other than shuffle are ported, with int64 keys for
-# sort-merge (tests/test_torch_cli.py); what stays unported is the shuffle
-# join and the shuffle / multi-host flags, with any join.
+# Every join is ported, with int64 keys for sort-merge
+# (tests/test_torch_cli.py) and the shuffle join's own flags
+# (tests/test_torch_shuffle.py); what stays unported is the multi-host
+# flags, with any join.
 @pytest.mark.parametrize("extra", [
-    ["--join", "no-partitioning", "--shards", "2"],
-    ["--join", "radix-partitioning", "--pipeline-chunks", "2"],
-    ["--join", "shuffle"],
+    ["--join", "no-partitioning", "--coordinator", "localhost:1234"],
+    ["--join", "radix-partitioning", "--num-processes", "2"],
+    ["--join", "shuffle", "--coordinator", "localhost:1234"],
     ["--join", "planned", "--coordinator", "localhost:1234"],
-    ["--join", "sort-merge", "--shards", "2"],
-    ["--join", "sort-merge", "--local-join", "hash"],
-    ["--join", "sort-merge", "--pipeline-chunks", "2"],
+    ["--join", "shuffle", "--shards", "2", "--num-processes", "2"],
+    ["--join", "shuffle", "--local-join", "hash", "--process-id", "1"],
+    ["--join", "shuffle", "--pipeline-chunks", "2", "--coordinator", "localhost:1234"],
     ["--join", "sort-merge", "--coordinator", "localhost:1234"],
     ["--join", "sort-merge", "--num-processes", "2"],
     ["--join", "sort-merge", "--process-id", "1"],
-    ["--join", "sort-merge", "--key-dtype", "int64", "--local-join", "hash"],
+    ["--join", "sort-merge", "--key-dtype", "int64", "--process-id", "1"],
 ])
 def test_cli_rejects_unported_paths(extra, capsys):
     with pytest.raises(SystemExit) as exc:
         cli.main(extra + ["--platform", "cpu"])
     assert exc.value.code == 2
-    assert "not yet ported (ROADMAP)" in capsys.readouterr().err
+    assert "not yet ported (ROADMAP Queue 1 item 6c)" in capsys.readouterr().err
 
 
 def test_cli_cuda_platform_without_a_card_raises():
