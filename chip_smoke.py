@@ -158,7 +158,38 @@ and raises on the first failure:
              drop counts per attempt, planned hot keys and K1/K3/K7
              launches.
 
-Kernel launch counts are set to 0 just before each path of phases 4 to 14
+15. dist   — the distributed operators and the query layer's mesh execution
+             (R6) at 10M ⋈ 200M on phase 12's relations, 8 shards on the
+             one card (and 2 for (a)), every step with ``torch.cummax``
+             refused: (a) ``DistributedAggregateOperator.run`` over the
+             200M probe rows equals ``sort_aggregate`` as a key →
+             aggregates map, with ``payload % 2 == 0`` as a mask
+             ``filter_sort_aggregate``, with ``with_distinct=True`` the
+             single-device distinct aggregate (K5, K7); (b)
+             ``distributed_top_k`` with k = 10 by key and by payload, each
+             also masked, equals ``ops.order_by.top_k`` of the (filtered)
+             relation row for row; (c) ``DistributedJoinAggregateOperator``
+             with and without skew handling equals the phase-6 group
+             oracle (K5, K7); (d) ``DistributedMaterializeJoiner`` inner
+             (200,000,000 rows), anti (0), left and semi with the probe
+             mask equal ``sort_merge_materialize_typed`` as multisets of
+             (key, pay_a, pay_b, matched) rows (K5 compacts the gathered
+             pools, K7); (e) ``MultiKeyShuffleJoiner.run`` over (key, key ^
+             0x5A17) and ``run_i64`` over the keys widened to int64 count
+             200,000,000 (K7); (f) R6 through the front ends:
+             ``execute_sql`` of (b) of phase 12 with ``mesh=`` equals the
+             single-device statement and the oracle (K5, K7), ``SELECT
+             COUNT(*) FROM b JOIN a USING (key)`` with the mesh counts
+             200,000,000 (K1, K7), ``explain_sql`` starts with ``physical
+             plan [mesh S=8]`` and names R6, and the shell ``python -m
+             partitionedhashjoin_tpu_torch.sql --platform cuda --mesh 8``
+             on the reference workload prints 200000000 (K1, read in its
+             own process).  Each library step runs once untimed, then once
+             timed: its host ms, device ms between CUDA events, peak
+             allocated bytes, exchange bytes, attempts with their overflow
+             counters, retries and K1/K5/K7 launches.
+
+Kernel launch counts are set to 0 just before each path of phases 4 to 15
 and read just after; a kernel's ``launches`` is the sum over the paths that
 run it.  Comparison launches in phase 3 are not counted.  The script prints
 one JSON line describing the kernels and, last, the ``"ok"`` line.  Without a
@@ -2596,6 +2627,281 @@ def phase_shuffle(torch, device, launches, card_line):
     log(f"[shuffle] (d) masked oracle: {want:,} valid probe rows with a valid build key")
 
 
+# ---------------------------------------------------------------- dist
+
+
+def _describe_run(record):
+    """One line on a distributed operator's ``last_run``."""
+    if record is None:
+        return "exchange inside the query layer, not exposed"
+    return (f"S {record.num_shards}, exchange {record.exchange_bytes:,} B each way, "
+            f"attempts {record.attempts}, retries {record.retries}")
+
+
+def _dist_step(torch, launches, card_line, name, fn, kernels, check):
+    """One step of phase 15: ``fn()`` once untimed, then once more (the
+    allocator keeps its cache) with every count set to 0 just before and
+    read just after (each of
+    ``kernels`` must launch; their launches are added to ``launches``),
+    between two CUDA events.  ``fn`` returns ``(result, last_run or
+    None)``; ``check(result)`` raises on a wrong result and returns what it
+    checked.  Prints the host and device ms, the peak allocated bytes, the
+    exchange and the K1/K5/K7 launches."""
+    torch.cuda.empty_cache()
+    out, _ = fn()
+    del out
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0 = time.perf_counter()
+    start.record()
+    out, record = fn()
+    end.record()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    counts = _read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    for k in kernels:
+        _check(f"dist {name}", counts[k] > 0, f"{k} was never launched ({counts})")
+        launches[k] += counts[k]
+    detail = check(out)
+    del out
+    log(f"[time dist] {card_line}: {name}: {detail}; host {host_ms:.3f} ms, device "
+        f"{start.elapsed_time(end):.4f} ms (CUDA events, warm); peak allocated {peak} B; "
+        f"launches k1 {counts['k1']}, k5 {counts['k5']}, k7 {counts['k7']}")
+    log(f"[dist] {name}: {_describe_run(record)}")
+
+
+def _key_ordered(torch, g):
+    """A GroupByResult's valid groups in key order, as a dict of columns."""
+    n = int(g.num_groups)
+    order = torch.sort(g.keys[:n]).indices
+    cols = {"keys": g.keys, "count": g.count, "sum": g.sum, "min": g.min, "max": g.max}
+    if g.distinct is not None:
+        cols["distinct"] = g.distinct
+    return {f: c[:n][order] for f, c in cols.items()}
+
+
+def _same_groups(torch, name, g, want):
+    """``g`` equals ``want`` (a dict of key-ordered columns) as a key →
+    aggregates map."""
+    got = _key_ordered(torch, g)
+    for f, w in want.items():
+        _check(name, torch.equal(got[f], w.to(got[f].dtype)), f"field {f} differs")
+    return f"{want['keys'].numel():,} groups == the single-device map"
+
+
+def _packed_rows(torch, name, keys, pay_a, pay_b, matched, n):
+    """The first ``n`` joined rows as sorted int64 (key << 21 | pay_b << 1
+    | matched): keys < 2^24 and probe payloads < 2^20 fit, and pay_a must
+    be key ^ 0x5A17 on a matched row and 0 on another (the build payload),
+    so equal sorted words are equal multisets of (key, pay_a, pay_b,
+    matched) rows."""
+    keys, pay_a, pay_b, matched = (c[:n] for c in (keys, pay_a, pay_b, matched))
+    _check(name, bool((pay_a == torch.where(matched, keys ^ SALT, 0)).all()),
+           "pay_a is not the matched build payload")
+    words = ((keys.to(torch.int64) << 21) | (pay_b.to(torch.int64) << 1)
+             | matched.to(torch.int64))
+    return torch.sort(words).values
+
+
+def phase_dist(torch, device, launches, card_line, rel):
+    """Phase 15: the distributed operators and R6 at 10M ⋈ 200M on phase
+    12's relations (``rel``), 8 shards on the one card; adds each step's
+    launches."""
+    import numpy as np
+
+    from partitionedhashjoin_tpu_torch.data.table import make_table
+    from partitionedhashjoin_tpu_torch.ops import order_by
+    from partitionedhashjoin_tpu_torch.ops.aggregate import (
+        filter_sort_aggregate,
+        sort_aggregate,
+    )
+    from partitionedhashjoin_tpu_torch.ops.sort_merge import sort_merge_materialize_typed
+    from partitionedhashjoin_tpu_torch.parallel import mesh as pm
+    from partitionedhashjoin_tpu_torch.parallel.aggregate_shuffle import (
+        DistributedAggregateOperator,
+    )
+    from partitionedhashjoin_tpu_torch.parallel.join_aggregate import (
+        DistributedJoinAggregateOperator,
+    )
+    from partitionedhashjoin_tpu_torch.parallel.materialize_shuffle import (
+        DistributedMaterializeJoiner,
+    )
+    from partitionedhashjoin_tpu_torch.parallel.multi_key_shuffle import (
+        MultiKeyShuffleJoiner,
+    )
+    from partitionedhashjoin_tpu_torch.parallel.top_k import distributed_top_k
+    from partitionedhashjoin_tpu_torch.sql import execute_sql, explain_sql
+
+    a_keys, a_pay, b_keys, b_pay = rel
+    a, b = make_table(a_keys, a_pay), make_table(b_keys, b_pay)
+    meshes = {s: pm.make_mesh(s, devices=[device]) for s in (2, 8)}
+    m8 = meshes[8]
+    even = (b_pay % 2) == 0
+    step = functools.partial(_dist_step, torch, launches, card_line)
+
+    def operator(cls, s=8, **kw):
+        return cls(meshes[s], seed=SEED, **kw)
+
+    with _no_cummax(torch):
+        # (a) the combiner plan at S = 8 and 2, masked, and the distinct plan
+        want = _key_ordered(torch, sort_aggregate(b, group_capacity=GROUP_CAPACITY))
+        for s in (8, 2):
+            def run(s=s):
+                op = operator(DistributedAggregateOperator, s)
+                return op.run(b, group_capacity=GROUP_CAPACITY), op.last_run
+            step(f"(a) S={s} DistributedAggregateOperator.run", run, ("k5", "k7"),
+                 functools.partial(_same_groups, torch, f"dist (a) S={s}", want=want))
+        want = _key_ordered(torch, filter_sort_aggregate(
+            b, lambda k, p: even, group_capacity=GROUP_CAPACITY)[0])
+
+        def run():
+            op = operator(DistributedAggregateOperator)
+            return op.run(b, group_capacity=GROUP_CAPACITY, mask=even), op.last_run
+        step("(a) S=8 mask payload % 2 == 0", run, ("k5", "k7"),
+             functools.partial(_same_groups, torch, "dist (a) mask", want=want))
+        want = _key_ordered(torch, sort_aggregate(b, group_capacity=GROUP_CAPACITY,
+                                                  with_distinct=True))
+
+        def run():
+            op = operator(DistributedAggregateOperator)
+            return (op.run(b, group_capacity=GROUP_CAPACITY, with_distinct=True),
+                    op.last_run)
+        step("(a) S=8 with_distinct=True", run, ("k5", "k7"),
+             functools.partial(_same_groups, torch, "dist (a) distinct", want=want))
+        del want
+
+        # (b) top-10 by key and by payload, each also masked
+        for by in ("key", "payload"):
+            for masked in (False, True):
+                src = make_table(b_keys[even], b_pay[even]) if masked else b
+                want = order_by.top_k(src, 10, by=by)
+                del src
+
+                def check(out, want=want, name=f"dist (b) {by} masked={masked}"):
+                    got, live = out
+                    _check(name, int(live) == 10 and torch.equal(got.keys, want.keys)
+                           and torch.equal(got.payloads, want.payloads),
+                           f"{got.keys.tolist()} != {want.keys.tolist()}")
+                    return "10 rows == ops.order_by.top_k row for row"
+
+                step(f"(b) S=8 distributed_top_k k=10 by {by}"
+                     + (" mask payload % 2 == 0" if masked else ""),
+                     lambda by=by, masked=masked: (distributed_top_k(
+                         m8, b, 10, by=by, mask=even if masked else None), None),
+                     (), check)
+
+        # (c) join → GROUP BY, with and without the skew plan
+        want = _group_oracle(torch, b_keys, b_pay)
+        for skew in (True, False):
+            def run(skew=skew):
+                op = operator(DistributedJoinAggregateOperator, handle_skew=skew)
+                return op.run(a, b, group_capacity=GROUP_CAPACITY), op.last_run
+            step(f"(c) S=8 DistributedJoinAggregateOperator.run handle_skew={skew}", run,
+                 ("k5", "k7"), functools.partial(_same_groups, torch, f"dist (c) {skew}",
+                                                 want=want))
+        del want
+
+        # (d) the materializing joins, as multisets of rows
+        for jt, probe_valid, count in (
+                ("inner", None, N_SECONDARY), ("anti", None, 0),
+                ("left", None, N_SECONDARY), ("semi", even, int(even.sum()))):
+            name = f"dist (d) {jt}"
+            ref = sort_merge_materialize_typed(a_keys, a_pay, b_keys, b_pay, jt,
+                                               probe_valid=probe_valid)
+            _check(name, int(ref[4]) == count, f"single-device count {int(ref[4]):,}")
+            want = _packed_rows(torch, name, *ref[:4], count)
+            del ref
+
+            def run(jt=jt, probe_valid=probe_valid):
+                op = operator(DistributedMaterializeJoiner)
+                return op.run(a, b, jt, probe_valid=probe_valid), op.last_run
+
+            def check(j, name=name, count=count, want=want):
+                _check(name, int(j.count) == count, f"count {int(j.count):,} != {count:,}")
+                got = _packed_rows(torch, name, j.keys, j.payloads_a, j.payloads_b,
+                                   j.matched, count)
+                _check(name, torch.equal(got, want), "the row multisets differ")
+                return (f"{count:,} rows == sort_merge_materialize_typed as a multiset "
+                        f"({j.keys.numel():,} slots)")
+
+            step(f"(d) S=8 DistributedMaterializeJoiner.run {jt}"
+                 + (" probe mask payload % 2 == 0" if probe_valid is not None else ""),
+                 run, ("k5", "k7"), check)
+            del want
+
+        # (e) composite keys and 64-bit keys as two planes
+        def count_is(name):
+            def check(c):
+                _check(name, c == N_SECONDARY, f"{c:,} != {N_SECONDARY:,}")
+                return f"{c:,} ok"
+            return check
+
+        def run():
+            j = operator(MultiKeyShuffleJoiner)
+            return j.run([a_keys, a_keys ^ SALT], [b_keys, b_keys ^ SALT]), j.last_run
+        step("(e) S=8 MultiKeyShuffleJoiner.run (key, key ^ 0x5A17)", run, ("k7",),
+             count_is("dist (e) run"))
+
+        def run():
+            j = operator(MultiKeyShuffleJoiner)
+            return j.run_i64(a_keys.to(torch.int64), b_keys.to(torch.int64)), j.last_run
+        step("(e) S=8 MultiKeyShuffleJoiner.run_i64", run, ("k7",),
+             count_is("dist (e) run_i64"))
+
+        # (f) R6 through the SQL front end and the shell
+        db = {"a": a, "b": b}
+        sql_b = SQL_PIPELINE.format(where="")
+        one = execute_sql(sql_b, db, group_capacity=GROUP_CAPACITY)
+        want = _top10(torch, _group_oracle(torch, b_keys, b_pay))
+
+        def check(r):
+            _check_sql_rows("dist (f) pipeline", r, want)
+            _check("dist (f) pipeline", all(np.array_equal(r.columns[c], one.columns[c])
+                                            for c in one.columns), "!= one device")
+            return "10 rows == the single-device statement == the oracle"
+
+        step("(f) S=8 execute_sql pipeline statement, mesh=", lambda: (execute_sql(
+            sql_b, db, mesh=m8, group_capacity=GROUP_CAPACITY), None), ("k5", "k7"), check)
+        stmt = "SELECT COUNT(*) FROM b JOIN a USING (key)"
+
+        def check(r):
+            c = int(r.columns["count"][0])
+            _check("dist (f) count", c == N_SECONDARY, f"{c:,}")
+            return f"{c:,} ok"
+
+        step(f"(f) S=8 execute_sql '{stmt}', mesh=", lambda: (execute_sql(
+            stmt, db, mesh=m8), None), ("k1", "k7"), check)
+        for text in (sql_b, stmt):
+            plan = explain_sql(text, db, mesh=m8, group_capacity=GROUP_CAPACITY)
+            _check("dist (f) explain", plan.startswith("physical plan [mesh S=8]")
+                   and "R6" in plan, plan)
+            log("[dist] (f) explain_sql with the mesh:\n" + plan)
+    del one, want, even
+
+    # the shell with --mesh 8 on the reference workload, in its own process
+    torch.cuda.empty_cache()
+    argv = ["--platform", "cuda", "--mesh", "8", "--table", f"a=sequential:{N_PRIMARY}",
+            "--table", f"b=zipf:{N_SECONDARY}:{SKEW}:1:{N_PRIMARY}"]
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", _SHELL_WITH_COUNTS, *argv, stmt],
+                          capture_output=True, text=True, timeout=600)
+    wall_s = time.perf_counter() - t0
+    for line in proc.stderr.splitlines():
+        log(f"[dist shell] {line}")
+    _check("dist shell --mesh 8", proc.returncode == 0, f"exit {proc.returncode}")
+    _check("dist shell --mesh 8", proc.stdout == f"count\n{N_SECONDARY}\n(1 rows)\n",
+           repr(proc.stdout))
+    k1 = json.loads(proc.stderr.splitlines()[-1].removeprefix("launches "))["k1"]
+    _check("dist shell --mesh 8", k1 == 8, f"k1 launched {k1} times, not 8")
+    launches["k1"] += k1
+    log(f"[time dist] {card_line}: (f) python -m {PKG}.sql {' '.join(argv)} '{stmt}': "
+        f"prints {N_SECONDARY:,}, k1 launches {k1}; {wall_s:.3f} s wall (startup, "
+        "generation, count)")
+
+
 def main() -> int:
     import torch
 
@@ -2628,8 +2934,9 @@ def main() -> int:
     phase_bench(torch, launches, card)
     rel = phase_sql(torch, device, launches, card)
     phase_hash(torch, device, launches, card, rel)
-    del rel
     phase_shuffle(torch, device, launches, card)
+    phase_dist(torch, device, launches, card, rel)
+    del rel
     described = (
         ("merge_probe_count", "k1", "merge_probe.cu", "merge_probe.py:292"),
         ("merge_probe_count_i64", "k3", "merge_probe.cu",

@@ -26,7 +26,11 @@ that each counterpart is easy to find:
 - ``ops.kernels`` + ``csrc/``: the hand-written CUDA kernels (K1–K8), each
   beside its plain PyTorch version, built with nvcc at first use.
 - ``parallel.mesh`` / ``parallel.shuffle``: a mesh of shards on one device
-  and the distributed shuffle join over it.
+  and the distributed shuffle join over it; ``parallel.aggregate_shuffle``,
+  ``parallel.top_k``, ``parallel.join_aggregate``,
+  ``parallel.materialize_shuffle``, ``parallel.multi_key_shuffle``: the
+  distributed GROUP BY, top-k, join → GROUP BY, materializing join and
+  composite-key join on its exchange (the query layer's R6).
 - ``query`` / ``sql``: the fluent query layer and the SQL front end.
 - ``cli``: ``python -m partitionedhashjoin_tpu_torch``; ``bench``: the
   reference workload's one-line bench;

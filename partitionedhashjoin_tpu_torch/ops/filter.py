@@ -2,11 +2,11 @@
 
 Counterpart of ``partitionedhashjoin_tpu/ops/filter.py``.  Selection is a
 mask, an exclusive prefix sum and a scatter: the output position of a kept
-row is the number of kept rows before it.  Plain PyTorch (the JAX module
-uses XLA ops, no Pallas kernel); ``compact`` is the plain version of the
-stream-compaction kernel, ``ops/kernels/compact.compact_plain``.  Outputs
-keep the input's size; ``count`` (a 0-dim int64 tensor; JAX's is int32)
-gives the number of kept rows.
+row is the number of kept rows before it.  ``compact`` runs the
+stream-compaction kernel K5 (``ops/kernels/compact.compact_any``: columns of
+any dtype as int32 lanes) on a CUDA tensor, and its plain version on a CPU
+tensor.  Outputs keep the input's size; ``count`` (a 0-dim int64 tensor;
+JAX's is int32) gives the number of kept rows.
 """
 
 from __future__ import annotations
@@ -16,7 +16,7 @@ from typing import Callable, Tuple
 import torch
 
 from partitionedhashjoin_tpu_torch.data.table import Table, make_table
-from partitionedhashjoin_tpu_torch.ops.kernels.compact import compact_plain
+from partitionedhashjoin_tpu_torch.ops.kernels import compact as kcompact
 
 
 def partition_positions(mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -48,7 +48,7 @@ def compact(mask: torch.Tensor, *columns: torch.Tensor):
 
     Returns ``(count, *compacted_columns)``; rows past ``count`` are zeros.
     """
-    count, _, *outs = compact_plain(mask.to(torch.bool), columns, mask.shape[0])
+    count, _, *outs = kcompact.compact_any(mask, columns, mask.shape[0])
     return (count, *outs)
 
 

@@ -13,14 +13,16 @@ Counterpart of ``partitionedhashjoin_tpu/ops/pallas/compact.py``:
 - ``compact_rows(keep, cols, out_len, zero_tail=True)``: the same
   compaction for any ``n`` and any output length, which the port's own
   operators call (the ``BLK`` contract exists only for the JAX API).
+- ``compact_any(keep, cols, out_len)``: ``compact_rows`` for columns of any
+  dtype and number: each column rides as int32 lanes, bit for bit, and
+  more than ``MAX_COLS`` lanes take several launches over one ``keep``.
 
-On a CUDA tensor all three launch the hand-written kernel in
+On a CUDA tensor all four launch the hand-written kernel in
 ``csrc/compact.cu`` (one pass over ``keep`` with a decoupled look-back, after
 a memset of its tile status words); on a CPU tensor they run
 ``compact_plain``, the plain PyTorch version, which tests and
-``chip_smoke.py`` also hold the kernel against and which
-``ops/filter.compact`` is built on.  Counts are 0-dim int64 tensors (JAX's
-are int32).
+``chip_smoke.py`` also hold the kernel against.  Counts are 0-dim int64
+tensors (JAX's are int32).
 """
 
 from __future__ import annotations
@@ -179,6 +181,56 @@ def compact_rows(
         raise RuntimeError(f"phj_compact launch failed: CUDA error {err}")
     LAUNCHES += 1
     return (total, *outs)
+
+
+#: The int32 view K5 carries a column of each element size in, bit for bit.
+_NARROW_BITS = {1: torch.uint8, 2: torch.int16}
+
+
+def _i32_lanes(col: torch.Tensor) -> list:
+    """A column as int32 lanes that K5 can carry, bit for bit: a 32-bit
+    column viewed as int32, a 64-bit one as its two 32-bit halves, and an
+    8- or 16-bit one (bool and float16 included) widened from its bits."""
+    # an empty tensor may keep stride 0, which a view to int32 refuses
+    col = col.contiguous() if col.numel() else torch.empty_like(
+        col, memory_format=torch.contiguous_format)
+    size = col.element_size()
+    if size == 4:
+        return [col.view(torch.int32)]
+    if size == 8:
+        return list(col.view(torch.int32).view(-1, 2).t().contiguous())
+    return [col.view(_NARROW_BITS[size]).to(torch.int32)]
+
+
+def _from_lanes(lanes: list, dtype: torch.dtype) -> torch.Tensor:
+    """The inverse of ``_i32_lanes`` for a column of ``dtype``."""
+    size = dtype.itemsize
+    if size == 4:
+        return lanes[0].view(dtype)
+    if size == 8:
+        return torch.stack(lanes, dim=1).view(dtype).view(-1)
+    return lanes[0].to(_NARROW_BITS[size]).view(dtype)
+
+
+def compact_any(
+    keep: torch.Tensor, cols: Sequence[torch.Tensor], out_len: int
+) -> Tuple[torch.Tensor, ...]:
+    """``(count, pos, *outs)`` as ``compact_rows`` (zero tail), for 1-D
+    columns of any dtype, each output in its column's dtype.  Every column
+    is split into int32 lanes (``_i32_lanes``) and rebuilt from them
+    (``_from_lanes``), bit for bit; more than ``MAX_COLS`` lanes take one
+    launch per ``MAX_COLS`` over the same ``keep``."""
+    keep = keep.to(torch.bool).contiguous()
+    lanes = [_i32_lanes(c) for c in cols]
+    flat = [lane for col_lanes in lanes for lane in col_lanes]
+    count, pos, *outs = compact_rows(keep, flat[:MAX_COLS], out_len)
+    for i in range(MAX_COLS, len(flat), MAX_COLS):
+        outs += compact_rows(keep, flat[i:i + MAX_COLS], out_len)[2:]
+    results = []
+    for col, col_lanes in zip(cols, lanes):
+        results.append(_from_lanes(outs[:len(col_lanes)], col.dtype))
+        outs = outs[len(col_lanes):]
+    return (count, pos, *results)
 
 
 def block_compact(keep: torch.Tensor, *cols: torch.Tensor):

@@ -65,33 +65,6 @@ def hash_seed(seed: Optional[int]) -> int:
     return seed & 0xFFFFFFFF
 
 
-#: The int32 view K5 carries a column of each element size in, bit for bit.
-_NARROW_BITS = {1: torch.uint8, 2: torch.int16}
-
-
-def _i32_lanes(col: torch.Tensor) -> list:
-    """A column as int32 lanes that K5 can carry, bit for bit: a 32-bit
-    column viewed as int32, a 64-bit one as its two 32-bit halves, and an
-    8- or 16-bit one (bool and float16 included) widened from its bits."""
-    col = col.contiguous()
-    size = col.element_size()
-    if size == 4:
-        return [col.view(torch.int32)]
-    if size == 8:
-        return list(col.view(torch.int32).view(-1, 2).t().contiguous())
-    return [col.view(_NARROW_BITS[size]).to(torch.int32)]
-
-
-def _from_lanes(lanes: list, dtype: torch.dtype) -> torch.Tensor:
-    """The inverse of ``_i32_lanes`` for a column of ``dtype``."""
-    size = dtype.itemsize
-    if size == 4:
-        return lanes[0].view(dtype)
-    if size == 8:
-        return torch.stack(lanes, dim=1).view(dtype).view(-1)
-    return lanes[0].to(_NARROW_BITS[size]).view(dtype)
-
-
 def _probe_gather(table: ht.ChainedHashTable, probe_keys, build_payloads,
                   probe_payloads):
     """``(keys, pay_a, pay_b, count)``: the probe rows that match, each with
@@ -103,15 +76,9 @@ def _probe_gather(table: ht.ChainedHashTable, probe_keys, build_payloads,
         pay_a = build_payloads.index_select(0, torch.clamp(build_row, min=0))
     else:  # no build row: nothing matches
         pay_a = build_payloads.new_zeros((n,))
-    cols = (probe_keys, pay_a, probe_payloads)
-    lanes = [_i32_lanes(c) for c in cols]
-    count, _, *outs = kcompact.compact_rows(
-        found, [lane for col in lanes for lane in col], n)
-    results = []
-    for col, col_lanes in zip(cols, lanes):
-        results.append(_from_lanes(outs[:len(col_lanes)], col.dtype))
-        outs = outs[len(col_lanes):]
-    return (*results, count)
+    count, _, *outs = kcompact.compact_any(
+        found, (probe_keys, pay_a, probe_payloads), n)
+    return (*outs, count)
 
 
 class NoPartitioningHashJoiner:

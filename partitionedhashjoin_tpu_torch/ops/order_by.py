@@ -56,3 +56,28 @@ def top_k(table: Table, k: int, by: str = "key", descending: bool = True) -> Tab
     x = _order_key(col, not descending)
     order = torch.sort(x, descending=True, stable=True).indices[:k]
     return _table(by, col[order], other[order])
+
+
+def _top_k_indices(x: torch.Tensor, k: int) -> torch.Tensor:
+    """Row indices of the ``k`` largest values of ``x``, largest first and,
+    among equal values, the lower row first (``lax.top_k``'s order, which
+    ``torch.topk`` does not promise).  ``torch.topk`` finds the k-th value;
+    every row above it and the first rows at it (``nonzero`` keeps row
+    order) make exactly k rows, which one stable k-row sort orders."""
+    if k <= 0:
+        return torch.zeros((0,), dtype=torch.int64, device=x.device)
+    kth = torch.topk(x, k, sorted=True).values[k - 1]
+    above = x > kth
+    at = x == kth
+    take = above | (at & (torch.cumsum(at, 0) <= k - above.sum()))
+    idx = torch.nonzero(take).squeeze(1)
+    return idx[torch.sort(x[idx], descending=True, stable=True).indices]
+
+
+def _valid_first_order(invalid: torch.Tensor, ordcol: torch.Tensor) -> torch.Tensor:
+    """The permutation that puts valid rows first, each part ascending by
+    ``ordcol``, equal values in row order: the order of the JAX package's
+    3-key sort on (invalid, ordcol, row), as two stable sorts."""
+    order = torch.sort(ordcol, stable=True).indices
+    flag = invalid.to(torch.int8)[order]
+    return order[torch.sort(flag, stable=True).indices]

@@ -474,6 +474,12 @@ def plan_hot_keys(
     return hot_keys, hot_valid
 
 
+#: Bytes of one row slot of the exchange: key, payload and valid.
+ROW_SLOT_BYTES = 9
+#: The exchange's overflow counters, in ``ShuffleStats`` order.
+DROP_NAMES = ("dropped_a", "dropped_b", "dropped_hot")
+
+
 @dataclasses.dataclass
 class ShuffleRun:
     """What a joiner's last ``run`` did: the drop counts ``(a, b, hot)`` of
@@ -500,8 +506,125 @@ class ShuffleRun:
             return 0
         return self.num_shards * self.num_shards * (self.cap_a + self.cap_b)
 
+    def record_exchange(self, dropped, cap_a: int, cap_b: int, hot_cap: int) -> None:
+        self.drops.append(dropped)
+        self.cap_a, self.cap_b, self.hot_cap = cap_a, cap_b, hot_cap
 
-class DistributedShuffleJoiner:
+
+@dataclasses.dataclass
+class ExchangeRun:
+    """What a distributed operator's last ``run`` did: the overflow
+    counters of each attempt of each of its retry loops, named as in the
+    operator's retry log, the attempts that overflowed and were retried, and
+    the bytes its accepted exchanges send (as many are received)."""
+
+    num_shards: int
+    attempts: List[dict] = dataclasses.field(default_factory=list)
+    retries: int = 0
+    exchange_bytes: int = 0
+
+    def record_exchange(self, dropped, cap_a: int, cap_b: int, hot_cap: int) -> None:
+        self.attempts.append(dict(zip(DROP_NAMES, dropped)))
+        if any(dropped):
+            self.retries += 1
+        else:
+            s = self.num_shards
+            self.exchange_bytes = s * s * (cap_a + cap_b) * ROW_SLOT_BYTES
+
+
+class _ExchangeOperator:
+    """The knobs and the retry policy that the shuffle join and the
+    operators on its exchange share: seeds, the hot-key plan, the bucket
+    capacities, and retries that grow the capacity that overflowed."""
+
+    def __init__(self, mesh: Mesh, seed: Optional[int], slack: float,
+                 handle_skew: bool, hot_capacity: int, hot_sample: int,
+                 hot_min_frac: float, max_retries: int, name: str) -> None:
+        self._mesh = mesh
+        self._num_shards = int(mesh.size)
+        if self._num_shards & (self._num_shards - 1):
+            raise ValueError("mesh size must be a power of 2")
+        if seed is None:
+            seed = int(np.random.SeedSequence().entropy & _MASK)
+        self._seed = seed & _MASK
+        self._shard_seed = self._seed
+        self._hot_seed = (seed ^ 0x9E3779B9) & _MASK
+        self._slack = slack
+        self._handle_skew = handle_skew
+        self._hot_capacity = hot_capacity
+        self._hot_sample = hot_sample
+        self._hot_min_frac = hot_min_frac
+        self._max_retries = max_retries
+        self._logger = get_new_logger(name)
+
+    def _capacity(self, rows_per_shard: int, slack: float) -> int:
+        per_dest = rows_per_shard / self._num_shards
+        # a shard can never send more than its own rows to one destination,
+        # so rows_per_shard is a hard cap (slack is meaningless at S=1)
+        return max(16, min(int(per_dest * slack + 1), rows_per_shard))
+
+    def _hot_plan(self, keys_b: torch.Tensor):
+        """``(hot_keys, hot_valid)``: the sampled hot probe keys, or an
+        empty plan without skew handling."""
+        if self._handle_skew:
+            return plan_hot_keys(keys_b, self._hot_sample, self._hot_capacity,
+                                 self._hot_min_frac, seed=self._hot_seed)
+        device = keys_b.device
+        return (torch.zeros((self._hot_capacity,), dtype=torch.int32, device=device),
+                torch.zeros((self._hot_capacity,), dtype=torch.bool, device=device))
+
+    def _exchange_with_retries(self, keys_a, pays_a, keys_b, pays_b, hot_keys,
+                               hot_valid, valid_a, valid_b, run, consume, what,
+                               timer: Optional[IHashJoinTimer] = None,
+                               cap_b_multiple: int = 1, exchange_b: bool = True):
+        """Exchange until no counter overflows and ``consume`` returns a
+        result, at most ``max_retries`` times.  Each attempt reads the three
+        drop counts back and records them with ``run.record_exchange``; cold
+        drops double the slack, hot drops grow ``hot_cap`` to
+        ``4 * hot_cap + dropped``.  ``consume(exchanged, cap_a, cap_b)``
+        gets ``_exchange``'s outputs as a list, which it may clear to free
+        what it does not read, and returns None to exchange again.
+        The timer's partition phase sums every attempt's exchange."""
+        s = self._num_shards
+        timer = timer or NoOpHashJoinTimer()
+        slack = self._slack
+        hot_cap = self._hot_capacity
+        seconds = 0.0
+        for _ in range(self._max_retries):
+            cap_a = self._capacity(keys_a.shape[0] // s, slack)
+            cap_b = self._capacity(keys_b.shape[0] // s, slack)
+            cap_b = -(-cap_b // cap_b_multiple) * cap_b_multiple
+            t0 = time.perf_counter()
+            exchanged = list(_exchange(
+                self._mesh, keys_a, pays_a, keys_b, pays_b, self._shard_seed,
+                hot_keys, hot_valid, cap_a, cap_b, hot_cap, self._handle_skew,
+                exchange_b=exchange_b, valid_a=valid_a, valid_b=valid_b,
+            ))
+            stats = exchanged[-1]
+            dropped = tuple(torch.stack(
+                [stats.dropped_a, stats.dropped_b, stats.dropped_hot]).tolist())
+            seconds += time.perf_counter() - t0
+            timer.set_partitioning_phase_duration(seconds)
+            run.record_exchange(dropped, cap_a, cap_b, hot_cap)
+            if any(dropped):
+                self._logger.info(
+                    "bucket overflow (a=%d b=%d hot=%d) at slack %.1f; retrying",
+                    *dropped, slack,
+                )
+                # grow the capacity that actually overflowed: doubling slack
+                # cannot fix a hot-replication overflow (hot_cap is separate)
+                if dropped[0] > 0 or dropped[1] > 0:
+                    slack *= 2
+                if dropped[2] > 0:
+                    hot_cap = hot_cap * 4 + dropped[2]
+                continue
+            result = consume(exchanged, cap_a, cap_b)
+            if result is not None:
+                return result
+        raise RuntimeError(f"{what} overflowed after {self._max_retries} retries")
+
+
+class DistributedShuffleJoiner(_ExchangeOperator):
     """Mesh-parallel shuffle hash joiner.
 
     Phases map onto the reference timer (utils/results.py): partition =
@@ -531,32 +654,13 @@ class DistributedShuffleJoiner:
             raise ValueError(f"unknown local_join {local_join}")
         if pipeline_chunks < 1:
             raise ValueError("pipeline_chunks must be >= 1")
+        super().__init__(mesh, seed, slack, handle_skew, hot_capacity, hot_sample,
+                         hot_min_frac, max_retries, "DistributedShuffleJoiner")
         self._single_shard_fast_path = single_shard_fast_path
         self._local_join = local_join
         self._pipeline_chunks = pipeline_chunks
-        self._mesh = mesh
-        self._num_shards = int(mesh.size)
-        if self._num_shards & (self._num_shards - 1):
-            raise ValueError("mesh size must be a power of 2")
-        if seed is None:
-            seed = int(np.random.SeedSequence().entropy & _MASK)
-        self._shard_seed = seed & _MASK
-        self._bucket_seed = (seed ^ 0xC2B2AE35) & _MASK
-        self._hot_seed = (seed ^ 0x9E3779B9) & _MASK
-        self._slack = slack
-        self._handle_skew = handle_skew
-        self._hot_capacity = hot_capacity
-        self._hot_sample = hot_sample
-        self._hot_min_frac = hot_min_frac
-        self._max_retries = max_retries
-        self._logger = get_new_logger("DistributedShuffleJoiner")
+        self._bucket_seed = (self._seed ^ 0xC2B2AE35) & _MASK
         self.last_run: Optional[ShuffleRun] = None
-
-    def _capacity(self, rows_per_shard: int, slack: float) -> int:
-        per_dest = rows_per_shard / self._num_shards
-        # a shard can never send more than its own rows to one destination,
-        # so rows_per_shard is a hard cap (slack is meaningless at S=1)
-        return max(16, min(int(per_dest * slack + 1), rows_per_shard))
 
     def _check_inputs(self, table_a: Table, table_b: Table, valid_a, valid_b):
         s = self._num_shards
@@ -607,77 +711,16 @@ class DistributedShuffleJoiner:
                 f"the shuffle join over {s} shards hashes 32-bit keys; 64-bit "
                 "keys run on one shard (single_shard_fast_path) or sort_merge"
             )
-        use_hot = self._handle_skew
-        if use_hot:
-            hot_keys, hot_valid = plan_hot_keys(
-                table_b.keys,
-                self._hot_sample,
-                self._hot_capacity,
-                self._hot_min_frac,
-                seed=self._hot_seed,
-            )
-        else:
-            device = table_b.keys.device
-            hot_keys = torch.zeros((self._hot_capacity,), dtype=torch.int32, device=device)
-            hot_valid = torch.zeros((self._hot_capacity,), dtype=torch.bool, device=device)
+        hot_keys, hot_valid = self._hot_plan(table_b.keys)
         run = ShuffleRun(num_shards=s, drops=[], cap_a=0, cap_b=0, hot_cap=0,
                          hot_keys=hot_keys[hot_valid].tolist())
         self.last_run = run
-
-        slack = self._slack
-        hot_cap = self._hot_capacity
         pipelined = self._pipeline_chunks > 1
-        partition_seconds = 0.0  # accumulates across overflow retries
-        for _ in range(self._max_retries):
-            cap_a = self._capacity(table_a.size // s, slack)
-            cap_b = self._capacity(table_b.size // s, slack)
-            if pipelined:
-                k = self._pipeline_chunks
-                cap_b = (cap_b + k - 1) // k * k
-            run.cap_a, run.cap_b, run.hot_cap = cap_a, cap_b, hot_cap
 
-            attempt_t0 = time.perf_counter()
-            (
-                rk_a, rp_a, rv_a, rk_b, rp_b, rv_b,
-                is_hot_b, hk, hp, hv, stats,
-            ) = _exchange(
-                self._mesh,
-                table_a.keys,
-                table_a.payloads,
-                table_b.keys,
-                table_b.payloads,
-                self._shard_seed,
-                hot_keys,
-                hot_valid,
-                cap_a,
-                cap_b,
-                hot_cap,
-                use_hot,
-                exchange_b=not pipelined,
-                valid_a=valid_a,
-                valid_b=valid_b,
-            )
-            dropped = tuple(torch.stack(
-                [stats.dropped_a, stats.dropped_b, stats.dropped_hot]).tolist())
-            run.drops.append(dropped)
-            # accumulate across retries: overwriting would hide the device
-            # work spent on failed attempts
-            partition_seconds += time.perf_counter() - attempt_t0
-            timer.set_partitioning_phase_duration(partition_seconds)
-            if any(dropped):
-                self._logger.info(
-                    "bucket overflow (a=%d b=%d hot=%d) at slack %.1f; retrying",
-                    *dropped, slack,
-                )
-                # grow the capacity that actually overflowed: doubling slack
-                # cannot fix a hot-replication overflow (hot_cap is separate)
-                if dropped[0] > 0 or dropped[1] > 0:
-                    slack *= 2
-                if dropped[2] > 0:
-                    hot_cap = hot_cap * 4 + dropped[2]
-                continue
-            del rp_a, rp_b, hp  # the count reads keys and masks only
-
+        def count_exchanged(exchanged, cap_a, cap_b):
+            rk_a, _, rv_a, rk_b, _, rv_b, is_hot_b, hk, _, hv, _ = exchanged
+            exchanged.clear()  # the count reads keys and masks only
+            use_hot = self._handle_skew
             if pipelined:
                 # B's buckets are exchanged chunk by chunk inside the probe
                 timer.set_build_phase_begin()
@@ -715,12 +758,17 @@ class DistributedShuffleJoiner:
                     hot_keys, hot_valid, hk, hv, use_hot,
                 ))
                 timer.set_probe_phase_end()
-            self._logger.info("Number of joined tuples: %d", count)
-            self._logger.info("Shuffle run: %s", run)
             return count
-        raise RuntimeError(
-            f"shuffle buckets overflowed after {self._max_retries} retries"
+
+        count = self._exchange_with_retries(
+            table_a.keys, table_a.payloads, table_b.keys, table_b.payloads,
+            hot_keys, hot_valid, valid_a, valid_b, run, count_exchanged,
+            "shuffle buckets", timer=timer,
+            cap_b_multiple=self._pipeline_chunks, exchange_b=not pipelined,
         )
+        self._logger.info("Number of joined tuples: %d", count)
+        self._logger.info("Shuffle run: %s", run)
+        return count
 
     def _run_single_shard(self, table_a, table_b, timer, valid_a, valid_b) -> int:
         """The S = 1 fast path: int32 keys through the two-run count (K1),

@@ -14,7 +14,9 @@ with probe keys uniform over [1, 2·N] (half miss: the compaction runs),
 and the hash GROUP BY (``hash_aggregate``, ``filter_aggregate``) of the
 pipeline's probe rows, and the shuffle join over 2 and 8 shards on the one
 card (``parallel/shuffle.py``: sort-merge local joins, at 8 shards also
-without skew handling and with hash local joins),
+without skew handling and with hash local joins), and the distributed
+operators over 8 shards of the card on the pipeline's relations (the GROUP
+BY of the probe rows, the join → GROUP BY and the inner materializing join),
 two untimed joins and then five joins
 under ``torch.profiler`` (CPU and CUDA activities).  Per join it prints the
 device time of each kernel (the CUDA events summed by name), the device
@@ -82,6 +84,15 @@ def _paths():
     from partitionedhashjoin_tpu_torch.ops.planner import PlannedJoiner
     from partitionedhashjoin_tpu_torch.ops.radix_cluster import RadixHashJoiner
     from partitionedhashjoin_tpu_torch.parallel import mesh as pm
+    from partitionedhashjoin_tpu_torch.parallel.aggregate_shuffle import (
+        DistributedAggregateOperator,
+    )
+    from partitionedhashjoin_tpu_torch.parallel.join_aggregate import (
+        DistributedJoinAggregateOperator,
+    )
+    from partitionedhashjoin_tpu_torch.parallel.materialize_shuffle import (
+        DistributedMaterializeJoiner,
+    )
     from partitionedhashjoin_tpu_torch.parallel.shuffle import DistributedShuffleJoiner
 
     def joiner(cls, *args):
@@ -102,6 +113,20 @@ def _paths():
     def filtered_hash_groups(a, b):
         return int(aggregate.filter_aggregate(
             b, lambda k, p: p % 2 == 0, seed=SEED)[0].num_groups)
+
+    mesh8 = pm.make_mesh(8)
+    groups = bench_pipeline.GROUP_CAPACITY
+
+    def dist_aggregate(a, b):
+        return int(DistributedAggregateOperator(mesh8, seed=SEED).run(
+            b, group_capacity=groups).num_groups)
+
+    def dist_join_aggregate(a, b):
+        return int(DistributedJoinAggregateOperator(mesh8, seed=SEED).run(
+            a, b, group_capacity=groups).num_groups)
+
+    def dist_materialize(a, b):
+        return int(DistributedMaterializeJoiner(mesh8, seed=SEED).run(a, b).count)
 
     def pipeline(a, b):
         return int(bench_pipeline.run_query(
@@ -129,6 +154,9 @@ def _paths():
         ("pipeline (ordered)", "query", pipeline),
         ("hash_aggregate (probe rows)", "query", hash_groups),
         ("filter_aggregate (payload % 2 == 0)", "query", filtered_hash_groups),
+        ("distributed aggregate, 8 shards", "query", dist_aggregate),
+        ("distributed join -> GROUP BY, 8 shards", "query", dist_join_aggregate),
+        ("distributed materialize (inner), 8 shards", "query", dist_materialize),
         ("two_run_materialize (half miss)", "half miss", materialize),
     )
 

@@ -3,7 +3,7 @@
 Counterpart of ``partitionedhashjoin_tpu/query.py``: logical plans built with
 a fluent API, a rule-based physical planner, EXPLAIN output, and execution
 on one device (the tables' device: the card, or the CPU where the caller put
-its tables there).
+its tables there) or on a mesh of shards (``parallel/mesh.py``, R6).
 
     from partitionedhashjoin_tpu_torch.query import scan
 
@@ -34,8 +34,16 @@ Physical rewrite rules, with the JAX package's tags:
       ``lax.top_k``.
   R5  filter → GROUP BY compacts the survivors first (K5), so the
       aggregate's sort touches only them (``filter_sort_aggregate_staged``).
-  R6  execution on a device mesh: not yet ported (ROADMAP Queue 1 item 6b);
-      every ``mesh=`` raises ``PlanError``.
+  R6  the same logical plan executes on a mesh of shards
+      (``parallel.mesh.make_mesh``): GROUP BY maps to the combiner-plan
+      distributed aggregate (with_distinct to the row-exchange plan), count
+      joins to the shuffle join (K1, owners on K7), materializing joins
+      (inner/semi/anti/left) to the distributed materializer, ORDER BY …
+      LIMIT to the (mask-aware) distributed top-k, and JOIN → GROUP BY to
+      the one-shuffle join-aggregate (the join exchange co-partitions the
+      groups).  Filters push into the exchange bucketizer everywhere, so
+      invalid rows never travel.  Other shapes raise ``PlanError`` with the
+      JAX package's words.
   R7  filtered JOIN → GROUP BY composes R5 with R3: K5 compacts the
       filtered probe, invalid build rows re-key to INT32_MIN (no surviving
       probe row holds it), and the kernel pipeline runs on the survivors;
@@ -59,12 +67,15 @@ from typing import Callable, Optional
 import torch
 
 from partitionedhashjoin_tpu_torch.data.table import JoinedTable, Table, make_table
+from partitionedhashjoin_tpu_torch.ops.order_by import _top_k_indices, _valid_first_order
 
 Predicate = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 
 _JOIN_TYPES = ("inner", "semi", "anti", "left", "full")
 _I32_MAX = 2**31 - 1
 _I32_MIN = -(2**31)
+#: the seed of every distributed operator R6 runs, as in the JAX package
+_MESH_SEED = 0x5EED
 
 
 class PlanError(ValueError):
@@ -303,8 +314,8 @@ class Query:
     def execute(self, mesh=None):
         """Run the plan.  Returns a ``GroupByResult`` for group-stage
         plans, a ``JoinedTable`` for a bare join, else a ``TableResult``.
-        ``mesh`` (R6) is not yet ported (ROADMAP Queue 1 item 6b) and
-        raises ``PlanError``."""
+        ``mesh``: execute on a ``parallel.mesh.Mesh`` through the
+        distributed operators (R6)."""
         plan = _compile(self._node, _Ctx.make(mesh))
         return plan.run()
 
@@ -336,10 +347,9 @@ class Query:
     def explain(self, mesh=None) -> str:
         """The physical plan as text, one operator per line, with the
         rewrite rule each line rides (R1-R7 in the module docstring)."""
-        plan = _compile(self._node, _Ctx.make(mesh))
-        return "\n".join(
-            ["physical plan [single device]"] + [f"  {s}" for s in plan.steps]
-        )
+        ctx = _Ctx.make(mesh)
+        plan = _compile(self._node, ctx)
+        return "\n".join([ctx.header()] + [f"  {s}" for s in plan.steps])
 
 
 def scan(table: Table) -> Query:
@@ -355,18 +365,28 @@ def scan(table: Table) -> Query:
 
 @dataclasses.dataclass
 class _Ctx:
-    """Planning context.  The JAX package's carries its mesh and the
-    interpret flag; the port runs on one device and has no interpret mode,
-    so it carries nothing yet."""
+    """Planning context: the mesh of R6, or None for one device.  The JAX
+    package's also carries the interpret flag, which the port has no use
+    for."""
+
+    mesh: object = None
 
     @classmethod
     def make(cls, mesh=None) -> "_Ctx":
-        if mesh is not None:
+        from partitionedhashjoin_tpu_torch.parallel.mesh import Mesh
+
+        if mesh is not None and not isinstance(mesh, Mesh):
             raise PlanError(
-                "mesh execution (R6) is not yet ported (ROADMAP Queue 1 "
-                "item 6b); run the plan on one device"
+                "mesh must be a parallel.mesh.Mesh (make_mesh), not "
+                f"{type(mesh).__name__}"
             )
-        return cls()
+        return cls(mesh=mesh)
+
+    def header(self) -> str:
+        """EXPLAIN's first line."""
+        if self.mesh is None:
+            return "physical plan [single device]"
+        return f"physical plan [mesh S={self.mesh.size}]"
 
 
 @dataclasses.dataclass
@@ -426,9 +446,10 @@ def _join_is_plain(node: _Join) -> bool:
     return isinstance(node.probe, _Scan) and isinstance(node.build, _Scan)
 
 
-def _side_is_scan(node) -> bool:
-    """True when a join side is a scan or a filter chain over a scan (its
-    shapes unchanged, so it compiles to columns and a validity mask)."""
+def _mesh_side_ok(node) -> bool:
+    """True when a join side is a scan or a filter chain over a scan: its
+    shapes unchanged, so it compiles to columns and a validity mask, and on
+    a mesh the mask pushes down into the distributed exchange (R6)."""
     while isinstance(node, _Filter):
         node = node.child
     return isinstance(node, _Scan)
@@ -436,6 +457,8 @@ def _side_is_scan(node) -> bool:
 
 def _exec_join_rows(node: _Join, ctx: _Ctx, steps: list):
     """Join whose output rows flow onward (or are the result)."""
+    if ctx.mesh is not None:
+        return _exec_join_rows_mesh(node, ctx, steps)
     build, probe = _exec_join_sides(node, ctx, steps)
     jt, carry = node.join_type, node.carry
     steps.append(
@@ -463,6 +486,47 @@ def _exec_join_rows(node: _Join, ctx: _Ctx, steps: list):
         return t
 
     return run
+
+
+def _exec_join_rows_mesh(node: _Join, ctx: _Ctx, steps: list):
+    """R6: the distributed materializer, filters pushed into its exchange."""
+    jt = node.join_type
+    if jt not in ("inner", "semi", "anti", "left") or not (
+        _mesh_side_ok(node.build) and _mesh_side_ok(node.probe)
+    ):
+        raise PlanError(
+            "mesh materializing joins support inner/semi/anti/left "
+            "over scan/filter sides (full needs a per-build-row "
+            "cross-shard reduction); compose others single-device"
+        )
+    build, probe = _exec_join_sides(node, ctx, steps)
+    carry = node.carry
+    steps.append(
+        f"join[{jt}] -> distributed materialize (exchange + per-shard "
+        "typed union join, gathered + compacted); filters pushed into "
+        "the bucketizer (R2, R6); carry=" + carry
+    )
+    mesh = ctx.mesh
+
+    def run_mesh():
+        from partitionedhashjoin_tpu_torch.parallel.materialize_shuffle import (
+            DistributedMaterializeJoiner,
+        )
+
+        b, p = build(), probe()
+        joined = DistributedMaterializeJoiner(mesh, seed=_MESH_SEED).run(
+            make_table(b.keys, b.pays),
+            make_table(p.keys, p.pays),
+            jt,
+            build_valid=b.effective_mask(),
+            probe_valid=p.effective_mask(),
+        )
+        pays = joined.payloads_b if carry == "probe" else joined.payloads_a
+        t = _T(joined.keys, pays, prefix_count=joined.count)
+        t.joined = joined
+        return t
+
+    return run_mesh
 
 
 def _compile(node, ctx: _Ctx) -> _Plan:
@@ -560,23 +624,17 @@ def _order_col_key(col, descending):
     return ~col if descending else col
 
 
-def _top_k_indices(x: torch.Tensor, k: int) -> torch.Tensor:
-    """Row indices of the ``k`` largest values of ``x``, largest first and,
-    among equal values, the lower row first (``lax.top_k``'s order, which
-    ``torch.topk`` does not promise).  ``torch.topk`` finds the k-th value;
-    every row above it and the first rows at it (``nonzero`` keeps row
-    order) make exactly k rows, which one stable k-row sort orders."""
-    if k <= 0:
-        return torch.zeros((0,), dtype=torch.int64, device=x.device)
-    kth = torch.topk(x, k, sorted=True).values[k - 1]
-    above = x > kth
-    at = x == kth
-    take = above | (at & (torch.cumsum(at, 0) <= k - above.sum()))
-    idx = torch.nonzero(take).squeeze(1)
-    return idx[torch.sort(x[idx], descending=True, stable=True).indices]
-
-
 def _compile_table_tail(inner, core, order, limit_k, ctx, steps) -> _Plan:
+    if ctx.mesh is not None and isinstance(core, _Join):
+        # join tail: the distributed materializer already returns one
+        # prefix-compacted relation, so the local order/limit tail below
+        # applies to it unchanged (it reads t.prefix_count)
+        steps.append(
+            "join tail on mesh -> local order/limit over the gathered "
+            "replicated join output"
+        )
+    elif ctx.mesh is not None:
+        return _compile_table_tail_mesh(inner, core, order, limit_k, ctx, steps)
     if order is None:
         # LIMIT without ORDER BY: head of the (valid) rows
         steps.append(f"limit {limit_k} -> head slice (compact if filtered)")
@@ -654,6 +712,40 @@ def _compile_table_tail(inner, core, order, limit_k, ctx, steps) -> _Plan:
     return _Plan(steps, run_order)
 
 
+def _compile_table_tail_mesh(inner, core, order, limit_k, ctx, steps) -> _Plan:
+    """R6 for scan()[.filter()].order_by().limit(): the distributed top-k."""
+    if order is None or limit_k is None or not _mesh_side_ok(core):
+        raise PlanError(
+            "mesh table-stage plans support "
+            "scan()[.filter()].order_by().limit() (distributed "
+            "top-k); compose others single-device"
+        )
+    filtered = not isinstance(core, _Scan)
+    steps.append(
+        f"order_by {order.by} {'desc' if order.descending else 'asc'} "
+        f"+ limit {limit_k} -> distributed top-k "
+        + (
+            "(filter as validity mask, validity-dominant sort; "
+            if filtered else "(local top-k, "
+        )
+        + "all_gather S*k, replicated final) (R2, R4, R6)"
+    )
+    mesh = ctx.mesh
+
+    def run_mesh():
+        from partitionedhashjoin_tpu_torch.parallel.top_k import distributed_top_k
+
+        t = inner()
+        out, n_live = distributed_top_k(
+            mesh, make_table(t.keys, t.pays), limit_k,
+            by=order.by, descending=order.descending,
+            mask=t.effective_mask(),
+        )
+        return TableResult(out, n_live)
+
+    return _Plan(steps, run_mesh)
+
+
 def _scalar_aggregate(pays, mask, with_distinct) -> ScalarAggResult:
     """COUNT/SUM/MIN/MAX (and COUNT DISTINCT) of ``pays`` over ``mask``
     (None: every row).  SUM wraps in the payload dtype, as JAX's."""
@@ -685,15 +777,6 @@ def _scalar_aggregate(pays, mask, with_distinct) -> ScalarAggResult:
     return ScalarAggResult(cnt, s, mn, mx, d)
 
 
-def _valid_first_order(invalid: torch.Tensor, ordcol: torch.Tensor) -> torch.Tensor:
-    """The permutation that puts valid rows first, each part ascending by
-    ``ordcol``, equal values in row order: the order of the JAX package's
-    3-key sort on (invalid, ordcol, row), as two stable sorts."""
-    order = torch.sort(ordcol, stable=True).indices
-    flag = invalid.to(torch.int8)[order]
-    return order[torch.sort(flag, stable=True).indices]
-
-
 def _masked_order(t: _T, by: str, desc: bool):
     """Order valid rows to the front: the invalid flag is the leading sort
     key, so filtered rows can never interleave (exact over the full int
@@ -723,6 +806,9 @@ def _exec_group(node: _GroupBy, ctx: _Ctx, steps: list):
     child = node.child
     cap = node.group_capacity
     wd = node.with_distinct
+
+    if ctx.mesh is not None:
+        return _exec_group_mesh(node, ctx, steps)
 
     if isinstance(child, _Join):
         return _exec_join_group(child, node, ctx, steps)
@@ -787,6 +873,79 @@ def _exec_group(node: _GroupBy, ctx: _Ctx, steps: list):
         )
 
     return run_sort
+
+
+def _exec_group_mesh(node: _GroupBy, ctx: _Ctx, steps: list):
+    """R6: the one-shuffle join-aggregate under a join, else the distributed
+    aggregate (the combiner plan, or the row-exchange plan for COUNT
+    DISTINCT)."""
+    child = node.child
+    cap = node.group_capacity
+    wd = node.with_distinct
+    mesh = ctx.mesh
+    if wd and isinstance(child, _Join):
+        raise PlanError(
+            "mesh join->group_by(with_distinct) is not supported "
+            "(hot-key probe rows stay sharded, so their payload sets "
+            "never meet); compose it single-device"
+        )
+    if isinstance(child, _Join):
+        join = child
+        if (
+            join.join_type != "inner"
+            or not (_mesh_side_ok(join.build) and _mesh_side_ok(join.probe))
+            or join.carry != "probe"
+        ):
+            raise PlanError(
+                "mesh join->group_by supports an inner join over "
+                "scan/filter sides with carry='probe' (the join "
+                "exchange co-partitions the groups); compose others "
+                "single-device"
+            )
+        build, probe = _exec_join_sides(join, ctx, steps)
+        steps.append(
+            "join[inner] + group_by -> one shuffle: the join exchange "
+            "co-partitions the groups (filters pushed into the "
+            "bucketizer); partials matched per key, combiner merge "
+            "(R2, R3, R6)"
+        )
+
+        def run_mesh_join():
+            from partitionedhashjoin_tpu_torch.parallel.join_aggregate import (
+                DistributedJoinAggregateOperator,
+            )
+
+            b, p = build(), probe()
+            return DistributedJoinAggregateOperator(mesh, seed=_MESH_SEED).run(
+                make_table(b.keys, b.pays),
+                make_table(p.keys, p.pays),
+                group_capacity=cap,
+                build_valid=b.mask,
+                probe_valid=p.mask,
+            )
+
+        return run_mesh_join
+    inner = _exec_table(child, ctx, steps)
+    steps.append(
+        "group_by -> distributed row-exchange aggregate with exact "
+        "COUNT DISTINCT (payload sets meet at the owner shard) (R6)"
+        if wd else
+        "group_by -> distributed combiner-plan aggregate (local "
+        "sort-aggregate, hash-routed partials, psum-exact) (R6)"
+    )
+
+    def run_mesh():
+        from partitionedhashjoin_tpu_torch.parallel.aggregate_shuffle import (
+            DistributedAggregateOperator,
+        )
+
+        t = inner()
+        return DistributedAggregateOperator(mesh, seed=_MESH_SEED).run(
+            make_table(t.keys, t.pays), group_capacity=cap,
+            mask=t.mask, with_distinct=wd,
+        )
+
+    return run_mesh
 
 
 def _exec_join_group(join: _Join, gb: _GroupBy, ctx: _Ctx, steps: list):
@@ -870,8 +1029,8 @@ def _exec_join_group(join: _Join, gb: _GroupBy, ctx: _Ctx, steps: list):
 
     staged = (
         jt == "inner"
-        and _side_is_scan(join.build)
-        and _side_is_scan(join.probe)
+        and _mesh_side_ok(join.build)
+        and _mesh_side_ok(join.probe)
         and _kernel_ok(_scan_dtype(join.probe))
         and _kernel_ok(_scan_dtype(join.build))
     )
@@ -1095,8 +1254,45 @@ def _compile_count(node, ctx: _Ctx) -> _Plan:
     return _Plan(steps, lambda: torch.clamp(run(), max=k_limit))
 
 
+def _count_join_mesh(node: _Join, ctx: _Ctx, steps: list):
+    """R6: the shuffle join's count, filters pushed into its exchange."""
+    if node.join_type not in ("inner", "semi") or not (
+        _mesh_side_ok(node.build) and _mesh_side_ok(node.probe)
+    ):
+        raise PlanError(
+            "mesh join counts support inner/semi joins over "
+            "scan/filter sides (the shuffle join); compose others "
+            "single-device"
+        )
+    build, probe = _exec_join_sides(node, ctx, steps)
+    steps.append(
+        "count join[inner] -> distributed shuffle join "
+        "(all_to_all exchange, hot-key replication, filters pushed "
+        "into the bucketizer, psum count) (R1, R2, R6)"
+    )
+    mesh = ctx.mesh
+
+    def run_mesh():
+        from partitionedhashjoin_tpu_torch.parallel.shuffle import (
+            DistributedShuffleJoiner,
+        )
+
+        b, p = build(), probe()
+        count = DistributedShuffleJoiner(mesh, seed=_MESH_SEED).run(
+            make_table(b.keys, b.pays),
+            make_table(p.keys, p.pays),
+            valid_a=b.effective_mask(),
+            valid_b=p.effective_mask(),
+        )
+        return torch.tensor(count, dtype=torch.int64, device=mesh.device)
+
+    return run_mesh
+
+
 def _count_join(node: _Join, ctx: _Ctx, steps: list):
     jt = node.join_type
+    if ctx.mesh is not None:
+        return _count_join_mesh(node, ctx, steps)
     build, probe = _exec_join_sides(node, ctx, steps)
     steps.append(
         f"count join[{jt}] -> count kernel with validity masks, "

@@ -64,9 +64,11 @@ Semantics notes:
   module; a LIMIT 0 result's columns are int32 (avg float32) whatever the
   relations' dtypes, as in the JAX module.
 
-``mesh=`` (execution over a mesh of shards, R6) is not yet ported (ROADMAP
-Queue 1 item 6b) and raises ``SqlError``.  Run
-``python -m partitionedhashjoin_tpu_torch.sql`` for the shell (``main``).
+``mesh=`` executes over a mesh of shards (``parallel.mesh.make_mesh``,
+query.py R6); plan shapes R6 does not take raise ``SqlError`` with the JAX
+package's words.  Run ``python -m partitionedhashjoin_tpu_torch.sql`` for the
+shell (``main``); its ``--mesh S`` puts S shards on the ``--platform``
+device, where the JAX shell asks for S devices.
 """
 
 from __future__ import annotations
@@ -1096,10 +1098,9 @@ def _plan_lines(stmt: _Stmt, tables, mesh, group_capacity) -> list:
         if project == "count":
             # show the COUNT plan (R1 kernels), not the row plan the same
             # Query would materialize
-            plan = _compile_count(q._node, _Ctx.make(mesh))
-            return ["physical plan [single device]"] + [
-                f"  {s}" for s in plan.steps
-            ]
+            ctx = _Ctx.make(mesh)
+            plan = _compile_count(q._node, ctx)
+            return [ctx.header()] + [f"  {s}" for s in plan.steps]
         lines = q.explain(mesh=mesh).splitlines()
         if isinstance(project, tuple) and project[0] == "scalar":
             lines.append(
@@ -1131,9 +1132,8 @@ def execute_sql(
     group_capacity=None,
 ) -> SqlResult:
     """Parse, plan, and run a statement on the tables' device.  ``tables``
-    maps FROM/JOIN names to relations; ``mesh`` (query.py R6) is not yet
-    ported and raises;
-    ``group_capacity`` bounds the GROUP BY table (a physical knob SQL has
+    maps FROM/JOIN names to relations; ``mesh`` executes on a mesh of
+    shards (query.py R6); ``group_capacity`` bounds the GROUP BY table (a physical knob SQL has
     no syntax for — defaults to the aggregate's own sizing).
     ``EXPLAIN SELECT ...`` returns the physical plan as a one-column
     ``plan`` result (one line per operator) without executing anything.
@@ -1228,7 +1228,7 @@ def main(argv=None) -> int:
     )
     ap.add_argument(
         "--mesh", type=int, default=0, metavar="S",
-        help="execute over an S-device mesh (not yet ported)",
+        help="execute over a mesh of S shards, all on the --platform device",
     )
     ap.add_argument(
         "--explain", action="store_true",
@@ -1240,8 +1240,6 @@ def main(argv=None) -> int:
     )
     ap.add_argument("sql", help="the statement")
     ns = ap.parse_args(argv)
-    if ns.mesh:
-        ap.error("--mesh is not yet ported (ROADMAP)")
     device = resolve_device(ns.platform)
 
     tables = {}
@@ -1251,11 +1249,17 @@ def main(argv=None) -> int:
             ap.error(f"--table takes NAME=SPEC, got {item!r}")
         tables[name] = _parse_table_spec(spec, device)
 
+    mesh = None
+    if ns.mesh:
+        from partitionedhashjoin_tpu_torch.parallel.mesh import make_mesh
+
+        mesh = make_mesh(ns.mesh, devices=[device])
+
     if ns.explain:
-        print(explain_sql(ns.sql, tables))
+        print(explain_sql(ns.sql, tables, mesh=mesh))
         return 0
 
-    r = execute_sql(ns.sql, tables)
+    r = execute_sql(ns.sql, tables, mesh=mesh)
     names = list(r.columns)
     print("\t".join(names))
     shown = min(r.row_count, ns.max_rows)

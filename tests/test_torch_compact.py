@@ -149,3 +149,40 @@ def test_compact_plain_keeps_column_dtypes():
     np.testing.assert_array_equal(w[:c].numpy(), wide[keep])
     np.testing.assert_array_equal(r[:c].numpy(), real[keep])
     assert not w[c:].any() and not r[c:].any()
+
+
+def _any_dtype_columns(rng, n):
+    """One column of each element width, float specials included: eight
+    int32 lanes, more than one launch carries."""
+    real = rng.standard_normal(n)
+    real[:3] = [np.nan, -0.0, np.inf][:n]
+    return [
+        rng.integers(-(2**62), 2**62, n, dtype=np.int64),
+        real,
+        real.astype(np.float16),
+        rng.integers(-(2**15), 2**15, n, dtype=np.int64).astype(np.int16),
+        rng.random(n) < 0.5,
+        rng.integers(0, 256, n, dtype=np.int64).astype(np.uint8),
+        rng.integers(-(2**31), 2**31, n, dtype=np.int64).astype(np.int32),
+    ]
+
+
+@pytest.mark.parametrize("n,out_len", [(5000, 5000), (5000, 100), (0, 4)])
+def test_compact_any_carries_every_dtype_bit_for_bit(n, out_len):
+    """``compact_any`` (``filter.compact`` and the hash materializer's
+    gather): each column split into int32 lanes and rebuilt in its dtype,
+    the same bits as numpy's selection, zeros after the kept rows."""
+    rng = np.random.default_rng(n + out_len)
+    keep = rng.random(n) < 0.4
+    cols = _any_dtype_columns(rng, n)
+    count, pos, *outs = kc.compact_any(
+        torch.from_numpy(keep), [torch.from_numpy(c) for c in cols], out_len)
+    live = min(int(keep.sum()), out_len)
+    assert int(count) == keep.sum() and pos.shape == (out_len,)
+    np.testing.assert_array_equal(pos[:live].numpy(), np.flatnonzero(keep)[:live])
+    assert sum(len(kc._i32_lanes(torch.from_numpy(c))) for c in cols) > kc.MAX_COLS
+    for col, out in zip(cols, outs):
+        got = out.numpy()
+        assert got.dtype == col.dtype and got.shape == (out_len,)
+        assert got[:live].tobytes() == col[keep][:live].tobytes()
+        assert not got[live:].view(np.uint8).any()

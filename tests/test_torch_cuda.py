@@ -1129,6 +1129,39 @@ def test_run_materialize_payload_dtypes_on_card(cuda, dtype):
         assert g.dtype == w.dtype and torch.equal(g.view(torch.uint8), w.view(torch.uint8)), f
 
 
+@pytest.mark.parametrize("join_type,masked", [
+    ("inner", False), ("anti", False), ("full", False), ("left", True), ("full", True),
+])
+@pytest.mark.parametrize("dtype_a,dtype_b", [
+    (torch.int64, torch.float16), (torch.float16, torch.int64),
+    (torch.float64, torch.int16),
+])
+def test_materialize_typed_payload_dtypes_on_card(cuda, dtype_a, dtype_b, join_type,
+                                                  masked):
+    """The typed materializer's compaction runs K5 on the card for payloads
+    of any dtype (each as int32 lanes), bit for bit the CPU port's."""
+    a, b = _hash_relations(5)
+    gen = torch.Generator().manual_seed(8)
+
+    def payloads(n, dtype):
+        x = torch.randint(-2**31, 2**31 - 1, (n,), dtype=torch.int64, generator=gen)
+        return (x.to(torch.float64) / 7).to(dtype) if dtype.is_floating_point else x.to(dtype)
+
+    pa, pb = payloads(a.numel(), dtype_a), payloads(b.numel(), dtype_b)
+    pv = (b % 3 != 0) if masked else None
+    before = kc.LAUNCHES
+    got = sort_merge.sort_merge_materialize_typed(
+        a.to(cuda), pa.to(cuda), b.to(cuda), pb.to(cuda), join_type,
+        probe_valid=None if pv is None else pv.to(cuda))
+    launched = kc.LAUNCHES - before
+    want = sort_merge.sort_merge_materialize_typed(a, pa, b, pb, join_type,
+                                                   probe_valid=pv)
+    assert launched >= 1 and int(got[-1]) == int(want[-1]) > 0
+    for g, w in zip(got[:-1], want[:-1]):
+        g = g.cpu()
+        assert g.dtype == w.dtype and torch.equal(g.view(torch.uint8), w.view(torch.uint8))
+
+
 def _shuffle_relations(n_a=1 << 20, n_b=1 << 23):
     """A sequential build and a Zipf(1.05) probe over it, and uniform keys
     with duplicate build keys over a wider range."""
@@ -1191,3 +1224,145 @@ def test_shuffle_options_on_card(cuda):
     k3 = mp.LAUNCHES_I64
     assert DistributedShuffleJoiner(mesh1, seed=12).run(a64, b64) == tb.size
     assert mp.LAUNCHES_I64 == k3 + 1
+
+
+def _dist_relations(cuda, n_a=1 << 18, n_b=1 << 21):
+    """The Zipf relations of ``_shuffle_relations`` at 256K ⋈ 2M with
+    payloads (build: key ^ 0x5A17; probe: uniform in [0, 2^20)), on the CPU
+    and on the card."""
+    ta, tb = _shuffle_relations(n_a, n_b)["zipf"]
+    gen = torch.Generator().manual_seed(15)
+    cpu = (make_table(ta.keys, ta.keys ^ 0x5A17),
+           make_table(tb.keys, torch.randint(0, 1 << 20, (n_b,), dtype=torch.int32,
+                                             generator=gen)))
+    return cpu, tuple(make_table(t.keys.to(cuda), t.payloads.to(cuda)) for t in cpu)
+
+
+def _meshes(cuda, s=8):
+    from partitionedhashjoin_tpu_torch.parallel import mesh as pm
+
+    return pm.make_mesh(s, devices=["cpu"]), pm.make_mesh(s, devices=[cuda])
+
+
+def _assert_groups_equal(got, want):
+    n = int(want.num_groups)
+    assert int(got.num_groups) == n > 0
+    for f in ("keys", "count", "sum", "min", "max", "distinct"):
+        w = getattr(want, f)
+        if w is not None:
+            assert torch.equal(getattr(got, f).cpu(), w), f
+
+
+def test_dist_aggregate_on_card_equals_cpu(cuda):
+    """The combiner plan, masked, and the distinct plan: every field equal
+    to the same operator on 8 CPU shards; K7 routes, K5 compacts."""
+    from partitionedhashjoin_tpu_torch.parallel.aggregate_shuffle import (
+        DistributedAggregateOperator,
+    )
+
+    (_, cpu), (_, gpu) = _dist_relations(cuda)
+    mesh_cpu, mesh_gpu = _meshes(cuda)
+    mask = cpu.payloads % 2 == 0
+    for kw in ({}, {"mask": mask}, {"with_distinct": True, "mask": mask}):
+        k5, k7 = kc.LAUNCHES, gen.LAUNCHES_HASH
+        got = DistributedAggregateOperator(mesh_gpu, seed=3).run(
+            gpu, group_capacity=1 << 18,
+            **{k: v.to(cuda) if torch.is_tensor(v) else v for k, v in kw.items()})
+        assert kc.LAUNCHES > k5 and gen.LAUNCHES_HASH > k7
+        want = DistributedAggregateOperator(mesh_cpu, seed=3).run(
+            cpu, group_capacity=1 << 18, **kw)
+        _assert_groups_equal(got, want)
+
+
+def test_dist_top_k_on_card_equals_cpu(cuda):
+    from partitionedhashjoin_tpu_torch.parallel.top_k import distributed_top_k
+
+    (_, cpu), (_, gpu) = _dist_relations(cuda)
+    mesh_cpu, mesh_gpu = _meshes(cuda)
+    mask = cpu.payloads % 3 == 0
+    for by in ("key", "payload"):
+        for m in (None, mask):
+            got, live = distributed_top_k(mesh_gpu, gpu, 10, by=by,
+                                          mask=None if m is None else m.to(cuda))
+            want, want_live = distributed_top_k(mesh_cpu, cpu, 10, by=by, mask=m)
+            assert int(live) == int(want_live) == 10
+            assert torch.equal(got.keys.cpu(), want.keys)
+            assert torch.equal(got.payloads.cpu(), want.payloads)
+
+
+@pytest.mark.parametrize("handle_skew", [True, False])
+def test_join_aggregate_on_card_equals_cpu(cuda, handle_skew):
+    from partitionedhashjoin_tpu_torch.parallel.join_aggregate import (
+        DistributedJoinAggregateOperator,
+    )
+
+    cpu, gpu = _dist_relations(cuda)
+    mesh_cpu, mesh_gpu = _meshes(cuda)
+    k5, k7 = kc.LAUNCHES, gen.LAUNCHES_HASH
+    got = DistributedJoinAggregateOperator(mesh_gpu, seed=5, handle_skew=handle_skew).run(
+        *gpu, group_capacity=1 << 18)
+    assert kc.LAUNCHES > k5 and gen.LAUNCHES_HASH > k7
+    want = DistributedJoinAggregateOperator(mesh_cpu, seed=5, handle_skew=handle_skew).run(
+        *cpu, group_capacity=1 << 18)
+    _assert_groups_equal(got, want)
+
+
+@pytest.mark.parametrize("join_type", ["inner", "semi", "anti", "left"])
+def test_dist_materialize_on_card_equals_cpu(cuda, join_type):
+    """Rows in the same order as on the CPU shards; K5 compacts the gathered
+    pools once."""
+    from partitionedhashjoin_tpu_torch.parallel.materialize_shuffle import (
+        DistributedMaterializeJoiner,
+    )
+
+    cpu, gpu = _dist_relations(cuda, 1 << 16, 1 << 19)
+    mesh_cpu, mesh_gpu = _meshes(cuda)
+    # a build mask leaves probe rows unmatched, so anti has rows too
+    va, vb = cpu[0].keys % 5 != 0, cpu[1].payloads % 3 != 0
+    k5 = kc.LAUNCHES
+    got = DistributedMaterializeJoiner(mesh_gpu, seed=7).run(
+        *gpu, join_type, build_valid=va.to(cuda), probe_valid=vb.to(cuda))
+    assert kc.LAUNCHES > k5
+    want = DistributedMaterializeJoiner(mesh_cpu, seed=7).run(
+        *cpu, join_type, build_valid=va, probe_valid=vb)
+    assert int(got.count) == int(want.count) > 0
+    for f in ("keys", "payloads_a", "payloads_b", "matched"):
+        assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
+
+
+def test_multi_key_shuffle_on_card_equals_cpu(cuda):
+    from partitionedhashjoin_tpu_torch.parallel.multi_key_shuffle import (
+        MultiKeyShuffleJoiner,
+    )
+
+    (ta, tb), _ = _dist_relations(cuda)
+    mesh_cpu, mesh_gpu = _meshes(cuda)
+    cols = [[t.keys, t.keys ^ 0x5A17] for t in (ta, tb)]
+    k7 = gen.LAUNCHES_HASH
+    got = MultiKeyShuffleJoiner(mesh_gpu, seed=11).run(
+        [c.to(cuda) for c in cols[0]], [c.to(cuda) for c in cols[1]])
+    assert gen.LAUNCHES_HASH > k7
+    assert got == MultiKeyShuffleJoiner(mesh_cpu, seed=11).run(*cols) == tb.size
+    wide = [t.keys.to(torch.int64) << 20 for t in (ta, tb)]
+    assert MultiKeyShuffleJoiner(mesh_gpu, seed=11).run_i64(
+        *(w.to(cuda) for w in wide)) == tb.size
+
+
+def test_r6_query_and_sql_on_card_equals_cpu(cuda):
+    """The pipeline statement and the count join over a mesh of 8 shards of
+    the card equal the same on 8 CPU shards; the count runs K1."""
+    from partitionedhashjoin_tpu_torch import sql as tsql
+
+    cpu, gpu = _dist_relations(cuda)
+    mesh_cpu, mesh_gpu = _meshes(cuda)
+    db_cpu, db_gpu = dict(zip("ab", cpu)), dict(zip("ab", gpu))
+    stmt = ("SELECT key, COUNT(*), SUM(b.payload), MIN(b.payload), MAX(b.payload) "
+            "FROM b JOIN a USING (key) GROUP BY key ORDER BY count DESC LIMIT 10")
+    got = tsql.execute_sql(stmt, db_gpu, mesh=mesh_gpu, group_capacity=1 << 18)
+    want = tsql.execute_sql(stmt, db_cpu, mesh=mesh_cpu, group_capacity=1 << 18)
+    for c in want.columns:
+        np.testing.assert_array_equal(got.columns[c], want.columns[c], err_msg=c)
+    k1 = mp.LAUNCHES
+    count = "SELECT COUNT(*) FROM b JOIN a USING (key)"
+    assert tsql.execute_sql(count, db_gpu, mesh=mesh_gpu).columns["count"][0] == cpu[1].size
+    assert mp.LAUNCHES == k1 + 8

@@ -18,7 +18,9 @@ for name in names:
 assert len(names) >= 12, names
 for needed in ("ops.hashing", "ops.hash_table", "ops.radix",
                "ops.kernels.bitonic_sort", "ops.kernels.generate", "query", "sql",
-               "parallel.mesh", "parallel.shuffle"):
+               "parallel.mesh", "parallel.shuffle", "parallel.aggregate_shuffle",
+               "parallel.top_k", "parallel.join_aggregate",
+               "parallel.materialize_shuffle", "parallel.multi_key_shuffle"):
     assert pkg.__name__ + "." + needed in names, needed
 leaked = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "partitionedhashjoin_tpu.")))
 print("LEAKED", leaked)

@@ -317,6 +317,12 @@ def test_top_k_indices_order_is_a_stable_descending_sort():
 
 
 def test_plan_errors_and_mesh_not_yet_ported():
+    """Bad plans raise ``PlanError``.  The mesh (R6) is ported: a bare scan
+    on a mesh of 8 CPU shards runs no distributed operator (as in JAX) and
+    gives the single-device results under EXPLAIN's mesh header, and a mesh
+    that is not a ``parallel.mesh.Mesh`` raises ``PlanError``."""
+    from partitionedhashjoin_tpu_torch.parallel.mesh import make_mesh
+
     (_, _), (ta, tb) = _tables_for("dup")
     q = tq.scan(tb)
     for bad in (lambda: tq.scan("nope"), lambda: q.join("nope"),
@@ -327,8 +333,15 @@ def test_plan_errors_and_mesh_not_yet_ported():
                 lambda: q.order_by("key").aggregate()):
         with pytest.raises(tq.PlanError):
             bad()
+    mesh = make_mesh(8, devices=["cpu"])
+    got, want = q.execute(mesh=mesh), q.execute()
+    assert torch.equal(got.table.keys, want.table.keys) and int(got.count) == int(want.count)
+    assert q.count(mesh=mesh) == q.count() == N_B
+    assert int(q.aggregate(mesh=mesh).sum) == int(q.aggregate().sum)
+    lines = q.explain(mesh=mesh).splitlines()
+    assert lines[0] == "physical plan [mesh S=8]" and lines[1:] == q.explain().splitlines()[1:]
     for run in (q.execute, q.count, q.aggregate, q.explain):
-        with pytest.raises(tq.PlanError, match="not yet ported"):
+        with pytest.raises(tq.PlanError, match="parallel.mesh.Mesh"):
             run(mesh=object())
 
 

@@ -277,9 +277,28 @@ def test_bad_statements_raise_the_same_sql_error(sql):
 
 
 def test_mesh_is_not_yet_ported():
+    """The mesh (R6) is ported: on 8 CPU shards a statement gives the
+    single-device result, its plan carries the mesh header, a plan shape R6
+    does not take raises JAX's ``SqlError``, and a mesh that is not a
+    ``parallel.mesh.Mesh`` raises ``SqlError``."""
+    from partitionedhashjoin_tpu.parallel.mesh import make_mesh as jax_make_mesh
+    from partitionedhashjoin_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(8, devices=["cpu"])
+    sql = "SELECT COUNT(*) FROM b"
+    got = tsql.execute_sql(sql, PORT_DB, mesh=mesh)
+    assert got.columns["count"].tolist() == tsql.execute_sql(sql, PORT_DB).columns[
+        "count"].tolist() == [400]
+    assert tsql.explain_sql(sql, PORT_DB, mesh=mesh).startswith("physical plan [mesh S=8]")
+    unsupported = "SELECT key, payload FROM b ORDER BY key"
+    with pytest.raises(jsql.SqlError) as want:
+        jsql.execute_sql(unsupported, JAX_DB, mesh=jax_make_mesh(8))
+    with pytest.raises(tsql.SqlError) as got:
+        tsql.execute_sql(unsupported, PORT_DB, mesh=mesh)
+    assert str(got.value) == str(want.value)
     for fn in (tsql.execute_sql, tsql.explain_sql):
-        with pytest.raises(tsql.SqlError, match="not yet ported"):
-            fn("SELECT COUNT(*) FROM b", PORT_DB, mesh=object())
+        with pytest.raises(tsql.SqlError, match="parallel.mesh.Mesh"):
+            fn(sql, PORT_DB, mesh=object())
 
 
 SHELL = ["--table", "a=sequential:60", "--table", "b=sequential:90:20",
@@ -311,10 +330,12 @@ def test_shell_reference_workload_counts_every_probe_row(capsys):
 
 
 def test_shell_refuses_unported_and_bad_arguments(capsys):
-    with pytest.raises(SystemExit) as exc:
+    # --mesh is ported: with no table b, both shells raise the same SqlError
+    with pytest.raises(jsql.SqlError) as want:
+        jsql.main(["--mesh", "2", "SELECT COUNT(*) FROM b"])
+    with pytest.raises(tsql.SqlError) as got:
         tsql.main(["--platform", "cpu", "--mesh", "2", "SELECT COUNT(*) FROM b"])
-    assert exc.value.code == 2
-    assert "--mesh is not yet ported (ROADMAP)" in capsys.readouterr().err
+    assert str(got.value) == str(want.value)
     with pytest.raises(SystemExit):
         tsql.main(["--platform", "cpu", "--table", "b", "SELECT COUNT(*) FROM b"])
     with pytest.raises(tsql.SqlError, match="unknown table spec"):
