@@ -189,9 +189,33 @@ and raises on the first failure:
              allocated bytes, exchange bytes, attempts with their overflow
              counters, retries and K1/K5/K7 launches.
 
+16. multiprocess — the shuffle join over 2 processes that share the card
+             (``torch.distributed``, gloo: NCCL refuses two ranks on one
+             device), after a check that the card's compute mode is not
+             Exclusive_Process: (a) ``python -m partitionedhashjoin_tpu_torch
+             --coordinator 127.0.0.1:<port> --num-processes 2 --process-id i
+             --join shuffle`` at the reference workload, with the default
+             shards (one per process) and with ``--shards 8``: process 0's
+             document has NumberOfProcesses 2 and NumberOfShards S, process 1
+             prints none, both log 200,000,000 matches and their K1/K7
+             launches; (b) ``python -m partitionedhashjoin_tpu_torch.dryrun
+             measure`` in 2 processes, each generating the CLI's relations
+             from the same seed and keeping its ``host_slice``, 4 shards each:
+             the sort-merge join counts 200,000,000 and its ``ShuffleRun``
+             equals phase 14's 8-shard run (drops per attempt, capacities,
+             hot keys); (c) the same processes with ``local_join="hash"`` and
+             ``pipeline_chunks=4`` (K1 once per chunk and local shard).  Per
+             process and step: host and device ms, the cross-process
+             collectives' ms (and the host copies' share) and bytes, peak
+             allocated bytes, the backend and K1/K7 launches; whether gloo
+             takes the card's tensors as they are.  A process that fails or
+             outlives its time limit fails the phase, and the other is
+             killed.
+
 Kernel launch counts are set to 0 just before each path of phases 4 to 15
-and read just after; a kernel's ``launches`` is the sum over the paths that
-run it.  Comparison launches in phase 3 are not counted.  The script prints
+and read just after; in phase 16 each process counts its own (the CLI from
+its start, the dry-run worker from just before each timed run) and prints
+them.  A kernel's ``launches`` is the sum over the paths that run it.  Comparison launches in phase 3 are not counted.  The script prints
 one JSON line describing the kernels and, last, the ``"ok"`` line.  Without a
 CUDA device, or outside the repository, it exits non-zero and prints no
 result.
@@ -2575,7 +2599,8 @@ def _shuffle_step(torch, launches, card_line, name, make, tables, want, kernels,
 
 def phase_shuffle(torch, device, launches, card_line):
     """Phase 14: the mesh and the shuffle join at 10M ⋈ 200M, every shard
-    on the one card; adds each path's launches."""
+    on the one card; adds each path's launches.  Returns the ``ShuffleRun``
+    of the 8-shard sort-merge library join."""
     from partitionedhashjoin_tpu_torch import cli
     from partitionedhashjoin_tpu_torch.data.table import make_table
     from partitionedhashjoin_tpu_torch.parallel import mesh as pm
@@ -2603,9 +2628,11 @@ def phase_shuffle(torch, device, launches, card_line):
     def joiner(s, **kw):
         return lambda: DistributedShuffleJoiner(meshes[s], seed=SEED, **kw)
 
+    runs = {}
     for s in SHUFFLE_SHARDS:
-        step(f"(a) S={s} sort-merge", joiner(s), on(s), N_SECONDARY,
-             ("k1",) if s == 1 else ("k1", "k7"))
+        made, _ = step(f"(a) S={s} sort-merge", joiner(s), on(s), N_SECONDARY,
+                       ("k1",) if s == 1 else ("k1", "k7"))
+        runs[s] = made.last_run
     wide = tuple(make_table(t.keys.to(torch.int64), t.payloads) for t in (table_a, table_b))
     step("(a) S=1 int64 keys", joiner(1), on(1, *wide), N_SECONDARY, ("k3",))
     del wide
@@ -2625,6 +2652,7 @@ def phase_shuffle(torch, device, launches, card_line):
          ("k1", "k7"), valid={"valid_a": pm.shard_array(valid_a, meshes[8]),
                               "valid_b": pm.shard_array(valid_b, meshes[8])})
     log(f"[shuffle] (d) masked oracle: {want:,} valid probe rows with a valid build key")
+    return runs[8]
 
 
 # ---------------------------------------------------------------- dist
@@ -2902,6 +2930,169 @@ def phase_dist(torch, device, launches, card_line, rel):
         "generation, count)")
 
 
+
+# ---------------------------------------------------------------- multi-process
+
+#: Runs the CLI module as ``python -m`` does (``runpy``), then prints the
+#: K1 and K7 launch counts of its process to stderr.
+_CLI_WITH_COUNTS = (
+    "import json, runpy, sys\n"
+    "from partitionedhashjoin_tpu_torch.ops.kernels import generate as kg\n"
+    "from partitionedhashjoin_tpu_torch.ops.kernels import merge_probe as mp\n"
+    "try:\n"
+    "    runpy.run_module('partitionedhashjoin_tpu_torch', run_name='__main__',"
+    " alter_sys=True)\n"
+    "finally:\n"
+    "    print('launches ' + json.dumps({'k1': mp.LAUNCHES, 'k7': kg.LAUNCHES_HASH}),"
+    " file=sys.stderr)\n"
+)
+#: Processes of phase 16, all on the one card.
+MP_PROCESSES = 2
+#: The fields of a ``ShuffleRun`` that one process and several must share.
+RUN_FIELDS = ("num_shards", "drops", "cap_a", "cap_b", "hot_cap", "hot_keys")
+
+
+def _process_launches(name, err):
+    """The ``launches`` line that a process printed last on stderr."""
+    lines = [line for line in err.splitlines() if line.startswith("launches ")]
+    _check(name, bool(lines), "no launches line on stderr")
+    return json.loads(lines[-1].removeprefix("launches "))
+
+
+def _mp_cli(torch, launches, card_line, shards, repo):
+    """(a) of phase 16: the CLI as MP_PROCESSES processes at ``shards``."""
+    from partitionedhashjoin_tpu_torch import dryrun
+
+    argv = ["--coordinator", dryrun.free_coordinator(),
+            "--num-processes", str(MP_PROCESSES), "--join", "shuffle",
+            "--primary", str(N_PRIMARY), "--secondary", str(N_SECONDARY),
+            "--skew", str(SKEW), "--seed", str(SEED), "--output", "stdout",
+            "--platform", "cuda"]
+    if shards is not None:
+        argv += ["--shards", str(shards)]
+    s = MP_PROCESSES if shards is None else shards
+    name = f"multiprocess (a) CLI S={s}"
+    t0 = time.perf_counter()
+    results = dryrun.run_processes(
+        [[sys.executable, "-c", _CLI_WITH_COUNTS, *argv, "--process-id", str(i)]
+         for i in range(MP_PROCESSES)], 900, cwd=repo)
+    wall_s = time.perf_counter() - t0
+    want = {"PrimaryRelationSize": str(N_PRIMARY),
+            "SecondaryRelationSize": str(N_SECONDARY), "Skew": f"{SKEW:.6f}",
+            "Type": "DistributedShuffle", "NumberOfShards": str(s),
+            "NumberOfProcesses": str(MP_PROCESSES)}
+    doc = json.loads(results[0][1])
+    _check(name, doc.get("id") == "hashjointimingresult" and doc["parameters"] == want
+           and set(doc["results"]) == {"partition", "build", "probe"}, str(doc))
+    for pid, (_, out, err) in enumerate(results):
+        if pid:
+            _check(name, out == "", f"process {pid} printed {out!r}")
+        _check(name, f"Join produced {N_SECONDARY} matches" in err,
+               f"process {pid}: no count of {N_SECONDARY:,} in its log")
+        counts = _process_launches(name, err)
+        for k in ("k1", "k7"):
+            _check(name, counts[k] > 0, f"process {pid}: {k} was never launched")
+            launches[k] += counts[k]
+        for line in err.splitlines():
+            if "backend" in line or "Shuffle run" in line:
+                log(f"[multiprocess] (a) S={s} process {pid}: {line.strip()}")
+        log(f"[multiprocess] (a) S={s} process {pid}: launches {counts}")
+    res = doc["results"]
+    log(f"[multiprocess] (a) S={s}: result {json.dumps(doc, sort_keys=True)}")
+    log(f"[time multiprocess] {card_line}: (a) python -m {PKG} --coordinator ... "
+        f"--num-processes {MP_PROCESSES} --join shuffle --shards {s}: both processes "
+        f"count {N_SECONDARY:,}, only process 0 renders; phases partition "
+        f"{res['partition']} / build {res['build']} / probe {res['probe']} ms; "
+        f"{wall_s:.3f} s wall (startup, generation, warmup, timed run)")
+
+
+def phase_multiprocess(torch, launches, card_line, one_process_run):
+    """Phase 16: the shuffle join over MP_PROCESSES processes on the one
+    card (gloo); adds each path's launches, read inside the processes."""
+    import os
+
+    from partitionedhashjoin_tpu_torch import dryrun
+
+    mode = subprocess.run(
+        ["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    log(f"[multiprocess] compute mode {mode}")
+    _check("multiprocess", "Exclusive_Process" not in mode,
+           f"the card is in compute mode {mode}: {MP_PROCESSES} processes cannot "
+           "share it")
+    torch.cuda.empty_cache()
+    repo = os.path.dirname(os.path.abspath(__file__))
+    for shards in (None, 8):
+        _mp_cli(torch, launches, card_line, shards, repo)
+
+    # (b), (c): the library at S = 8 through the dry-run worker
+    coord = dryrun.free_coordinator()
+    t0 = time.perf_counter()
+    results = dryrun.run_processes(
+        [[sys.executable, "-m", f"{PKG}.dryrun", "measure", coord, str(MP_PROCESSES),
+          str(i), "--platform", "cuda", "--shards", "8", "--primary", str(N_PRIMARY),
+          "--secondary", str(N_SECONDARY), "--skew", str(SKEW), "--seed", str(SEED)]
+         for i in range(MP_PROCESSES)], 900, cwd=repo)
+    wall_s = time.perf_counter() - t0
+    steps = {}
+    for pid, (_, out, err) in enumerate(results):
+        _check("multiprocess (b)", f"MP_OK pid={pid}" in out, f"process {pid}: {out}")
+        for line in err.splitlines():
+            if "backend" in line:
+                log(f"[multiprocess] (b) process {pid}: {line.strip()}")
+        for line in out.splitlines():
+            if line.startswith("MP_STEP "):
+                rec = json.loads(line.removeprefix("MP_STEP "))
+                steps.setdefault(rec["step"], []).append(rec)
+    _check("multiprocess (b)", set(steps) == {n for n, _ in dryrun.MEASURE_STEPS}
+           and all(len(r) == MP_PROCESSES for r in steps.values()), str(list(steps)))
+    want_run = {f: getattr(one_process_run, f) for f in RUN_FIELDS}
+    want_run["drops"] = [list(d) for d in want_run["drops"]]
+    for name, recs in steps.items():
+        tag = "(b)" if name == "sort-merge" else "(c)"
+        must = ("k7",) if name == "local_join=hash" else ("k1", "k7")
+        for rec in recs:
+            what = f"multiprocess {tag} {name} process {rec['pid']}"
+            _check(what, rec["count"] == N_SECONDARY, f"count {rec['count']:,}")
+            _check(what, rec["backend"] == "gloo", f"backend {rec['backend']}")
+            _check(what, rec["run"] == recs[0]["run"], "the processes' runs differ")
+            for k in must:
+                _check(what, rec["launches"][k] > 0, f"{k} was never launched")
+            if name == "pipeline_chunks=4":
+                _check(what, rec["launches"]["k1"] == 4 * 8 // MP_PROCESSES,
+                       f"k1 launched {rec['launches']['k1']} times")
+            exchanged = rec["comm_sent"].get("all_to_all", 0)
+            _check(what, len(rec["run"]["drops"]) > 1
+                   or exchanged == rec["run"]["cross_process_bytes"],
+                   f"all_to_all sent {exchanged:,} B, the exchange's count "
+                   f"{rec['run']['cross_process_bytes']:,} B")
+            if name == "sort-merge":
+                got = {f: rec["run"][f] for f in RUN_FIELDS}
+                _check(what, got == want_run,
+                       f"ShuffleRun {got} != phase 14's 8-shard run {want_run}")
+            for k in must:
+                launches[k] += rec["launches"][k]
+            run = rec["run"]
+            log(f"[time multiprocess] {card_line}: {tag} S=8 over {MP_PROCESSES} "
+                f"processes, {name}, process {rec['pid']} ({rec['device']}, backend "
+                f"{rec['backend']}): {rec['count']:,} ok; host {rec['host_ms']:.3f} ms, "
+                f"device {rec['device_ms']:.4f} ms (CUDA events, warm); cross-process "
+                f"collectives {rec['comm_ms']:.3f} ms in {rec['comm_calls']} calls (CUDA "
+                f"events), {rec['comm_bytes']:,} B sent (by collective "
+                f"{json.dumps(rec['comm_sent'], sort_keys=True)}; the exchange's count "
+                f"{run['cross_process_bytes']:,} B); peak allocated {rec['peak_bytes']} B; "
+                f"launches k1 {rec['launches']['k1']}, k7 {rec['launches']['k7']}")
+        run = recs[0]["run"]
+        log(f"[multiprocess] {tag} {name}: S {run['num_shards']}, local shards "
+            f"{run['local_shards']}, cap_a {run['cap_a']:,}, cap_b {run['cap_b']:,}, "
+            f"hot_cap {run['hot_cap']}, exchange {run['exchange_slots']:,} slots, drops "
+            f"per attempt {run['drops']}, hot keys {len(run['hot_keys'])}"
+            + (", equal to phase 14's one-process 8-shard run" if name == "sort-merge"
+               else ""))
+    log(f"[time multiprocess] {card_line}: (b)+(c) both dry-run processes {wall_s:.3f} s "
+        "wall (startup, generation of the whole relations, 3 warm + 3 timed joins)")
+
+
 def main() -> int:
     import torch
 
@@ -2934,9 +3125,10 @@ def main() -> int:
     phase_bench(torch, launches, card)
     rel = phase_sql(torch, device, launches, card)
     phase_hash(torch, device, launches, card, rel)
-    phase_shuffle(torch, device, launches, card)
+    s8_run = phase_shuffle(torch, device, launches, card)
     phase_dist(torch, device, launches, card, rel)
     del rel
+    phase_multiprocess(torch, launches, card, s8_run)
     described = (
         ("merge_probe_count", "k1", "merge_probe.cu", "merge_probe.py:292"),
         ("merge_probe_count_i64", "k3", "merge_probe.cu",

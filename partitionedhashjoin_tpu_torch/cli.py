@@ -9,13 +9,22 @@ Every join is ported: ``--join no-partitioning`` (the default),
 ``radix-partitioning``, ``sort-merge``, ``planned`` and ``shuffle`` (the
 mesh join, ``parallel/shuffle.py``, with ``--shards``, ``--local-join`` and
 ``--pipeline-chunks``), with ``--key-dtype int64`` for sort-merge only (the
-other joins exit with the JAX CLI's message).  The shards of ``--join
-shuffle`` share the ``--platform`` device, so ``--shards`` defaults to 1
-where the JAX CLI takes every device.  The multi-host flags
-(``--coordinator``, ``--num-processes``, ``--process-id``) are parsed and
-rejected with exit code 2 and "not yet ported (ROADMAP Queue 1 item 6c)".
-``--platform`` names the torch device, "cuda" (the default) or "cpu"; a
-missing card raises rather than falling back to the CPU.
+other joins exit with the JAX CLI's message).  In one process the shards of
+``--join shuffle`` share the ``--platform`` device, so ``--shards`` defaults
+to 1 where the JAX CLI takes every device.
+
+``--coordinator host:port`` with ``--num-processes P`` and ``--process-id
+i`` runs the shuffle join over P processes (``run_distributed``, the JAX
+CLI's counterpart): start the same command once per process, each with its
+own id.  Each process joins the group (``parallel/distributed.py``: card
+``i % device_count``, NCCL, or gloo where processes share a card or on the
+CPU), generates its slice of both relations, and runs the join over
+``--shards`` shards (default: one per process); only process 0 renders a
+document, and every process logs its count.  ``--coordinator`` requires
+``--join shuffle``; without it ``--num-processes`` and ``--process-id`` are
+ignored, as the JAX CLI ignores them.  ``--platform`` names the torch
+device, "cuda" (the default) or "cpu"; a missing card raises rather than
+falling back to the CPU.
 """
 
 from __future__ import annotations
@@ -48,9 +57,6 @@ JOIN_CHOICES = (
     "planned",
 )
 
-#: Flags that only multi-host runs read (ROADMAP Queue 1 item 6c).
-_UNPORTED_FLAGS = ("coordinator", "num_processes", "process_id")
-
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
@@ -77,9 +83,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--filename", default="hashjoin.txt",
                    help="results file name (when --output file)")
     # engine extensions
-    p.add_argument("--shards", type=int, default=1,
-                   help="shard count for --join shuffle (a power of 2; the "
-                   "shards share the --platform device)")
+    p.add_argument("--shards", type=int, default=None,
+                   help="shard count for --join shuffle (a power of 2; a "
+                   "process's shards share its device; default 1, or one per "
+                   "process with --coordinator)")
     p.add_argument("--seed", type=int, default=None,
                    help="data generation seed (default: fresh entropy)")
     p.add_argument("--local-join", default="sort-merge",
@@ -98,23 +105,19 @@ def build_parser() -> argparse.ArgumentParser:
                    help="emit the reference's literal Type tags, including "
                    "its 'RadixParitioning' typo (main.cpp:127)")
     p.add_argument("--coordinator", default=None,
-                   help="multi-host coordinator address (not yet ported)")
+                   help="multi-process coordinator address host:port "
+                   "(requires --join shuffle)")
     p.add_argument("--num-processes", type=int, default=1,
-                   help="total process count (not yet ported)")
+                   help="total process count (with --coordinator)")
     p.add_argument("--process-id", type=int, default=0,
-                   help="this process's id (not yet ported)")
+                   help="this process's id (with --coordinator)")
     p.add_argument("--platform", default="cuda",
                    help="torch device: 'cuda' (default) or 'cpu'")
     return p
 
 
 def parse_arguments(argv: Optional[Sequence[str]] = None) -> "tuple[Configuration, argparse.Namespace]":
-    parser = build_parser()
-    args = parser.parse_args(argv)
-    for dest in _UNPORTED_FLAGS:
-        if getattr(args, dest) != parser.get_default(dest):
-            flag = "--" + dest.replace("_", "-")
-            parser.error(f"{flag} is not yet ported (ROADMAP Queue 1 item 6c)")
+    args = build_parser().parse_args(argv)
     config = Configuration()
     config.primary_relation_size = args.primary
     config.secondary_relation_size = args.secondary
@@ -283,6 +286,58 @@ def run_join(
     return timer.get_result()
 
 
+def run_distributed(config: Configuration, args, log):
+    """Multi-process path: join the group, generate this process's slices,
+    run the global shuffle join.
+
+    Every process runs this same entry point with its own
+    ``--process-id``; only process 0 returns a result document (the others
+    return None and render nothing), the single-writer convention of the
+    JAX CLI (its cli.py:278-323).  The process leaves the group at the end.
+    """
+    from partitionedhashjoin_tpu_torch.parallel import distributed
+    from partitionedhashjoin_tpu_torch.parallel.shuffle import DistributedShuffleJoiner
+
+    if args.join != "shuffle":
+        raise SystemExit("--coordinator requires --join shuffle")
+    distributed.initialize(
+        args.coordinator,
+        args.num_processes,
+        args.process_id,
+        platform=args.platform,
+    )
+    try:
+        mesh = distributed.global_mesh(args.shards)
+        # one seed for every process (a process's own entropy would route
+        # its rows differently)
+        seed = config.seed if config.seed is not None else 0
+        table_a, table_b = distributed.generate_global_tables(
+            config.primary_relation_size,
+            config.secondary_relation_size,
+            config.skew_parameter,
+            mesh,
+            seed=seed,
+        )
+        params = _base_parameters(config)
+        params.set_parameter("Type", "DistributedShuffle")
+        params.set_parameter("NumberOfShards", str(mesh.size))
+        params.set_parameter("NumberOfProcesses", str(mesh.process_count))
+        timer = HashJoinTimer(params)
+        joiner = DistributedShuffleJoiner(
+            mesh,
+            seed=seed,
+            local_join=args.local_join,
+            pipeline_chunks=args.pipeline_chunks,
+        )
+        if not args.no_warmup:
+            joiner.run(table_a, table_b)
+        count = joiner.run(table_a, table_b, timer)
+        log.info("Join produced %d matches", count)
+        return timer.get_result() if mesh.process_index == 0 else None
+    finally:
+        distributed.shutdown()
+
+
 def main(argv: Optional[Sequence[str]] = None) -> int:
     from partitionedhashjoin_tpu_torch.utils.device import resolve_device
 
@@ -293,6 +348,12 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
 
     formatter = select_results_formatter(config.output_format_config)
     renderer = select_results_renderer(config.output_config)
+
+    if args.coordinator is not None:
+        result = run_distributed(config, args, log)
+        if result is not None:
+            renderer.render(formatter, result)
+        return 0
 
     table_a, table_b = generate_tables(config, log, device)
     result = run_join(

@@ -58,7 +58,11 @@ from partitionedhashjoin_tpu_torch.ops.aggregate import (
     _wrap,
 )
 from partitionedhashjoin_tpu_torch.ops.kernels import compact as kcompact
-from partitionedhashjoin_tpu_torch.parallel.mesh import Mesh, all_to_all
+from partitionedhashjoin_tpu_torch.parallel.mesh import (
+    Mesh,
+    all_to_all,
+    require_one_process,
+)
 from partitionedhashjoin_tpu_torch.parallel.shuffle import (
     ROW_SLOT_BYTES,
     ExchangeRun,
@@ -101,10 +105,12 @@ def _combine(keys, pays, valid, cap: int, opts: dict, with_distinct: bool = Fals
                                      **opts)
 
 
-def _a2a(x: torch.Tensor, num_shards: int) -> torch.Tensor:
+def _a2a(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     """Per-shard send buffers ``(S, S * C)`` swapped: shard j's row holds
-    bucket j of every source shard, in source order."""
-    return all_to_all(x.reshape(num_shards, num_shards, -1)).reshape(num_shards, -1)
+    bucket j of every source shard, in source order (a one-process mesh:
+    the operators on it refuse more, ``require_one_process``)."""
+    s = mesh.size
+    return all_to_all(x.reshape(s, s, -1), mesh).reshape(s, -1)
 
 
 def _merge_partials(key, cnt, sm, mn, mx, valid, cap: int):
@@ -151,7 +157,8 @@ def _merge_partials(key, cnt, sm, mn, mx, valid, cap: int):
             fold(mn, _I32.max, "amin"), fold(mx, _I32.min, "amax"), num_groups)
 
 
-def _route_and_merge_partials(cols, p_valid, seed, cap_x: int, cap_merge: int):
+def _route_and_merge_partials(mesh: Mesh, cols, p_valid, seed, cap_x: int,
+                              cap_merge: int):
     """Route every shard's partials (``cols``: key, count, sum, min, max,
     each ``(S, cap_local)``; ``p_valid`` marks the live ones) to their
     key's owner shard, then merge what each owner received.  Returns the
@@ -162,7 +169,7 @@ def _route_and_merge_partials(cols, p_valid, seed, cap_x: int, cap_merge: int):
     s = p_valid.shape[0]
     dest = _owner_shard(cols[0], seed, s)
     *bucketed, bv, dropped = _bucketize(dest, p_valid, cap_x, s, *cols)
-    rk, rc, rs, rmn, rmx, rv = (_a2a(x, s) for x in (*bucketed, bv))
+    rk, rc, rs, rmn, rmx, rv = (_a2a(x, mesh) for x in (*bucketed, bv))
     del bucketed, bv
     merged = [_merge_partials(rk[i], rc[i], rs[i], rmn[i], rmx[i], rv[i], cap_merge)
               for i in range(s)]
@@ -195,7 +202,7 @@ def _aggregate_exchange(mesh: Mesh, keys, pays, valid, shard_seed,
     del partials
     p_valid = torch.arange(cap_local, device=keys.device) < nums[:, None]
     *merged, m_nums, m_need, dropped = _route_and_merge_partials(
-        cols, p_valid, shard_seed, cap_x, cap_merge)
+        mesh, cols, p_valid, shard_seed, cap_x, cap_merge)
     return (*merged, m_nums, local_need, dropped, m_need)
 
 
@@ -252,6 +259,7 @@ class DistributedAggregateOperator:
         slack: float = 2.0,
         max_retries: int = 5,
     ) -> None:
+        require_one_process(mesh, "DistributedAggregateOperator")
         self._mesh = mesh
         self._num_shards = int(mesh.size)
         if self._num_shards & (self._num_shards - 1):
@@ -409,7 +417,7 @@ def _row_exchange_aggregate(mesh: Mesh, keys, pays, valid, shard_seed,
     k2, p2, v2 = (x.reshape(s, -1) for x in (keys, pays, valid))
     bk, bp, bv, dropped = _bucketize(_owner_shard(k2, shard_seed, s), v2,
                                      cap_rows, s, k2, p2)
-    rk, rp, rv = (_a2a(x, s) for x in (bk, bp, bv))
+    rk, rp, rv = (_a2a(x, mesh) for x in (bk, bp, bv))
     del bk, bp, bv
     opts = _combiner_options(keys.device)
     groups = [_combine(rk[i], rp[i], rv[i], cap_groups, opts, with_distinct=True)

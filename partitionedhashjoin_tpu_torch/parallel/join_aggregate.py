@@ -48,7 +48,7 @@ from partitionedhashjoin_tpu_torch.parallel.aggregate_shuffle import (
     _route_and_merge_partials,
     _stack_groups,
 )
-from partitionedhashjoin_tpu_torch.parallel.mesh import Mesh
+from partitionedhashjoin_tpu_torch.parallel.mesh import Mesh, require_one_process
 from partitionedhashjoin_tpu_torch.parallel.shuffle import (
     ExchangeRun,
     _effective_hot_valid,
@@ -115,7 +115,7 @@ def _join_aggregate_local(
     del groups
     p_valid = (slot[None, :] < nums[:, None]) & torch.stack(present)
     *merged, m_nums, m_need, dropped = _route_and_merge_partials(
-        cols, p_valid, agg_seed, cap_x, cap_merge)
+        mesh, cols, p_valid, agg_seed, cap_x, cap_merge)
     return (*merged, m_nums, local_need, dropped, m_need)
 
 
@@ -144,6 +144,7 @@ class DistributedJoinAggregateOperator(_ExchangeOperator):
         hot_min_frac: float = 0.005,
         max_retries: int = 5,
     ) -> None:
+        require_one_process(mesh, "DistributedJoinAggregateOperator")
         super().__init__(mesh, seed, slack, handle_skew, hot_capacity, hot_sample,
                          hot_min_frac, max_retries, "DistributedJoinAggregate")
         self._agg_seed = (self._seed ^ 0x85EBCA6B) & _MASK

@@ -47,7 +47,7 @@ import torch
 from partitionedhashjoin_tpu_torch.data.table import JoinedTable, Table
 from partitionedhashjoin_tpu_torch.ops.kernels import compact as kcompact
 from partitionedhashjoin_tpu_torch.ops.sort_merge import _materialize_typed
-from partitionedhashjoin_tpu_torch.parallel.mesh import Mesh, psum
+from partitionedhashjoin_tpu_torch.parallel.mesh import Mesh, psum, require_one_process
 from partitionedhashjoin_tpu_torch.parallel.shuffle import ExchangeRun, _ExchangeOperator
 
 
@@ -89,7 +89,7 @@ def _materialize_local(
     counts = torch.stack(counts)
     live = torch.arange(pool, device=device)[None, :] < counts[:, None]
     return (keys.reshape(-1), pay_a.reshape(-1), pay_b.reshape(-1),
-            matched.reshape(-1), live.reshape(-1), psum(counts))
+            matched.reshape(-1), live.reshape(-1), psum(counts, mesh))
 
 
 def _compact_gathered(keys, pa, pb, matched, live, total):
@@ -121,6 +121,7 @@ class DistributedMaterializeJoiner(_ExchangeOperator):
         hot_min_frac: float = 0.005,
         max_retries: int = 5,
     ) -> None:
+        require_one_process(mesh, "DistributedMaterializeJoiner")
         super().__init__(mesh, seed, slack, handle_skew, hot_capacity, hot_sample,
                          hot_min_frac, max_retries, "DistributedMaterialize")
         self.last_run: Optional[ExchangeRun] = None

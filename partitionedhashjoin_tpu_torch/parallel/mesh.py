@@ -3,36 +3,56 @@
 Counterpart of ``partitionedhashjoin_tpu/parallel/mesh.py``.  The JAX module
 builds a ``jax.sharding.Mesh`` over chips and lets ``shard_map`` programs and
 ICI collectives take the place of the reference's worker threads
-(src/Common/ThreadPool.cpp:9-34).  Here a ``Mesh`` is S shards that all live
-on ONE torch device, "cuda" unless the caller names "cpu"; several shards may
-share it, where the JAX mesh needs one device per shard.
+(src/Common/ThreadPool.cpp:9-34).  Here a ``Mesh`` is S shards over the
+processes of a ``torch.distributed`` group (``parallel/distributed.py``),
+each process on ONE torch device, "cuda" unless the caller names "cpu".  A
+process holds ``local_size = S / P`` shards, and several shards share its
+device, where the JAX mesh needs one device per shard.  ``make_mesh`` builds
+the one-process mesh (P = 1, every shard on one device); a mesh over P > 1
+processes comes from ``distributed.global_mesh``.
 
-Layouts keep JAX's global view of an array:
+Layouts keep JAX's global view of an array, process-major
+(``distributed.host_slice``):
 
-- **row sharding** (``row_sharding``): a column stays one tensor of n rows
-  whose ``(S, n // S)`` view holds each shard's rows, shard ``s`` the rows
-  ``[s * n // S, (s + 1) * n // S)``: the layout of JAX's
-  ``NamedSharding(mesh, P("shards"))``;
-- **replication** (``replicated``): one tensor that every shard reads.
+- **row sharding** (``row_sharding``): a process holds its own rows only,
+  one tensor of n_local rows whose ``(local_size, n_local // local_size)``
+  view holds its shards' rows; local shard ``i`` is global shard
+  ``process_index * local_size + i``, and the rows of global shard ``s``
+  are the global rows ``[s * n // S, (s + 1) * n // S)``: the layout of
+  JAX's ``NamedSharding(mesh, P("shards"))``;
+- **replication** (``replicated``): one tensor that every shard reads, a
+  copy on every process.
 
 The collectives are plain functions on tensors whose leading axis is the
-shard:
+local shard, and take the mesh:
 
-- ``all_to_all(x)``: ``x[src, dst, ...]`` is what shard ``src`` sends to
-  shard ``dst``; the result's ``[dst, src, ...]`` is what ``dst`` receives.
-  It is the materialised transpose, a copy, so the exchange's bytes move;
-- ``all_gather(x)``: every shard's ``x[s]``, concatenated in shard order;
-- ``psum(x)``: the sum over shards.
+- ``all_to_all(x, mesh)``: ``x[src_local, dst, ...]`` is what shard ``src``
+  sends to global shard ``dst``; the result's ``[dst_local, src, ...]`` is
+  what ``dst`` receives from global shard ``src``.  Between the shards of
+  one process it is the materialised transpose, a copy; the blocks bound
+  for other processes go through one ``all_to_all_single``;
+- ``all_gather(x, mesh)``: every shard's ``x[s]``, concatenated in global
+  shard order (``all_gather_into_tensor`` across processes);
+- ``psum(x, mesh)``: the sum over the leading axis, then over the
+  processes (``all_reduce``).
 
-Placing shards on several devices (and the process groups that joins them)
-is not built: a ``devices`` list naming two distinct devices raises
-``NotImplementedError`` (ROADMAP Queue 1 item 6c).
+Across processes the collectives hand the group the card's tensors as they
+are, under NCCL and gloo alike.  Gloo (processes that share one card: NCCL
+refuses two ranks on one device) copies them to host memory itself, moves
+them over loopback TCP and copies them back; that is neither NVLink nor
+NCCL.  ``mesh.comm`` counts what crosses: the bytes this process sends to
+other processes, per collective, and the time of its cross-process calls,
+read from CUDA events only when asked for, so no collective waits for the
+device.  A ``devices`` list naming two distinct devices in one process
+raises ``NotImplementedError``: one process owns one device, as under
+torchrun, and more cards mean more processes (``distributed.initialize``).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence, Tuple
+import time
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -42,13 +62,63 @@ from partitionedhashjoin_tpu_torch.utils.device import resolve_device
 SHARD_AXIS = "shards"
 
 
+@dataclasses.dataclass
+class CommStats:
+    """What a mesh's cross-process collectives cost this process since the
+    last ``reset``: the bytes it sent to other processes, by collective
+    (``sent``), the calls, and their time (``seconds``).  On a card each
+    call is spanned by two CUDA events on the current stream, read only when
+    ``seconds`` is asked for; on the CPU, where the collectives return when
+    they are done, by the host clock."""
+
+    sent: Dict[str, int] = dataclasses.field(default_factory=dict)
+    calls: int = 0
+    host_seconds: float = 0.0
+    events: List[tuple] = dataclasses.field(default_factory=list)
+
+    def reset(self) -> None:
+        self.sent, self.calls, self.host_seconds, self.events = {}, 0, 0.0, []
+
+    @property
+    def bytes_sent(self) -> int:
+        return sum(self.sent.values())
+
+    @property
+    def seconds(self) -> float:
+        """The calls' time: waits for the last call's end event."""
+        if self.events:
+            self.events[-1][1].synchronize()
+        return self.host_seconds + sum(
+            start.elapsed_time(end) for start, end in self.events) / 1e3
+
+
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """A 1-D mesh of ``size`` shards over ``device`` (one axis,
-    ``SHARD_AXIS``, the analogue of the reference's worker count)."""
+    """A 1-D mesh of ``size`` shards (one axis, ``SHARD_AXIS``, the analogue
+    of the reference's worker count) over ``process_count`` processes, of
+    which this one, ``process_index``, holds ``local_size`` shards on
+    ``device``.  ``group`` is the ``torch.distributed`` group that joins the
+    processes and ``backend`` its backend ("gloo" or "nccl"), both None for
+    one process; ``comm`` counts the cross-process traffic."""
 
     device: torch.device
     size: int
+    local_size: Optional[int] = None
+    process_index: int = 0
+    process_count: int = 1
+    group: object = dataclasses.field(default=None, compare=False, repr=False)
+    backend: Optional[str] = None
+    comm: CommStats = dataclasses.field(default_factory=CommStats, compare=False,
+                                        repr=False)
+
+    def __post_init__(self) -> None:
+        if self.local_size is None:
+            object.__setattr__(self, "local_size", self.size // self.process_count)
+        if self.local_size * self.process_count != self.size:
+            raise ValueError(
+                f"{self.size} shards do not split evenly over "
+                f"{self.process_count} processes"
+            )
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,12 +131,13 @@ class Sharding:
 
     def place(self, array) -> torch.Tensor:
         """``array`` as a tensor on the mesh's device in this layout; a
-        row-split array's length must divide by the shard count."""
+        row-split array holds this process's rows, and its length must
+        divide by the process's shard count."""
         t = torch.as_tensor(array).to(self.mesh.device)
-        if self.spec and t.shape[0] % self.mesh.size:
+        if self.spec and t.shape[0] % self.mesh.local_size:
             raise ValueError(
                 f"array length {t.shape[0]} not divisible by "
-                f"{self.mesh.size} shards; pad first (pad_to_multiple)"
+                f"{self.mesh.local_size} shards; pad first (pad_to_multiple)"
             )
         return t
 
@@ -80,23 +151,36 @@ def _indexed(device: torch.device) -> torch.device:
 
 
 def make_mesh(num_devices: Optional[int] = None, devices=None) -> Mesh:
-    """A 1-D mesh of ``num_devices`` shards (default: one per entry of
-    ``devices``) over the one device that ``devices`` names ("cuda" when
+    """A one-process mesh of ``num_devices`` shards (default: one per entry
+    of ``devices``) over the one device that ``devices`` names ("cuda" when
     None).  Shards may share the device, so any positive count is allowed;
-    two distinct devices raise ``NotImplementedError``."""
+    two distinct devices raise ``NotImplementedError``: a process owns one
+    device, and a mesh over several comes from ``distributed.initialize``
+    and ``distributed.global_mesh``, one process per device."""
     names: Sequence = ["cuda"] if devices is None else list(devices)
     if not names:
         raise ValueError("make_mesh needs at least one device")
     distinct = {_indexed(resolve_device(str(d))) for d in names}
     if len(distinct) > 1:
         raise NotImplementedError(
-            f"a mesh over {len(distinct)} devices is not yet ported (ROADMAP "
-            "Queue 1 item 6c); every shard lives on one device"
+            f"a one-process mesh over {len(distinct)} devices: a process owns "
+            "one device; start one process per device and join them with "
+            "distributed.initialize and distributed.global_mesh"
         )
     size = len(names) if num_devices is None else int(num_devices)
     if size < 1:
         raise ValueError(f"a mesh needs at least one shard, got {size}")
     return Mesh(device=distinct.pop(), size=size)
+
+
+def require_one_process(mesh: Mesh, what: str) -> None:
+    """Refuse ``what`` on a mesh over several processes: it is not ported
+    there (ROADMAP Queue 1 item 6d)."""
+    if mesh.process_count > 1:
+        raise NotImplementedError(
+            f"{what} on a mesh over {mesh.process_count} processes is not yet "
+            "ported (ROADMAP Queue 1 item 6d); it runs on a one-process mesh"
+        )
 
 
 def row_sharding(mesh: Mesh) -> Sharding:
@@ -140,21 +224,89 @@ def shard_table(table: Table, mesh: Mesh) -> Table:
     )
 
 
-def all_to_all(x: torch.Tensor) -> torch.Tensor:
-    """``x[src, dst, ...]`` sent, ``[dst, src, ...]`` received: the
-    transpose of the two shard axes, materialised."""
-    if x.dim() < 2 or x.shape[0] != x.shape[1]:
+def _collective(mesh: Mesh, name: str, out: torch.Tensor, call,
+                sent: torch.Tensor, sent_bytes: int) -> torch.Tensor:
+    """Run ``call(out, sent)`` (bool tensors as uint8) and return ``out``;
+    counts ``sent_bytes`` under ``name`` and the call's span in
+    ``mesh.comm``."""
+    wire_out, wire_in = out, sent
+    if out.dtype == torch.bool:
+        wire_out, wire_in = out.view(torch.uint8), sent.view(torch.uint8)
+    comm = mesh.comm
+    if mesh.device.type == "cuda":
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        call(wire_out, wire_in)
+        end.record()
+        comm.events.append((start, end))
+    else:
+        t0 = time.perf_counter()
+        call(wire_out, wire_in)
+        comm.host_seconds += time.perf_counter() - t0
+    comm.sent[name] = comm.sent.get(name, 0) + sent_bytes
+    comm.calls += 1
+    return out
+
+
+def all_to_all(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """``x[src_local, dst, ...]`` sent, ``[dst_local, src, ...]`` received:
+    within a process the transpose of the two shard axes, materialised;
+    across processes one ``all_to_all_single`` of the blocks bound for other
+    processes (this process's own block is never sent)."""
+    lsz, size = mesh.local_size, mesh.size
+    if x.dim() < 2 or x.shape[0] != lsz or x.shape[1] != size:
         raise ValueError(
-            f"all_to_all takes an (S, S, ...) send buffer, got {tuple(x.shape)}"
+            f"all_to_all takes an ({lsz}, {size}, ...) send buffer, got "
+            f"{tuple(x.shape)}"
         )
-    return x.transpose(0, 1).contiguous()
+    if mesh.process_count == 1:
+        return x.transpose(0, 1).contiguous()
+    import torch.distributed as dist
+
+    nproc, me = mesh.process_count, mesh.process_index
+    rest = tuple(x.shape[2:])
+    # blocks[q, dst_local, src_local]: what this process sends to process q
+    blocks = x.reshape(lsz, nproc, lsz, *rest).transpose(0, 1).transpose(1, 2)
+    others = torch.tensor([q for q in range(nproc) if q != me], device=x.device)
+    send = blocks.index_select(0, others).contiguous()
+    splits = [0 if q == me else 1 for q in range(nproc)]  # blocks, along dim 0
+    recv = _collective(mesh, "all_to_all", torch.empty_like(send),
+                       lambda o, i: dist.all_to_all_single(o, i, splits, splits,
+                                                           group=mesh.group),
+                       send, send.numel() * send.element_size())
+    # received[p, dst_local, src_local] from process p, own block in place
+    received = torch.empty((nproc, lsz, lsz, *rest), dtype=x.dtype, device=x.device)
+    received[others] = recv
+    received[me] = blocks[me]
+    return received.transpose(0, 1).reshape(lsz, size, *rest)
 
 
-def all_gather(x: torch.Tensor) -> torch.Tensor:
-    """Every shard's ``x[s]``, concatenated in shard order (replicated)."""
-    return x.reshape(-1)
+def all_gather(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """Every shard's ``x[s]``, concatenated in global shard order
+    (replicated on every process)."""
+    flat = x.reshape(-1)
+    if mesh.process_count == 1:
+        return flat
+    import torch.distributed as dist
+
+    out = flat.new_empty((mesh.process_count * flat.numel(),))
+    return _collective(
+        mesh, "all_gather", out,
+        lambda o, i: dist.all_gather_into_tensor(o, i, group=mesh.group), flat,
+        flat.numel() * flat.element_size() * (mesh.process_count - 1))
 
 
-def psum(x: torch.Tensor) -> torch.Tensor:
-    """The sum of the per-shard values ``x[s]`` over the shards."""
-    return x.sum(dim=0)
+def psum(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """The sum of the values ``x[i]`` over the leading axis (this process's
+    shards), then over the processes."""
+    local = x.sum(dim=0)
+    if mesh.process_count == 1:
+        return local
+    import torch.distributed as dist
+
+    def reduce(out, inp):
+        out.copy_(inp)
+        dist.all_reduce(out, group=mesh.group)
+
+    return _collective(mesh, "psum", torch.empty_like(local), reduce, local,
+                       local.numel() * local.element_size())

@@ -32,7 +32,7 @@ from partitionedhashjoin_tpu_torch.ops import hash_table as ht
 from partitionedhashjoin_tpu_torch.ops import hashing
 from partitionedhashjoin_tpu_torch.ops import multi_key
 from partitionedhashjoin_tpu_torch.parallel.aggregate_shuffle import _a2a, _random_seed
-from partitionedhashjoin_tpu_torch.parallel.mesh import Mesh, psum
+from partitionedhashjoin_tpu_torch.parallel.mesh import Mesh, psum, require_one_process
 from partitionedhashjoin_tpu_torch.parallel.shuffle import ExchangeRun, _bucketize
 from partitionedhashjoin_tpu_torch.utils.logger import get_new_logger
 
@@ -65,9 +65,9 @@ def _mk_exchange_and_count(mesh: Mesh, a_cols, b_cols, a_valid, b_valid,
     dest_b = (_hash_tuple(b2, shard_seed) & (s - 1)).to(torch.int32)
     *ba, bv_a, drop_a = _bucketize(dest_a, a_valid.reshape(s, -1), cap_a, s, *a2)
     *bb, bv_b, drop_b = _bucketize(dest_b, b_valid.reshape(s, -1), cap_b, s, *b2)
-    ra = [_a2a(c, s) for c in ba]
-    rb = [_a2a(c, s) for c in bb]
-    rv_a, rv_b = _a2a(bv_a, s), _a2a(bv_b, s)
+    ra = [_a2a(c, mesh) for c in ba]
+    rb = [_a2a(c, mesh) for c in bb]
+    rv_a, rv_b = _a2a(bv_a, mesh), _a2a(bv_b, mesh)
     del ba, bb, bv_a, bv_b
     counts = []
     for i in range(s):
@@ -76,7 +76,7 @@ def _mk_exchange_and_count(mesh: Mesh, a_cols, b_cols, a_valid, b_valid,
         tag_b = torch.where(rv_b[i], 0, 2).to(torch.int32)
         counts.append(multi_key.multi_key_count([c[i] for c in ra] + [tag_a],
                                                 [c[i] for c in rb] + [tag_b]))
-    return psum(torch.stack(counts)), drop_a, drop_b
+    return psum(torch.stack(counts), mesh), drop_a, drop_b
 
 
 def _split_i64(keys) -> tuple:
@@ -105,6 +105,7 @@ class MultiKeyShuffleJoiner:
         slack: float = 2.0,
         max_retries: int = 4,
     ) -> None:
+        require_one_process(mesh, "MultiKeyShuffleJoiner")
         self._mesh = mesh
         self._num_shards = int(mesh.size)
         if self._num_shards & (self._num_shards - 1):

@@ -22,12 +22,20 @@ shared memory (src/RadixCluster/HashJoin.hpp:394-412).  The join:
    the two-run merge count (K1) or a hash table (``ops/hash_table.py``),
    and ``psum`` adds the shards' counts.
 
-The shards of a mesh share one torch device (``parallel/mesh.py``), so each
+A process's shards share its torch device (``parallel/mesh.py``), so each
 per-shard step of the JAX ``shard_map`` programs is either one op over the
-``(S, rows)`` view of every shard at once (the hashes, the sorts by
-destination, the masks) or a loop over the shards (the local joins).
-Nothing here overlaps on one card: ``_pipelined_probe`` issues chunk c+1's
-exchange before counting chunk c, as JAX does, but both run on one stream.
+``(local_size, rows)`` view of its shards at once (the hashes, the sorts by
+destination, the masks) or a loop over them (the local joins).  Nothing
+here overlaps on one card: ``_pipelined_probe`` issues chunk c+1's exchange
+before counting chunk c, as JAX does, but both run on one stream.
+
+On a mesh over several processes (``parallel/distributed.py``) every process
+runs ``run`` on its own rows, and four values are made global so that the
+processes agree at every step: the hot-key sample (``plan_hot_keys``
+gathers the sampled positions from the processes that hold them, so every
+process plans on the same sample), the drop counts that decide a retry, and
+the local and hot counts (all summed by ``psum``).  A process draws its own
+entropy for ``seed=None``, so such a mesh refuses it.
 
 Where the port departs from the JAX module:
 
@@ -157,10 +165,11 @@ class ShuffleStats:
     dropped_hot: torch.Tensor
 
 
-def _compact_hot(is_hot, keys, pays, hot_cap: int):
+def _compact_hot(mesh: Mesh, is_hot, keys, pays, hot_cap: int):
     """Each shard's hot build rows, in row order, compacted into
     ``hot_cap`` slots and gathered on every shard: ``(keys, pays, valid,
-    dropped)``, the first three ``(S * hot_cap,)``."""
+    dropped)``, the first three ``(S * hot_cap,)``, ``dropped`` this
+    process's."""
     s = is_hot.shape[0]
     device = keys.device
     n_hot = is_hot.sum(dim=1)
@@ -175,7 +184,8 @@ def _compact_hot(is_hot, keys, pays, hot_cap: int):
     hp[shard, rank] = pays[shard, pos]
     hv = torch.arange(hot_cap, device=device) < n_hot[:, None]
     dropped = torch.clamp(n_hot - hot_cap, min=0).sum()
-    return all_gather(hk), all_gather(hp), all_gather(hv), dropped
+    return (all_gather(hk, mesh), all_gather(hp, mesh), all_gather(hv, mesh),
+            dropped)
 
 
 def _row_valid(valid, shape, device) -> torch.Tensor:
@@ -203,20 +213,21 @@ def _exchange(
 ):
     """Partition phase: bucketize + all_to_all both relations; replicate hot
     build rows.  Takes and returns row-sharded tensors in JAX's global
-    layout: the received rows ``(rk, rp, rv)`` of A and B (shard ``j``'s
-    block holds bucket ``j`` of every source shard, in source order), the
-    local hot probe mask ``is_hot_b``, the replicated hot build rows
-    ``(hk, hp, hv)`` and the drop counts.
+    layout, this process's rows: the received rows ``(rk, rp, rv)`` of A
+    and B (shard ``j``'s block holds bucket ``j`` of every source shard, in
+    global source order), the local hot probe mask ``is_hot_b``, the
+    replicated hot build rows ``(hk, hp, hv)`` and this process's drop
+    counts.
 
     With ``exchange_b=False`` B is bucketized but NOT exchanged (its slots
     hold the local send buckets): ``_pipelined_probe`` exchanges it chunk by
     chunk.  ``valid_a``/``valid_b``: optional per-row validity (a pushed-down
     FILTER); invalid rows go to the dump segment, so they never travel,
     never replicate and are never hot."""
-    s = mesh.size
+    s, lsz = mesh.size, mesh.local_size
     device = keys_a.device
-    ka, pa = keys_a.reshape(s, -1), pays_a.reshape(s, -1)
-    kb, pb = keys_b.reshape(s, -1), pays_b.reshape(s, -1)
+    ka, pa = keys_a.reshape(lsz, -1), pays_a.reshape(lsz, -1)
+    kb, pb = keys_b.reshape(lsz, -1), pays_b.reshape(lsz, -1)
     row_a = _row_valid(valid_a, ka.shape, device)
     row_b = _row_valid(valid_b, kb.shape, device)
     if use_hot:
@@ -233,7 +244,7 @@ def _exchange(
         _owner_shard(kb, shard_seed, s), row_b & ~is_hot_b, cap_b, s, kb, pb)
 
     def a2a(x):
-        return all_to_all(x.reshape(s, s, -1)).reshape(-1)
+        return all_to_all(x.reshape(lsz, s, -1), mesh).reshape(-1)
 
     received_a = (a2a(bk_a), a2a(bp_a), a2a(bv_a))
     if exchange_b:
@@ -244,7 +255,7 @@ def _exchange(
     # hot build rows are replicated everywhere (all_gather; all zeros
     # without a hot plan); hot probe rows stay local (is_hot_b is read again
     # in the probe phase)
-    hk, hp, hv, drop_hot = _compact_hot(is_hot_a, ka, pa, hot_cap)
+    hk, hp, hv, drop_hot = _compact_hot(mesh, is_hot_a, ka, pa, hot_cap)
     stats = ShuffleStats(dropped_a=drop_a, dropped_b=drop_b, dropped_hot=drop_hot)
     return (*received_a, *received_b, is_hot_b.reshape(-1), hk, hp, hv, stats)
 
@@ -253,8 +264,9 @@ def _build_local_tables(mesh: Mesh, recv_keys_a, recv_valid_a, bucket_seed,
                         table_size: int):
     """Build phase: one open-addressing table per shard over its received
     cold rows: ``(slot_keys, slot_rows, max_probes)``, the first two
-    row-sharded (``table_size`` slots per shard), ``max_probes`` (S,)."""
-    s = mesh.size
+    row-sharded (``table_size`` slots per shard), ``max_probes``
+    ``(local_size,)``."""
+    s = mesh.local_size
     ka, va = recv_keys_a.reshape(s, -1), recv_valid_a.reshape(s, -1)
     tables = [
         ht.build_hash_table(ka[i], bucket_seed, table_size, valid=va[i],
@@ -270,7 +282,8 @@ def _build_local_tables(mesh: Mesh, recv_keys_a, recv_valid_a, bucket_seed,
 
 def _hot_count(keys_b, is_hot_b, hot_plan_keys, hot_plan_valid, hot_repl_keys,
                hot_repl_valid) -> torch.Tensor:
-    """Hot probe rows whose key has a replicated hot build row."""
+    """This process's hot probe rows whose key has a replicated hot build
+    row."""
     eff_valid = _effective_hot_valid(
         hot_plan_keys, hot_plan_valid, hot_repl_keys, hot_repl_valid)
     return (is_hot_b & _member_of_small(keys_b, hot_plan_keys, eff_valid)).sum()
@@ -295,7 +308,7 @@ def _probe_and_count(
     """Probe phase: cold rows against each shard's table, hot rows against
     the effective hot plan set; ``psum`` for the global count (the
     reference's atomic counter, NoPartitioning/HashJoin.hpp:156)."""
-    s = mesh.size
+    s = mesh.local_size
     sk, sr = slot_keys.reshape(s, -1), slot_rows.reshape(s, -1)
     kb, vb = recv_keys_b.reshape(s, -1), recv_valid_b.reshape(s, -1)
     no_overflow = torch.zeros((), dtype=torch.bool, device=sk.device)
@@ -305,11 +318,10 @@ def _probe_and_count(
                              max_probe=max_probes[i], seed=int(bucket_seed),
                              overflowed=no_overflow)
         counts.append(ht.probe_exists(table, kb[i], valid=vb[i]).sum())
-    count = psum(torch.stack(counts))
     if use_hot:
-        count = count + _hot_count(keys_b, is_hot_b, hot_plan_keys, hot_plan_valid,
-                                   hot_repl_keys, hot_repl_valid)
-    return count
+        counts.append(_hot_count(keys_b, is_hot_b, hot_plan_keys, hot_plan_valid,
+                                 hot_repl_keys, hot_repl_valid))
+    return psum(torch.stack(counts), mesh)
 
 
 def _effective_hot_valid(
@@ -346,14 +358,14 @@ def _pipelined_probe(
     validity protocol); each chunk is then sorted and counted against it
     by K1.  Chunk c+1's exchange is issued before chunk c is counted, as in
     the JAX scan; on one card both run on one stream."""
-    s = mesh.size
-    ka, va = recv_keys_a.reshape(s, -1), recv_valid_a.reshape(s, -1)
-    builds = [merge_join.PreparedBuild(ka[i], va[i]) for i in range(s)]
-    bkb = bucket_keys_b.reshape(s, s, num_chunks, cap_b // num_chunks)
-    bvb = bucket_valid_b.reshape(s, s, num_chunks, cap_b // num_chunks)
+    s, lsz = mesh.size, mesh.local_size
+    ka, va = recv_keys_a.reshape(lsz, -1), recv_valid_a.reshape(lsz, -1)
+    builds = [merge_join.PreparedBuild(ka[i], va[i]) for i in range(lsz)]
+    bkb = bucket_keys_b.reshape(lsz, s, num_chunks, cap_b // num_chunks)
+    bvb = bucket_valid_b.reshape(lsz, s, num_chunks, cap_b // num_chunks)
 
     def exchange(c):
-        return all_to_all(bkb[:, :, c]), all_to_all(bvb[:, :, c])
+        return all_to_all(bkb[:, :, c], mesh), all_to_all(bvb[:, :, c], mesh)
 
     counts = []
     received = exchange(0)
@@ -362,12 +374,11 @@ def _pipelined_probe(
         if c + 1 < num_chunks:
             received = exchange(c + 1)  # prefetch: independent of this count
         counts += [builds[i].count(rk[i].reshape(-1), rv[i].reshape(-1))
-                   for i in range(s)]
-    count = psum(torch.stack(counts))
+                   for i in range(lsz)]
     if use_hot:
-        count = count + _hot_count(keys_b, is_hot_b, hot_plan_keys, hot_plan_valid,
-                                   hot_repl_keys, hot_repl_valid)
-    return count
+        counts.append(_hot_count(keys_b, is_hot_b, hot_plan_keys, hot_plan_valid,
+                                 hot_repl_keys, hot_repl_valid))
+    return psum(torch.stack(counts), mesh)
 
 
 def _searchsorted_member(rka, rva):
@@ -420,16 +431,14 @@ def _sort_merge_local_count(
     """Local join: each shard's two-run merge count (K1) over its received
     cold rows, plus the hot probe, ``psum``'d.  The sort subsumes the build,
     so the join's post-exchange cost is one sort of each shard's rows."""
-    s = mesh.size
+    s = mesh.local_size
     ka, va = recv_keys_a.reshape(s, -1), recv_valid_a.reshape(s, -1)
     kb, vb = recv_keys_b.reshape(s, -1), recv_valid_b.reshape(s, -1)
-    count = psum(torch.stack([
-        merge_join.two_run_count(ka[i], kb[i], va[i], vb[i]) for i in range(s)
-    ]))
+    counts = [merge_join.two_run_count(ka[i], kb[i], va[i], vb[i]) for i in range(s)]
     if use_hot:
-        count = count + _hot_count(keys_b, is_hot_b, hot_plan_keys, hot_plan_valid,
-                                   hot_repl_keys, hot_repl_valid)
-    return count
+        counts.append(_hot_count(keys_b, is_hot_b, hot_plan_keys, hot_plan_valid,
+                                 hot_repl_keys, hot_repl_valid))
+    return psum(torch.stack(counts), mesh)
 
 
 def plan_hot_keys(
@@ -438,6 +447,7 @@ def plan_hot_keys(
     capacity: int,
     min_frac: float,
     seed: int = 0,
+    mesh: Optional[Mesh] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Sample-based heavy-hitter detection: ``(hot_keys int32[capacity],
     hot_valid bool[capacity])``, deterministic given ``seed``.
@@ -449,18 +459,34 @@ def plan_hot_keys(
     (``aggregate._group_and_aggregate``), and the ``capacity`` largest
     counts, ties to the lower group as ``lax.top_k`` takes them, are hot
     when their sample frequency reaches ``min_frac``.
+
+    The positions index the global relation, as JAX's run on the global
+    array: on a mesh over several processes ``keys`` is this process's
+    slice of it (``distributed.host_slice``), each process reads the
+    sampled positions that fall in its rows, and ``psum`` (each position
+    filled by one process, zeros elsewhere) gives every process the whole
+    sample in sample order, so every process computes the same plan.
     """
     from partitionedhashjoin_tpu_torch.ops.aggregate import _group_and_aggregate
 
-    n = keys.shape[0]
+    n_local = keys.shape[0]
+    nproc = 1 if mesh is None else mesh.process_count
+    n = n_local * nproc
     device = keys.device
     stride = max(1, n // sample_size)
     m = min(n, sample_size)
     win = torch.arange(m, dtype=torch.int32, device=device)
     h = ht.hash_bits(win, (seed ^ 0x5EED) & _MASK).to(torch.int64) & _MASK
     pos = torch.clamp(win.to(torch.int64) * stride + h % stride, max=n - 1)
+    if nproc == 1:
+        sample = keys[pos]
+    else:
+        local = pos - mesh.process_index * n_local
+        mine = (local >= 0) & (local < n_local)
+        read = keys[torch.clamp(local, 0, n_local - 1)]
+        sample = psum(torch.where(mine, read, 0)[None], mesh).to(keys.dtype)
     g = _group_and_aggregate(
-        keys[pos], torch.zeros((m,), dtype=torch.int32, device=device),
+        sample, torch.zeros((m,), dtype=torch.int32, device=device),
         seed & _MASK, ht.table_size_for(m))
     gid_valid = torch.arange(m, device=device) < g.num_groups
     counts = torch.where(gid_valid, g.count, -1)
@@ -476,6 +502,8 @@ def plan_hot_keys(
 
 #: Bytes of one row slot of the exchange: key, payload and valid.
 ROW_SLOT_BYTES = 9
+#: Bytes of one B slot that ``_pipelined_probe`` exchanges: key and valid.
+KEY_SLOT_BYTES = 5
 #: The exchange's overflow counters, in ``ShuffleStats`` order.
 DROP_NAMES = ("dropped_a", "dropped_b", "dropped_hot")
 
@@ -485,7 +513,12 @@ class ShuffleRun:
     """What a joiner's last ``run`` did: the drop counts ``(a, b, hot)`` of
     each attempt (the last is the accepted one; none on the one-shard fast
     path), the bucket capacities of the last attempt and the planned hot
-    keys, hottest first."""
+    keys, hottest first.  The counts are global: every process of a mesh
+    records the same run.  ``local_shards`` (compared with nothing: the
+    same join over one or several processes makes equal runs) is the
+    shards of the process that recorded it, all of them on one process;
+    ``b_slot_bytes`` is what one B slot carries across, ``KEY_SLOT_BYTES``
+    when the pipelined probe exchanges keys and valid flags only."""
 
     num_shards: int
     drops: List[Tuple[int, int, int]]
@@ -493,6 +526,8 @@ class ShuffleRun:
     cap_b: int
     hot_cap: int
     hot_keys: List[int]
+    local_shards: Optional[int] = dataclasses.field(default=None, compare=False)
+    b_slot_bytes: int = ROW_SLOT_BYTES
 
     @property
     def retries(self) -> int:
@@ -506,9 +541,23 @@ class ShuffleRun:
             return 0
         return self.num_shards * self.num_shards * (self.cap_a + self.cap_b)
 
-    def record_exchange(self, dropped, cap_a: int, cap_b: int, hot_cap: int) -> None:
+    @property
+    def cross_process_bytes(self) -> int:
+        """Bytes of the accepted exchange that the recording process sends
+        to other processes: its shards' blocks bound for shards it does not
+        hold, ``L * (S - L)`` blocks of ``cap_a`` slots of ``ROW_SLOT_BYTES``
+        and ``cap_b`` slots of ``b_slot_bytes``."""
+        local = self.num_shards if self.local_shards is None else self.local_shards
+        if not self.drops:
+            return 0
+        return local * (self.num_shards - local) * (
+            self.cap_a * ROW_SLOT_BYTES + self.cap_b * self.b_slot_bytes)
+
+    def record_exchange(self, dropped, cap_a: int, cap_b: int, hot_cap: int,
+                        b_slot_bytes: int = ROW_SLOT_BYTES) -> None:
         self.drops.append(dropped)
         self.cap_a, self.cap_b, self.hot_cap = cap_a, cap_b, hot_cap
+        self.b_slot_bytes = b_slot_bytes
 
 
 @dataclasses.dataclass
@@ -523,13 +572,14 @@ class ExchangeRun:
     retries: int = 0
     exchange_bytes: int = 0
 
-    def record_exchange(self, dropped, cap_a: int, cap_b: int, hot_cap: int) -> None:
+    def record_exchange(self, dropped, cap_a: int, cap_b: int, hot_cap: int,
+                        b_slot_bytes: int = ROW_SLOT_BYTES) -> None:
         self.attempts.append(dict(zip(DROP_NAMES, dropped)))
         if any(dropped):
             self.retries += 1
         else:
             s = self.num_shards
-            self.exchange_bytes = s * s * (cap_a + cap_b) * ROW_SLOT_BYTES
+            self.exchange_bytes = s * s * (cap_a * ROW_SLOT_BYTES + cap_b * b_slot_bytes)
 
 
 class _ExchangeOperator:
@@ -545,6 +595,12 @@ class _ExchangeOperator:
         if self._num_shards & (self._num_shards - 1):
             raise ValueError("mesh size must be a power of 2")
         if seed is None:
+            if mesh.process_count > 1:
+                raise ValueError(
+                    f"seed=None on a mesh over {mesh.process_count} processes: "
+                    "each would draw its own entropy and hash rows differently; "
+                    "pass one seed to every process"
+                )
             seed = int(np.random.SeedSequence().entropy & _MASK)
         self._seed = seed & _MASK
         self._shard_seed = self._seed
@@ -568,7 +624,8 @@ class _ExchangeOperator:
         empty plan without skew handling."""
         if self._handle_skew:
             return plan_hot_keys(keys_b, self._hot_sample, self._hot_capacity,
-                                 self._hot_min_frac, seed=self._hot_seed)
+                                 self._hot_min_frac, seed=self._hot_seed,
+                                 mesh=self._mesh)
         device = keys_b.device
         return (torch.zeros((self._hot_capacity,), dtype=torch.int32, device=device),
                 torch.zeros((self._hot_capacity,), dtype=torch.bool, device=device))
@@ -581,18 +638,22 @@ class _ExchangeOperator:
         result, at most ``max_retries`` times.  Each attempt reads the three
         drop counts back and records them with ``run.record_exchange``; cold
         drops double the slack, hot drops grow ``hot_cap`` to
-        ``4 * hot_cap + dropped``.  ``consume(exchanged, cap_a, cap_b)``
+        ``4 * hot_cap + dropped``; the counts are summed over the processes
+        first, so that every process retries or none does.  With
+        ``exchange_b=False`` B's buckets are left to ``_pipelined_probe``,
+        which sends ``KEY_SLOT_BYTES`` of each slot.
+        ``consume(exchanged, cap_a, cap_b)``
         gets ``_exchange``'s outputs as a list, which it may clear to free
         what it does not read, and returns None to exchange again.
         The timer's partition phase sums every attempt's exchange."""
-        s = self._num_shards
+        lsz = self._mesh.local_size
         timer = timer or NoOpHashJoinTimer()
         slack = self._slack
         hot_cap = self._hot_capacity
         seconds = 0.0
         for _ in range(self._max_retries):
-            cap_a = self._capacity(keys_a.shape[0] // s, slack)
-            cap_b = self._capacity(keys_b.shape[0] // s, slack)
+            cap_a = self._capacity(keys_a.shape[0] // lsz, slack)
+            cap_b = self._capacity(keys_b.shape[0] // lsz, slack)
             cap_b = -(-cap_b // cap_b_multiple) * cap_b_multiple
             t0 = time.perf_counter()
             exchanged = list(_exchange(
@@ -601,11 +662,13 @@ class _ExchangeOperator:
                 exchange_b=exchange_b, valid_a=valid_a, valid_b=valid_b,
             ))
             stats = exchanged[-1]
-            dropped = tuple(torch.stack(
-                [stats.dropped_a, stats.dropped_b, stats.dropped_hot]).tolist())
+            dropped = tuple(psum(torch.stack(
+                [stats.dropped_a, stats.dropped_b, stats.dropped_hot])[None],
+                self._mesh).tolist())
             seconds += time.perf_counter() - t0
             timer.set_partitioning_phase_duration(seconds)
-            run.record_exchange(dropped, cap_a, cap_b, hot_cap)
+            run.record_exchange(dropped, cap_a, cap_b, hot_cap,
+                                ROW_SLOT_BYTES if exchange_b else KEY_SLOT_BYTES)
             if any(dropped):
                 self._logger.info(
                     "bucket overflow (a=%d b=%d hot=%d) at slack %.1f; retrying",
@@ -663,9 +726,10 @@ class DistributedShuffleJoiner(_ExchangeOperator):
         self.last_run: Optional[ShuffleRun] = None
 
     def _check_inputs(self, table_a: Table, table_b: Table, valid_a, valid_b):
-        s = self._num_shards
+        s = self._mesh.local_size
         if table_a.size % s or table_b.size % s:
-            raise ValueError("relation sizes must divide the shard count")
+            raise ValueError("relation sizes must divide the shard count (this "
+                             "process's rows over its shards)")
         for name, t, table in (("table_a", table_a.keys, table_a),
                                ("table_b", table_b.keys, table_b),
                                ("valid_a", valid_a, table_a),
@@ -713,7 +777,8 @@ class DistributedShuffleJoiner(_ExchangeOperator):
             )
         hot_keys, hot_valid = self._hot_plan(table_b.keys)
         run = ShuffleRun(num_shards=s, drops=[], cap_a=0, cap_b=0, hot_cap=0,
-                         hot_keys=hot_keys[hot_valid].tolist())
+                         hot_keys=hot_keys[hot_valid].tolist(),
+                         local_shards=self._mesh.local_size)
         self.last_run = run
         pipelined = self._pipeline_chunks > 1
 

@@ -24,7 +24,11 @@ from partitionedhashjoin_tpu_torch.ops.order_by import (
     _top_k_indices,
     _valid_first_order,
 )
-from partitionedhashjoin_tpu_torch.parallel.mesh import Mesh, all_gather
+from partitionedhashjoin_tpu_torch.parallel.mesh import (
+    Mesh,
+    all_gather,
+    require_one_process,
+)
 
 
 def _shard_columns(mesh: Mesh, keys, pays, valid, by: str):
@@ -45,7 +49,7 @@ def _dist_top_k(mesh: Mesh, keys, pays, valid, k: int, by: str, descending: bool
         ranked = torch.where(valid[i], _order_key(col[i], not descending), least)
         idx = _top_k_indices(ranked, k)
         cand.append((ranked[idx], other[i][idx], valid[i][idx]))
-    gvals, gother, gvalid = (all_gather(torch.stack(c)) for c in zip(*cand))
+    gvals, gother, gvalid = (all_gather(torch.stack(c), mesh) for c in zip(*cand))
     gvals = torch.where(gvalid, gvals, least)
     fidx = _top_k_indices(gvals, k)
     fvals = gvals[fidx]
@@ -67,7 +71,7 @@ def _dist_top_k_masked(mesh: Mesh, keys, pays, valid, k: int, by: str,
         invalid = ~valid[i]
         order = _valid_first_order(invalid, nrank)[:k]
         cand.append((invalid[order], nrank[order], other[i][order]))
-    ginv, gnrank, gother = (all_gather(torch.stack(c)) for c in zip(*cand))
+    ginv, gnrank, gother = (all_gather(torch.stack(c), mesh) for c in zip(*cand))
     forder = _valid_first_order(ginv, gnrank)[:k]
     ranked_out = ~gnrank[forder]
     col_out = ~ranked_out if not descending else ranked_out
@@ -96,6 +100,7 @@ def distributed_top_k(
     and R6) ``n_live = min(k, #valid rows)``, and an invalid row is never
     selected.
     """
+    require_one_process(mesh, "distributed_top_k")
     if by not in ("key", "payload"):
         raise ValueError(f"by must be 'key' or 'payload', got {by!r}")
     n = table.size

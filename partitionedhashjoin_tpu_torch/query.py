@@ -373,13 +373,15 @@ class _Ctx:
 
     @classmethod
     def make(cls, mesh=None) -> "_Ctx":
-        from partitionedhashjoin_tpu_torch.parallel.mesh import Mesh
+        from partitionedhashjoin_tpu_torch.parallel.mesh import Mesh, require_one_process
 
         if mesh is not None and not isinstance(mesh, Mesh):
             raise PlanError(
                 "mesh must be a parallel.mesh.Mesh (make_mesh), not "
                 f"{type(mesh).__name__}"
             )
+        if mesh is not None:
+            require_one_process(mesh, "the query layer's mesh execution (R6)")
         return cls(mesh=mesh)
 
     def header(self) -> str:

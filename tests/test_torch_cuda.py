@@ -1366,3 +1366,44 @@ def test_r6_query_and_sql_on_card_equals_cpu(cuda):
     count = "SELECT COUNT(*) FROM b JOIN a USING (key)"
     assert tsql.execute_sql(count, db_gpu, mesh=mesh_gpu).columns["count"][0] == cpu[1].size
     assert mp.LAUNCHES == k1 + 8
+
+
+def test_two_process_shuffle_join_on_one_card(cuda):
+    """Two processes share the card: the group runs gloo, and the dry-run
+    worker's three count oracles hold on a 2 x 4-shard mesh."""
+    from partitionedhashjoin_tpu_torch import dryrun
+
+    lines = dryrun.dryrun_multiprocess(2, 4, platform="cuda", timeout_s=300)
+    for pid, line in enumerate(lines):
+        assert line == f"MP_OK pid={pid} counts=4096,4096,4096 backend=gloo"
+
+
+def test_nccl_on_a_shared_card_raises(cuda):
+    """Two processes on the one card asking for backend="nccl" both raise
+    once they have read each other's card from the store, before any group
+    is joined; with no backend named, the same pair is given gloo."""
+    import os
+    import sys
+
+    from partitionedhashjoin_tpu_torch import dryrun
+    from partitionedhashjoin_tpu_torch.parallel import distributed
+
+    script = (
+        "import sys, torch.distributed as dist\n"
+        "from partitionedhashjoin_tpu_torch.parallel import distributed\n"
+        "try:\n"
+        "    distributed.initialize(sys.argv[1], 2, int(sys.argv[2]), platform='cuda',\n"
+        "                           backend='nccl', timeout_s=60)\n"
+        "except ValueError as e:\n"
+        "    print('REFUSED', dist.is_initialized(), e)\n"
+    )
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    coord = dryrun.free_coordinator()
+    results = dryrun.run_processes(
+        [[sys.executable, "-c", script, coord, str(pid)] for pid in range(2)], 120,
+        env={**os.environ, "PYTHONPATH": repo}, cwd=repo)
+    for _, out, _ in results:
+        assert out.startswith("REFUSED False ") and "share a card" in out
+    name = f"h/{cuda}"
+    assert distributed._choose_backend(cuda, [name, name], None) == "gloo"
+    assert distributed._choose_backend(cuda, [name], None) == "nccl"

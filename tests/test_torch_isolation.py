@@ -1,5 +1,6 @@
 """The port stands apart from JAX and has no CPU fallback for the card."""
 
+import ast
 import os
 import shutil
 import subprocess
@@ -20,7 +21,8 @@ for needed in ("ops.hashing", "ops.hash_table", "ops.radix",
                "ops.kernels.bitonic_sort", "ops.kernels.generate", "query", "sql",
                "parallel.mesh", "parallel.shuffle", "parallel.aggregate_shuffle",
                "parallel.top_k", "parallel.join_aggregate",
-               "parallel.materialize_shuffle", "parallel.multi_key_shuffle"):
+               "parallel.materialize_shuffle", "parallel.multi_key_shuffle",
+               "parallel.distributed", "dryrun"):
     assert pkg.__name__ + "." + needed in names, needed
 leaked = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "partitionedhashjoin_tpu.")))
 print("LEAKED", leaked)
@@ -41,6 +43,25 @@ def test_port_modules_never_import_jax():
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "LEAKED []" in proc.stdout
+
+
+def test_no_source_line_imports_jax():
+    """No module of the port, and not chip_smoke.py, names jax or the JAX
+    package in an import statement, at any depth (a function's own imports
+    too)."""
+    sources = [REPO / "chip_smoke.py", *(REPO / "partitionedhashjoin_tpu_torch").rglob("*.py")]
+    hits = []
+    for path in sources:
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            if any(n.split(".")[0] in ("jax", "partitionedhashjoin_tpu") for n in names):
+                hits.append(f"{path.relative_to(REPO)}:{node.lineno}")
+    assert len(sources) > 30 and hits == []
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):

@@ -437,7 +437,7 @@ def test_mesh_errors(monkeypatch):
     # two cards are named without one present: only the distinct-device
     # refusal is under test
     monkeypatch.setattr(pm, "resolve_device", torch.device)
-    with pytest.raises(NotImplementedError, match="item 6c"):
+    with pytest.raises(NotImplementedError, match="distributed.initialize"):
         pm.make_mesh(2, devices=["cuda:0", "cuda:1"])
     monkeypatch.undo()
     with pytest.raises(ValueError, match="at least one device"):
@@ -449,14 +449,18 @@ def test_mesh_errors(monkeypatch):
 
 
 def test_collectives():
+    # one process: the collectives take the mesh and never touch a group
+    m2, m3 = pm.make_mesh(2, devices=["cpu"]), pm.make_mesh(3, devices=["cpu"])
     x = torch.arange(2 * 2 * 3).view(2, 2, 3)
-    got = pm.all_to_all(x)
+    got = pm.all_to_all(x, m2)
     assert got.is_contiguous() and torch.equal(got[1, 0], x[0, 1])
     assert got.data_ptr() != x.data_ptr()
-    assert torch.equal(pm.all_gather(torch.arange(6).view(3, 2)), torch.arange(6))
-    assert torch.equal(pm.psum(torch.tensor([3, 4, 5])), torch.tensor(12))
+    assert torch.equal(pm.all_gather(torch.arange(6).view(3, 2), m3), torch.arange(6))
+    assert torch.equal(pm.psum(torch.tensor([3, 4, 5]), m3), torch.tensor(12))
     with pytest.raises(ValueError, match="send buffer"):
-        pm.all_to_all(torch.zeros(2, 3))
+        pm.all_to_all(torch.zeros(2, 3), m2)
+    assert (m2.local_size, m2.process_index, m2.process_count) == (2, 0, 1)
+    assert m2.group is None and m2.backend is None
 
 
 @pytest.mark.parametrize("n_small", [0, 1, 16, 64])

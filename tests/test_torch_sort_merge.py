@@ -77,10 +77,10 @@ def test_cli_output_schema_matches_jax(capsys):
     assert doc["results"]["partition"] == doc["results"]["build"] == "0"
 
 
-# Every join is ported, with int64 keys for sort-merge
-# (tests/test_torch_cli.py) and the shuffle join's own flags
-# (tests/test_torch_shuffle.py); what stays unported is the multi-host
-# flags, with any join.
+# The multi-process flags, with any join: ``--coordinator`` needs the shuffle
+# join; with it the join runs over a one-process group on a free port;
+# without it ``--num-processes`` and ``--process-id`` are ignored, as the JAX
+# CLI ignores them.  The two-process runs are tests/test_torch_multiprocess.py's.
 @pytest.mark.parametrize("extra", [
     ["--join", "no-partitioning", "--coordinator", "localhost:1234"],
     ["--join", "radix-partitioning", "--num-processes", "2"],
@@ -95,10 +95,30 @@ def test_cli_output_schema_matches_jax(capsys):
     ["--join", "sort-merge", "--key-dtype", "int64", "--process-id", "1"],
 ])
 def test_cli_rejects_unported_paths(extra, capsys):
-    with pytest.raises(SystemExit) as exc:
-        cli.main(extra + ["--platform", "cpu"])
-    assert exc.value.code == 2
-    assert "not yet ported (ROADMAP Queue 1 item 6c)" in capsys.readouterr().err
+    from partitionedhashjoin_tpu_torch.dryrun import free_coordinator
+
+    coordinated = "--coordinator" in extra
+    join = extra[extra.index("--join") + 1]
+    argv = [free_coordinator() if a == "localhost:1234" else a for a in extra] + [
+        "--platform", "cpu", "--primary", "64", "--secondary", "256", "--seed", "4",
+        "--output", "stdout", "--log", "info"]
+    if coordinated and join != "shuffle":
+        with pytest.raises(SystemExit) as exc:
+            cli.main(argv)
+        assert exc.value.code == "--coordinator requires --join shuffle"
+        return
+    if coordinated:
+        argv += ["--num-processes", "1"]
+    assert cli.main(argv) == 0
+    captured = capsys.readouterr()
+    doc = json.loads(captured.out)
+    assert "Join produced 256 matches" in captured.err
+    if coordinated:
+        assert doc["parameters"]["Type"] == "DistributedShuffle"
+        assert doc["parameters"]["NumberOfProcesses"] == "1"
+        assert "backend gloo" in captured.err
+    else:
+        assert "NumberOfProcesses" not in doc["parameters"]
 
 
 def test_cli_cuda_platform_without_a_card_raises():
