@@ -212,10 +212,27 @@ and raises on the first failure:
              outlives its time limit fails the phase, and the other is
              killed.
 
+17. scripts — every entry of ``partitionedhashjoin_tpu_torch.scripts`` on
+             the card at its defaults (10M ⋈ 200M, Zipf 1.05): in this
+             process, ``record_results`` with all seven algos in µs
+             (figure.dat's columns in the JAX script's order; K1, K7),
+             ``bench_int64`` (K3), ``bench_materialize`` (its four oracles;
+             K4), ``bench_operators`` (fused and staged agree; K5),
+             ``bench_filtered_pipeline`` (R7 and its masked-count oracle;
+             K1, K4, K5), ``bench_scaling`` (S = 1, 2, 4, 8 at 1.25M ⋈ 25M
+             per shard, so weak scaling at S = 8 is 10M ⋈ 200M; K1, K7), ``bench_overlap`` at 10M ⋈ 200M (chunks 1,
+             2, 4, 8 on 8 shards; K1, K7) and ``bench_sorter_ab`` (both
+             counts 200,000,000, the sorter back on "xla"; K1, K6); each one
+             JSON line with its JAX script's keys plus the card's name, its
+             stderr and wall time logged; K1, K3, K4, K5, K6 and K7 must
+             each launch.  ``python -m ...scripts.sweep --partitions 32
+             2048`` runs as a subprocess: three CLI processes, each logging
+             200,000,000 matches, and its figure.dat.
+
 Kernel launch counts are set to 0 just before each path of phases 4 to 15
-and read just after; in phase 16 each process counts its own (the CLI from
-its start, the dry-run worker from just before each timed run) and prints
-them.  A kernel's ``launches`` is the sum over the paths that run it.  Comparison launches in phase 3 are not counted.  The script prints
+and each in-process entry of phase 17, and read just after; in phase 16
+each process counts its own (the CLI from its start, the dry-run worker
+from just before each timed run) and prints them.  A kernel's ``launches`` is the sum over the paths that run it.  Comparison launches in phase 3 are not counted.  The script prints
 one JSON line describing the kernels and, last, the ``"ok"`` line.  Without a
 CUDA device, or outside the repository, it exits non-zero and prints no
 result.
@@ -3093,6 +3110,161 @@ def phase_multiprocess(torch, launches, card_line, one_process_run):
         "wall (startup, generation of the whole relations, 3 warm + 3 timed joins)")
 
 
+# ---------------------------------------------------------------- scripts
+
+#: The knobs of the script entries, unset so that phase 17 runs each at its
+#: defaults.
+SCRIPT_ENV = ("PHJ_BENCH_PRIMARY", "PHJ_BENCH_SECONDARY", "PHJ_BENCH_SKEW",
+              "PHJ_BENCH_FUSED_ONLY", "PHJ_SORT_IMPL", "PHJ_AB_PRIMARY",
+              "PHJ_AB_SECONDARY", "PHJ_AB_SKEW", "PHJ_AB_IMPLS")
+#: record_results' algos and its figure.dat columns at the default partitions
+GRID_ALGOS = ["sort-merge", "no-partitioning", "radix", "shuffle",
+              "nopart-chained", "radix-2pass", "radix-chained"]
+GRID_COLUMNS = ["SortMerge", "NoPartitioning", "Shuffle_1", "ShufflePiped_1",
+                "Radix_32", "Radix_256", "Radix_2048", "NoPartChained",
+                "Radix2Pass_32", "RadixChained_32"]
+#: the two partition counts of the sweep (its default is nine)
+SWEEP_PARTITIONS = ("32", "2048")
+#: bench_scaling's rows per shard: weak scaling at S = 8 is the reference
+#: workload, 10M ⋈ 200M, phase 14's 8-shard join
+SCALING_BUILD, SCALING_PROBE = N_PRIMARY // 8, N_SECONDARY // 8
+#: each one-line entry: (name, argv, the JSON keys of its JAX script)
+SCRIPT_LINES = (
+    ("bench_int64", [], {"metric", "value", "unit", "vs_baseline"}),
+    ("bench_materialize", [], {"metric", "value", "unit", "seconds", "oracle_ok"}),
+    ("bench_operators", [], {"metric", "value", "unit", "vs_baseline", "pipeline"}),
+    ("bench_filtered_pipeline", [], {"metric", "filtered_R7_ms", "unfiltered_ms",
+                                     "filter_overhead_ms", "survivors",
+                                     "top1_count"}),
+    ("bench_scaling", ["--build", str(SCALING_BUILD), "--probe", str(SCALING_PROBE)],
+     {"workload", "backend", "host_cores", "note", "points"}),
+    ("bench_overlap", ["--build", str(N_PRIMARY), "--probe", str(N_SECONDARY)],
+     {"metric", "rows", "best_chunks", "best_speedup_vs_oneshot"}),
+)
+
+
+def _script_entry(torch, launches, card_line, name, argv):
+    """``scripts.<name>.main(argv)`` on the card in this process; returns
+    (stdout, stderr, launches of the run) after adding the launches."""
+    import importlib
+
+    module = importlib.import_module(f"{PKG}.scripts.{name}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out, err = io.StringIO(), io.StringIO()
+    _reset_counts()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = module.main(argv + ["--platform", "cuda"])
+    finally:
+        for line in err.getvalue().splitlines():
+            log(f"[scripts {name}] {line}")
+    wall_s = time.perf_counter() - t0
+    counts = _read_counts()
+    _check(f"scripts {name}", rc == 0, f"exit {rc}")
+    for k, v in counts.items():
+        launches[k] += v
+    log(f"[time scripts] {card_line}: {name}: {wall_s:.3f} s wall (generation, "
+        f"warmups and timed runs), peak allocated "
+        f"{torch.cuda.max_memory_allocated()} B, launches {counts}")
+    return out.getvalue(), err.getvalue(), counts
+
+
+def phase_scripts(torch, launches, card_line):
+    """Phase 17: every entry of ``partitionedhashjoin_tpu_torch.scripts`` on
+    the card at its defaults; adds each in-process entry's launches."""
+    import os
+
+    for var in SCRIPT_ENV:
+        os.environ.pop(var, None)
+    repo = os.path.dirname(os.path.abspath(__file__))
+    outdir = os.path.join(repo, "build", "scripts")
+    seen = dict.fromkeys(launches, 0)
+
+    # record_results: every algo, the default partitions, in µs
+    grid = os.path.join(outdir, "record_results")
+    _, _, counts = _script_entry(torch, launches, card_line, "record_results",
+                                 ["--outdir", grid, "--algos", *GRID_ALGOS,
+                                  "--unit", "us"])
+    with open(os.path.join(grid, "figure.dat")) as f:
+        dat = f.read().splitlines()
+    _check("scripts record_results", dat[0].split()[1:] == GRID_COLUMNS, dat[0])
+    _check("scripts record_results", [x.split()[0] for x in dat[1:]]
+           == ["partition", "build", "probe"], str(dat))
+    for line in dat:
+        log(f"[scripts record_results] figure.dat (us): {line}")
+    seen = {k: seen[k] + counts[k] for k in seen}
+
+    # sweep: the base join and two partition counts, each a CLI process
+    sweep_dir = os.path.join(outdir, "sweep")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", f"{PKG}.scripts.sweep", "--outdir", sweep_dir,
+         "--partitions", *SWEEP_PARTITIONS], cwd=repo, capture_output=True,
+        text=True, timeout=900)
+    wall_s = time.perf_counter() - t0
+    for line in proc.stderr.splitlines():
+        if "Join produced" in line or "wrote" in line or proc.returncode:
+            log(f"[scripts sweep] {line}")
+    _check("scripts sweep", proc.returncode == 0, f"exit {proc.returncode}")
+    matched = proc.stderr.count(f"Join produced {N_SECONDARY} matches")
+    _check("scripts sweep", matched == 1 + len(SWEEP_PARTITIONS),
+           f"{matched} CLI runs counted {N_SECONDARY:,}")
+    with open(os.path.join(sweep_dir, "figure.dat")) as f:
+        dat = f.read().splitlines()
+    _check("scripts sweep", dat[0].split()[1:] == ["NoPartitioning"] + [
+        f"Radix_{p}" for p in SWEEP_PARTITIONS], dat[0])
+    for line in dat:
+        log(f"[scripts sweep] figure.dat (ms): {line}")
+    log(f"[time scripts] {card_line}: sweep --partitions "
+        f"{' '.join(SWEEP_PARTITIONS)}: {wall_s:.3f} s wall, "
+        f"{1 + len(SWEEP_PARTITIONS)} CLI processes (each: start-up, alias "
+        "generation, warmup, timed run)")
+
+    # the one-line entries
+    kind = torch.cuda.get_device_name(0)
+    for name, argv, keys in SCRIPT_LINES:
+        out, err, counts = _script_entry(torch, launches, card_line, name, argv)
+        seen = {k: seen[k] + counts[k] for k in seen}
+        lines = out.splitlines()
+        _check(f"scripts {name}", len(lines) == 1, f"{len(lines)} stdout lines")
+        doc = json.loads(lines[0])
+        _check(f"scripts {name}", set(doc) == keys | {"device"}
+               and doc["device"] == kind, str(doc))
+        what = f"scripts {name}"
+        if name == "bench_materialize":
+            _check(what, doc["oracle_ok"] is True, str(doc))
+        if name == "bench_filtered_pipeline":
+            _check(what, 0 < doc["survivors"] < N_SECONDARY, str(doc))
+        if name == "bench_scaling":
+            _check(what, [p["shards"] for p in doc["points"]] == [1, 2, 4, 8]
+                   and doc["backend"] == "cuda", str(doc))
+        elif name == "bench_overlap":
+            _check(what, doc["metric"] == "overlap_pipelined_vs_oneshot_S8"
+                   and [r["chunks"] for r in doc["rows"]] == [1, 2, 4, 8], str(doc))
+        else:
+            _check(what, f"{N_SECONDARY}_skew{SKEW}" in doc["metric"], doc["metric"])
+        log(f"[time scripts] {card_line}: {name}: {lines[0]}")
+
+    # the sorter A/B: stderr only, both counts exact
+    out, err, counts = _script_entry(torch, launches, card_line, "bench_sorter_ab", [])
+    seen = {k: seen[k] + counts[k] for k in seen}
+    _check("scripts bench_sorter_ab", out == "", out)
+    for impl in ("xla", "pallas"):
+        line = [x for x in err.splitlines() if x.startswith(f"{impl:7s}:")]
+        _check("scripts bench_sorter_ab", len(line) == 1
+               and f"count={N_SECONDARY} " in line[0], f"{impl}: {line}")
+    from partitionedhashjoin_tpu_torch.ops import merge_join
+
+    _check("scripts bench_sorter_ab", merge_join.get_sort_impl() == "xla",
+           merge_join.get_sort_impl())
+
+    for k in ("k1", "k3", "k4", "k5", "k6", "k7"):
+        _check("scripts", seen[k] > 0, f"{k} was never launched by the entries")
+    log(f"[scripts] launches of the in-process entries: {seen}")
+
+
 def main() -> int:
     import torch
 
@@ -3129,6 +3301,7 @@ def main() -> int:
     phase_dist(torch, device, launches, card, rel)
     del rel
     phase_multiprocess(torch, launches, card, s8_run)
+    phase_scripts(torch, launches, card)
     described = (
         ("merge_probe_count", "k1", "merge_probe.cu", "merge_probe.py:292"),
         ("merge_probe_count_i64", "k3", "merge_probe.cu",

@@ -22,7 +22,11 @@ for needed in ("ops.hashing", "ops.hash_table", "ops.radix",
                "parallel.mesh", "parallel.shuffle", "parallel.aggregate_shuffle",
                "parallel.top_k", "parallel.join_aggregate",
                "parallel.materialize_shuffle", "parallel.multi_key_shuffle",
-               "parallel.distributed", "dryrun"):
+               "parallel.distributed", "dryrun", "scripts.record_results",
+               "scripts.sweep", "scripts.bench_int64", "scripts.bench_materialize",
+               "scripts.bench_operators", "scripts.bench_filtered_pipeline",
+               "scripts.bench_sorter_ab", "scripts.bench_scaling",
+               "scripts.bench_overlap"):
     assert pkg.__name__ + "." + needed in names, needed
 leaked = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "partitionedhashjoin_tpu.")))
 print("LEAKED", leaked)
