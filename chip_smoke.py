@@ -229,10 +229,28 @@ and raises on the first failure:
              2048`` runs as a subprocess: three CLI processes, each logging
              200,000,000 matches, and its figure.dat.
 
+18. multiprocess ops — the distributed operators and R6 over 2 processes x
+             4 shards that share the card (gloo), at 10M ⋈ 200M: ``python -m
+             partitionedhashjoin_tpu_torch.dryrun ops`` in each process,
+             which draws phase 15's relations whole from their seeds and
+             keeps its ``host_slice``, then runs every 8-shard step of phase
+             15 ((a) the GROUP BY plain, masked and with COUNT DISTINCT; (b)
+             the four top-10s; (c) the join → GROUP BY with and without the
+             skew plan; (d) the four materializing joins; (e) the composite
+             and int64 keys; (f) the pipeline statement and the count join
+             through ``execute_sql`` with ``mesh=``; ``dryrun.ops_steps``,
+             the same calls phase 15 makes) once untimed and once timed.
+             Each step's result and ``last_run`` (attempts, retries, exchange
+             bytes) must equal phase 15's one-process result in both
+             processes (``dryrun.digest`` of every output tensor).  Per step
+             and process: host and device ms, the cross-process collectives'
+             ms and bytes by collective, retries, peak allocated bytes and
+             each kernel's launches, counted inside the process.
+
 Kernel launch counts are set to 0 just before each path of phases 4 to 15
-and each in-process entry of phase 17, and read just after; in phase 16
-each process counts its own (the CLI from its start, the dry-run worker
-from just before each timed run) and prints them.  A kernel's ``launches`` is the sum over the paths that run it.  Comparison launches in phase 3 are not counted.  The script prints
+and each in-process entry of phase 17, and read just after; in phases 16
+and 18 each process counts its own (the CLI from its start, the dry-run
+workers from just before each timed run) and prints them.  A kernel's ``launches`` is the sum over the paths that run it.  Comparison launches in phase 3 are not counted.  The script prints
 one JSON line describing the kernels and, last, the ``"ok"`` line.  Without a
 CUDA device, or outside the repository, it exits non-zero and prints no
 result.
@@ -2683,15 +2701,19 @@ def _describe_run(record):
             f"attempts {record.attempts}, retries {record.retries}")
 
 
-def _dist_step(torch, launches, card_line, name, fn, kernels, check):
+def _dist_step(torch, launches, card_line, digests, name, fn, kernels, check, key=None):
     """One step of phase 15: ``fn()`` once untimed, then once more (the
     allocator keeps its cache) with every count set to 0 just before and
     read just after (each of
     ``kernels`` must launch; their launches are added to ``launches``),
     between two CUDA events.  ``fn`` returns ``(result, last_run or
     None)``; ``check(result)`` raises on a wrong result and returns what it
-    checked.  Prints the host and device ms, the peak allocated bytes, the
-    exchange and the K1/K5/K7 launches."""
+    checked; ``digests[key]``, for a step of ``dryrun.ops_steps``, gets the
+    digests of the timed run's result and ``last_run``, which phase 18
+    holds its processes to.  Prints the host and device ms, the peak
+    allocated bytes, the exchange and the K1/K5/K7 launches."""
+    from partitionedhashjoin_tpu_torch import dryrun
+
     torch.cuda.empty_cache()
     out, _ = fn()
     del out
@@ -2711,6 +2733,8 @@ def _dist_step(torch, launches, card_line, name, fn, kernels, check):
         _check(f"dist {name}", counts[k] > 0, f"{k} was never launched ({counts})")
         launches[k] += counts[k]
     detail = check(out)
+    if key is not None:
+        digests[key] = json.loads(json.dumps([dryrun.digest(out), dryrun.digest(record)]))
     del out
     log(f"[time dist] {card_line}: {name}: {detail}; host {host_ms:.3f} ms, device "
         f"{start.elapsed_time(end):.4f} ms (CUDA events, warm); peak allocated {peak} B; "
@@ -2754,9 +2778,11 @@ def _packed_rows(torch, name, keys, pay_a, pay_b, matched, n):
 def phase_dist(torch, device, launches, card_line, rel):
     """Phase 15: the distributed operators and R6 at 10M ⋈ 200M on phase
     12's relations (``rel``), 8 shards on the one card; adds each step's
-    launches."""
+    launches.  Returns the digests of the 8-shard steps of
+    ``dryrun.ops_steps``, by step."""
     import numpy as np
 
+    from partitionedhashjoin_tpu_torch import dryrun
     from partitionedhashjoin_tpu_torch.data.table import make_table
     from partitionedhashjoin_tpu_torch.ops import order_by
     from partitionedhashjoin_tpu_torch.ops.aggregate import (
@@ -2768,16 +2794,6 @@ def phase_dist(torch, device, launches, card_line, rel):
     from partitionedhashjoin_tpu_torch.parallel.aggregate_shuffle import (
         DistributedAggregateOperator,
     )
-    from partitionedhashjoin_tpu_torch.parallel.join_aggregate import (
-        DistributedJoinAggregateOperator,
-    )
-    from partitionedhashjoin_tpu_torch.parallel.materialize_shuffle import (
-        DistributedMaterializeJoiner,
-    )
-    from partitionedhashjoin_tpu_torch.parallel.multi_key_shuffle import (
-        MultiKeyShuffleJoiner,
-    )
-    from partitionedhashjoin_tpu_torch.parallel.top_k import distributed_top_k
     from partitionedhashjoin_tpu_torch.sql import execute_sql, explain_sql
 
     a_keys, a_pay, b_keys, b_pay = rel
@@ -2785,7 +2801,9 @@ def phase_dist(torch, device, launches, card_line, rel):
     meshes = {s: pm.make_mesh(s, devices=[device]) for s in (2, 8)}
     m8 = meshes[8]
     even = (b_pay % 2) == 0
-    step = functools.partial(_dist_step, torch, launches, card_line)
+    digests = {}
+    step = functools.partial(_dist_step, torch, launches, card_line, digests)
+    runs = dict(dryrun.ops_steps(m8, rel, SEED, GROUP_CAPACITY))
 
     def operator(cls, s=8, **kw):
         return cls(meshes[s], seed=SEED, **kw)
@@ -2793,29 +2811,25 @@ def phase_dist(torch, device, launches, card_line, rel):
     with _no_cummax(torch):
         # (a) the combiner plan at S = 8 and 2, masked, and the distinct plan
         want = _key_ordered(torch, sort_aggregate(b, group_capacity=GROUP_CAPACITY))
-        for s in (8, 2):
-            def run(s=s):
-                op = operator(DistributedAggregateOperator, s)
-                return op.run(b, group_capacity=GROUP_CAPACITY), op.last_run
-            step(f"(a) S={s} DistributedAggregateOperator.run", run, ("k5", "k7"),
-                 functools.partial(_same_groups, torch, f"dist (a) S={s}", want=want))
+        step("(a) S=8 DistributedAggregateOperator.run", runs["(a) aggregate"],
+             ("k5", "k7"), functools.partial(_same_groups, torch, "dist (a) S=8", want=want),
+             key="(a) aggregate")
+
+        def run():
+            op = operator(DistributedAggregateOperator, 2)
+            return op.run(b, group_capacity=GROUP_CAPACITY), op.last_run
+        step("(a) S=2 DistributedAggregateOperator.run", run, ("k5", "k7"),
+             functools.partial(_same_groups, torch, "dist (a) S=2", want=want))
         want = _key_ordered(torch, filter_sort_aggregate(
             b, lambda k, p: even, group_capacity=GROUP_CAPACITY)[0])
-
-        def run():
-            op = operator(DistributedAggregateOperator)
-            return op.run(b, group_capacity=GROUP_CAPACITY, mask=even), op.last_run
-        step("(a) S=8 mask payload % 2 == 0", run, ("k5", "k7"),
-             functools.partial(_same_groups, torch, "dist (a) mask", want=want))
+        step("(a) S=8 mask payload % 2 == 0", runs["(a) aggregate mask"], ("k5", "k7"),
+             functools.partial(_same_groups, torch, "dist (a) mask", want=want),
+             key="(a) aggregate mask")
         want = _key_ordered(torch, sort_aggregate(b, group_capacity=GROUP_CAPACITY,
                                                   with_distinct=True))
-
-        def run():
-            op = operator(DistributedAggregateOperator)
-            return (op.run(b, group_capacity=GROUP_CAPACITY, with_distinct=True),
-                    op.last_run)
-        step("(a) S=8 with_distinct=True", run, ("k5", "k7"),
-             functools.partial(_same_groups, torch, "dist (a) distinct", want=want))
+        step("(a) S=8 with_distinct=True", runs["(a) aggregate distinct"], ("k5", "k7"),
+             functools.partial(_same_groups, torch, "dist (a) distinct", want=want),
+             key="(a) aggregate distinct")
         del want
 
         # (b) top-10 by key and by payload, each also masked
@@ -2832,21 +2846,19 @@ def phase_dist(torch, device, launches, card_line, rel):
                            f"{got.keys.tolist()} != {want.keys.tolist()}")
                     return "10 rows == ops.order_by.top_k row for row"
 
+                key = f"(b) top_k {by}" + (" mask" if masked else "")
                 step(f"(b) S=8 distributed_top_k k=10 by {by}"
-                     + (" mask payload % 2 == 0" if masked else ""),
-                     lambda by=by, masked=masked: (distributed_top_k(
-                         m8, b, 10, by=by, mask=even if masked else None), None),
-                     (), check)
+                     + (" mask payload % 2 == 0" if masked else ""), runs[key], (), check,
+                     key=key)
 
         # (c) join → GROUP BY, with and without the skew plan
         want = _group_oracle(torch, b_keys, b_pay)
         for skew in (True, False):
-            def run(skew=skew):
-                op = operator(DistributedJoinAggregateOperator, handle_skew=skew)
-                return op.run(a, b, group_capacity=GROUP_CAPACITY), op.last_run
-            step(f"(c) S=8 DistributedJoinAggregateOperator.run handle_skew={skew}", run,
-                 ("k5", "k7"), functools.partial(_same_groups, torch, f"dist (c) {skew}",
-                                                 want=want))
+            key = "(c) join_aggregate" + ("" if skew else " handle_skew=False")
+            step(f"(c) S=8 DistributedJoinAggregateOperator.run handle_skew={skew}",
+                 runs[key], ("k5", "k7"),
+                 functools.partial(_same_groups, torch, f"dist (c) {skew}", want=want),
+                 key=key)
         del want
 
         # (d) the materializing joins, as multisets of rows
@@ -2859,10 +2871,7 @@ def phase_dist(torch, device, launches, card_line, rel):
             _check(name, int(ref[4]) == count, f"single-device count {int(ref[4]):,}")
             want = _packed_rows(torch, name, *ref[:4], count)
             del ref
-
-            def run(jt=jt, probe_valid=probe_valid):
-                op = operator(DistributedMaterializeJoiner)
-                return op.run(a, b, jt, probe_valid=probe_valid), op.last_run
+            key = f"(d) materialize {jt}" + (" mask" if probe_valid is not None else "")
 
             def check(j, name=name, count=count, want=want):
                 _check(name, int(j.count) == count, f"count {int(j.count):,} != {count:,}")
@@ -2874,7 +2883,7 @@ def phase_dist(torch, device, launches, card_line, rel):
 
             step(f"(d) S=8 DistributedMaterializeJoiner.run {jt}"
                  + (" probe mask payload % 2 == 0" if probe_valid is not None else ""),
-                 run, ("k5", "k7"), check)
+                 runs[key], ("k5", "k7"), check, key=key)
             del want
 
         # (e) composite keys and 64-bit keys as two planes
@@ -2884,17 +2893,11 @@ def phase_dist(torch, device, launches, card_line, rel):
                 return f"{c:,} ok"
             return check
 
-        def run():
-            j = operator(MultiKeyShuffleJoiner)
-            return j.run([a_keys, a_keys ^ SALT], [b_keys, b_keys ^ SALT]), j.last_run
-        step("(e) S=8 MultiKeyShuffleJoiner.run (key, key ^ 0x5A17)", run, ("k7",),
-             count_is("dist (e) run"))
-
-        def run():
-            j = operator(MultiKeyShuffleJoiner)
-            return j.run_i64(a_keys.to(torch.int64), b_keys.to(torch.int64)), j.last_run
-        step("(e) S=8 MultiKeyShuffleJoiner.run_i64", run, ("k7",),
-             count_is("dist (e) run_i64"))
+        step("(e) S=8 MultiKeyShuffleJoiner.run (key, key ^ 0x5A17)",
+             runs["(e) multi_key run"], ("k7",), count_is("dist (e) run"),
+             key="(e) multi_key run")
+        step("(e) S=8 MultiKeyShuffleJoiner.run_i64", runs["(e) multi_key run_i64"], ("k7",),
+             count_is("dist (e) run_i64"), key="(e) multi_key run_i64")
 
         # (f) R6 through the SQL front end and the shell
         db = {"a": a, "b": b}
@@ -2908,17 +2911,17 @@ def phase_dist(torch, device, launches, card_line, rel):
                                             for c in one.columns), "!= one device")
             return "10 rows == the single-device statement == the oracle"
 
-        step("(f) S=8 execute_sql pipeline statement, mesh=", lambda: (execute_sql(
-            sql_b, db, mesh=m8, group_capacity=GROUP_CAPACITY), None), ("k5", "k7"), check)
-        stmt = "SELECT COUNT(*) FROM b JOIN a USING (key)"
+        step("(f) S=8 execute_sql pipeline statement, mesh=", runs["(f) sql pipeline"],
+             ("k5", "k7"), check, key="(f) sql pipeline")
+        stmt = dryrun.SQL_COUNT
 
         def check(r):
             c = int(r.columns["count"][0])
             _check("dist (f) count", c == N_SECONDARY, f"{c:,}")
             return f"{c:,} ok"
 
-        step(f"(f) S=8 execute_sql '{stmt}', mesh=", lambda: (execute_sql(
-            stmt, db, mesh=m8), None), ("k1", "k7"), check)
+        step(f"(f) S=8 execute_sql '{stmt}', mesh=", runs["(f) sql count"], ("k1", "k7"),
+             check, key="(f) sql count")
         for text in (sql_b, stmt):
             plan = explain_sql(text, db, mesh=m8, group_capacity=GROUP_CAPACITY)
             _check("dist (f) explain", plan.startswith("physical plan [mesh S=8]")
@@ -2945,6 +2948,7 @@ def phase_dist(torch, device, launches, card_line, rel):
     log(f"[time dist] {card_line}: (f) python -m {PKG}.sql {' '.join(argv)} '{stmt}': "
         f"prints {N_SECONDARY:,}, k1 launches {k1}; {wall_s:.3f} s wall (startup, "
         "generation, count)")
+    return digests
 
 
 
@@ -3108,6 +3112,83 @@ def phase_multiprocess(torch, launches, card_line, one_process_run):
                else ""))
     log(f"[time multiprocess] {card_line}: (b)+(c) both dry-run processes {wall_s:.3f} s "
         "wall (startup, generation of the whole relations, 3 warm + 3 timed joins)")
+
+
+# ---------------------------------------------------------------- multi-process ops
+
+#: Kernels each step of ``dryrun.ops_steps`` must launch in every process,
+#: by the step's letter (the count join of (f) by its name).
+OPS_KERNELS = {"(a)": ("k5", "k7"), "(b)": (), "(c)": ("k5", "k7"),
+               "(d)": ("k5", "k7"), "(e)": ("k7",), "(f)": ("k5", "k7"),
+               "(f) sql count": ("k1", "k7")}
+
+
+def phase_multiprocess_ops(torch, launches, card_line, digests):
+    """Phase 18: the distributed operators and R6 over MP_PROCESSES
+    processes x 4 shards that share the card (gloo): ``python -m
+    ...dryrun ops`` in each process, which draws phase 15's relations whole
+    and keeps its ``host_slice``, runs each step of ``dryrun.ops_steps``
+    once untimed and once timed; each step's result and ``last_run`` must
+    equal phase 15's one-process 8-shard run (``digests``) in every process.
+    Adds each step's launches, counted inside the processes."""
+    import os
+
+    from partitionedhashjoin_tpu_torch import dryrun
+
+    torch.cuda.empty_cache()
+    repo = os.path.dirname(os.path.abspath(__file__))
+    coord = dryrun.free_coordinator()
+    t0 = time.perf_counter()
+    results = dryrun.run_processes(
+        [[sys.executable, "-m", f"{PKG}.dryrun", "ops", coord, str(MP_PROCESSES), str(i),
+          "--platform", "cuda", "--shards", "8", "--primary", str(N_PRIMARY),
+          "--secondary", str(N_SECONDARY), "--seed", str(SEED),
+          "--group-capacity", str(GROUP_CAPACITY)]
+         for i in range(MP_PROCESSES)], 900, cwd=repo)
+    wall_s = time.perf_counter() - t0
+    steps = {}
+    for pid, (_, out, err) in enumerate(results):
+        _check("multiprocess ops", f"MP_OK pid={pid}" in out, f"process {pid}: {out}")
+        for line in err.splitlines():
+            if "backend" in line:
+                log(f"[multiprocess ops] process {pid}: {line.strip()}")
+        for line in out.splitlines():
+            if line.startswith("MP_OPS "):
+                rec = json.loads(line.removeprefix("MP_OPS "))
+                steps.setdefault(rec["step"], []).append(rec)
+    _check("multiprocess ops", set(steps) == set(digests)
+           and all(len(r) == MP_PROCESSES for r in steps.values()),
+           f"steps {sorted(steps)}, phase 15's {sorted(digests)}")
+    for name, recs in steps.items():
+        must = OPS_KERNELS.get(name, OPS_KERNELS[name[:3]])
+        for rec in recs:
+            what = f"multiprocess ops {name} process {rec['pid']}"
+            _check(what, [rec["digest"], rec["run"]] == digests[name],
+                   f"{rec['digest']} {rec['run']} != phase 15's one-process 8-shard "
+                   f"result {digests[name]}")
+            _check(what, rec["backend"] == "gloo", f"backend {rec['backend']}")
+            for k in must:
+                _check(what, rec["launches"][k] > 0, f"{k} was never launched")
+            for k, v in rec["launches"].items():
+                launches[k] += v
+            run = rec["run"] or {}
+            log(f"[time multiprocess ops] {card_line}: {name}, S=8 over {MP_PROCESSES} "
+                f"processes, process {rec['pid']} ({rec['device']}, backend "
+                f"{rec['backend']}): == phase 15's one-process result; host "
+                f"{rec['host_ms']:.3f} ms, device {rec['device_ms']:.4f} ms (CUDA events, "
+                f"warm); cross-process collectives {rec['comm_ms']:.3f} ms in "
+                f"{rec['comm_calls']} calls (CUDA events), {rec['comm_bytes']:,} B sent (by "
+                f"collective {json.dumps(rec['comm_sent'], sort_keys=True)}); retries "
+                f"{run.get('retries', 0)}; peak allocated {rec['peak_bytes']} B; launches "
+                f"{ {k: v for k, v in rec['launches'].items() if v} }")
+        run = recs[0]["run"]
+        log(f"[multiprocess ops] {name}: "
+            + ("exchange inside the query layer, not exposed" if run is None else
+               f"S {run['num_shards']}, exchange {run['exchange_bytes']:,} B each way "
+               f"(all shards), attempts {run['attempts']}, retries {run['retries']}"))
+    log(f"[time multiprocess ops] {card_line}: both ops processes {wall_s:.3f} s wall "
+        f"(startup, generation of the whole relations, {len(steps)} steps each run "
+        "untimed and timed)")
 
 
 # ---------------------------------------------------------------- scripts
@@ -3298,10 +3379,11 @@ def main() -> int:
     rel = phase_sql(torch, device, launches, card)
     phase_hash(torch, device, launches, card, rel)
     s8_run = phase_shuffle(torch, device, launches, card)
-    phase_dist(torch, device, launches, card, rel)
+    digests = phase_dist(torch, device, launches, card, rel)
     del rel
     phase_multiprocess(torch, launches, card, s8_run)
     phase_scripts(torch, launches, card)
+    phase_multiprocess_ops(torch, launches, card, digests)
     described = (
         ("merge_probe_count", "k1", "merge_probe.cu", "merge_probe.py:292"),
         ("merge_probe_count_i64", "k3", "merge_probe.cu",

@@ -1,5 +1,5 @@
 """Dry-run entry points: the single-device join, the one-process mesh, and
-the shuffle join across processes.
+the shuffle join, the distributed operators and R6 across processes.
 
 Counterpart of the JAX repository's ``__graft_entry__.py`` and of its
 multi-process worker ``tests/mp_worker.py``:
@@ -29,7 +29,16 @@ Run as a module:
   timed, and prints one ``MP_STEP {json}`` line per step: the count, the
   ``ShuffleRun``, host and device ms, the cross-process collectives' ms and
   bytes, peak allocated bytes, the backend and the K1/K7 launches of the
-  timed run.
+  timed run;
+- ``python -m partitionedhashjoin_tpu_torch.dryrun ops COORD N PID``: one
+  process of the distributed operators and R6 over ``N`` processes at the
+  pipeline's relations (``bench_pipeline.make_relations``, default 10M ⋈
+  200M, 8 shards): every process draws the whole relations and keeps its
+  ``host_slice``, then runs each step of ``ops_steps`` once untimed and
+  once timed, and prints one ``MP_OPS {json}`` line per step: the
+  ``digest`` of its result and its ``last_run``, host and device ms, the
+  cross-process collectives' ms and bytes by collective, peak allocated
+  bytes and each kernel's launches in the timed run.
 
 Entry points run on the card unless the caller names the CPU.
 """
@@ -37,6 +46,7 @@ Entry points run on the card unless the caller names the CPU.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import socket
@@ -348,11 +358,233 @@ def measure(coord: str, nproc: int, pid: int, platform: str, shards: int,
     return records
 
 
+#: The statements of the R6 steps (``chip_smoke.py`` phases 12 and 15).
+SQL_PIPELINE = (
+    "SELECT key, COUNT(*), SUM(b.payload), MIN(b.payload), MAX(b.payload) "
+    "FROM b JOIN a USING (key) GROUP BY key ORDER BY count DESC LIMIT 10")
+SQL_COUNT = "SELECT COUNT(*) FROM b JOIN a USING (key)"
+#: The composite key's second column is the key XOR this salt.
+SALT = 0x5A17
+
+
+def ops_steps(mesh, rel, seed: int, group_capacity: Optional[int]):
+    """The steps of the distributed operators and R6 on ``mesh``, as
+    ``(name, run)`` pairs; ``run()`` returns ``(result, last_run or
+    None)``.  ``rel`` is ``(a_keys, a_pay, b_keys, b_pay)``, the rows of
+    this process (all of them on one process): (a) the GROUP BY of B, plain,
+    masked (``b_pay % 2 == 0``) and with COUNT DISTINCT; (b) top-10 by key
+    and by payload, each also masked; (c) the join → GROUP BY, with and
+    without the skew plan; (d) the inner, anti and left materializing joins
+    and the semi join under the mask; (e) the composite key (key, key ^
+    SALT) and the keys widened to int64; (f) the pipeline statement and the
+    count join through ``execute_sql`` with ``mesh=``.  The same calls on
+    one process and on several give equal results (``digest``)."""
+    from partitionedhashjoin_tpu_torch.data.table import make_table
+    from partitionedhashjoin_tpu_torch.parallel.aggregate_shuffle import (
+        DistributedAggregateOperator,
+    )
+    from partitionedhashjoin_tpu_torch.parallel.join_aggregate import (
+        DistributedJoinAggregateOperator,
+    )
+    from partitionedhashjoin_tpu_torch.parallel.materialize_shuffle import (
+        DistributedMaterializeJoiner,
+    )
+    from partitionedhashjoin_tpu_torch.parallel.multi_key_shuffle import (
+        MultiKeyShuffleJoiner,
+    )
+    from partitionedhashjoin_tpu_torch.parallel.top_k import distributed_top_k
+    from partitionedhashjoin_tpu_torch.sql import execute_sql
+
+    a_keys, a_pay, b_keys, b_pay = rel
+    a, b = make_table(a_keys, a_pay), make_table(b_keys, b_pay)
+    even = (b_pay % 2) == 0
+    db = {"a": a, "b": b}
+
+    def operator(cls, method, *args, **kw):
+        def run():
+            op = cls(mesh, seed=seed, **kw)
+            return getattr(op, method)(*args), op.last_run
+        return run
+
+    def aggregate(**kw):
+        def run():
+            op = DistributedAggregateOperator(mesh, seed=seed)
+            return op.run(b, group_capacity=group_capacity, **kw), op.last_run
+        return run
+
+    def join_aggregate(**kw):
+        def run():
+            op = DistributedJoinAggregateOperator(mesh, seed=seed, **kw)
+            return op.run(a, b, group_capacity=group_capacity), op.last_run
+        return run
+
+    def materialize(jt, probe_valid=None):
+        def run():
+            op = DistributedMaterializeJoiner(mesh, seed=seed)
+            return op.run(a, b, jt, probe_valid=probe_valid), op.last_run
+        return run
+
+    def top_k(by, mask):
+        return lambda: (distributed_top_k(mesh, b, 10, by=by, mask=mask), None)
+
+    def sql(stmt, **kw):
+        return lambda: (execute_sql(stmt, db, mesh=mesh, **kw), None)
+
+    return [
+        ("(a) aggregate", aggregate()),
+        ("(a) aggregate mask", aggregate(mask=even)),
+        ("(a) aggregate distinct", aggregate(with_distinct=True)),
+        ("(b) top_k key", top_k("key", None)),
+        ("(b) top_k key mask", top_k("key", even)),
+        ("(b) top_k payload", top_k("payload", None)),
+        ("(b) top_k payload mask", top_k("payload", even)),
+        ("(c) join_aggregate", join_aggregate()),
+        ("(c) join_aggregate handle_skew=False", join_aggregate(handle_skew=False)),
+        ("(d) materialize inner", materialize("inner")),
+        ("(d) materialize anti", materialize("anti")),
+        ("(d) materialize left", materialize("left")),
+        ("(d) materialize semi mask", materialize("semi", even)),
+        ("(e) multi_key run", operator(MultiKeyShuffleJoiner, "run",
+                                        [a_keys, a_keys ^ SALT], [b_keys, b_keys ^ SALT])),
+        ("(e) multi_key run_i64", operator(MultiKeyShuffleJoiner, "run_i64",
+                                            a_keys.to(torch.int64), b_keys.to(torch.int64))),
+        ("(f) sql pipeline", sql(SQL_PIPELINE, group_capacity=group_capacity)),
+        ("(f) sql count", sql(SQL_COUNT)),
+    ]
+
+
+#: Fields a digest leaves out: a GROUP BY's ``group_of_row`` has this
+#: process's rows, and a table's ``uuid`` names nothing computed.
+_NOT_DIGESTED = ("group_of_row", "uuid")
+_MIX = (0x9E3779B97F4A7C15 - (1 << 64), 0xBF58476D1CE4E5B9 - (1 << 64))
+_CHUNK = 1 << 26
+
+
+def _tensor_digest(t: torch.Tensor) -> str:
+    """dtype, shape and a 64-bit sum over the elements, each mixed with its
+    position (int64 arithmetic wraps), computed where ``t`` lives, in
+    chunks."""
+    x = t.reshape(-1)
+    if x.dtype == torch.bool:
+        x = x.to(torch.uint8)
+    total = 0
+    for start in range(0, x.numel(), _CHUNK):
+        c = x[start:start + _CHUNK].to(torch.int64)
+        i = torch.arange(start, start + c.numel(), dtype=torch.int64, device=c.device)
+        h = (c ^ (i * _MIX[0])) * _MIX[1]
+        total += int((h ^ (h >> 31)).sum())
+    name = str(t.dtype).removeprefix("torch.")
+    return f"{name}{list(t.shape)}:{total & ((1 << 64) - 1):016x}"
+
+
+def digest(obj):
+    """A JSON-able digest of an operator's result: every tensor or array
+    by ``_tensor_digest``, numbers as they are, containers and dataclasses
+    field by field (without ``_NOT_DIGESTED``); equal results give equal
+    digests."""
+    if isinstance(obj, torch.Tensor):
+        return _tensor_digest(obj)
+    if isinstance(obj, np.ndarray):
+        return _tensor_digest(torch.from_numpy(np.ascontiguousarray(obj)))
+    if isinstance(obj, (list, tuple)):
+        return [digest(x) for x in obj]
+    if isinstance(obj, dict):
+        return {str(k): digest(v) for k, v in obj.items()}
+    if dataclasses.is_dataclass(obj):
+        return {f.name: digest(getattr(obj, f.name)) for f in dataclasses.fields(obj)
+                if f.name not in _NOT_DIGESTED}
+    if isinstance(obj, np.generic):
+        return obj.item()
+    return obj
+
+
+def _launch_counters():
+    """Each kernel's launch counters, ``(wrapper module, name)`` pairs, by
+    kernel id (K6 launches two kernels)."""
+    from partitionedhashjoin_tpu_torch.ops.kernels import bitonic_sort as bs
+    from partitionedhashjoin_tpu_torch.ops.kernels import compact as kc
+    from partitionedhashjoin_tpu_torch.ops.kernels import generate as kg
+    from partitionedhashjoin_tpu_torch.ops.kernels import merge_count as mc
+    from partitionedhashjoin_tpu_torch.ops.kernels import merge_payload as mpay
+    from partitionedhashjoin_tpu_torch.ops.kernels import merge_probe as mp
+
+    return {"k1": [(mp, "LAUNCHES")], "k2": [(mc, "LAUNCHES")],
+            "k3": [(mp, "LAUNCHES_I64")], "k4": [(mpay, "LAUNCHES")],
+            "k5": [(kc, "LAUNCHES")],
+            "k6": [(bs, "LAUNCHES_UPSWEEP"), (bs, "LAUNCHES_SORT")],
+            "k7": [(kg, "LAUNCHES_HASH")], "k8": [(kg, "LAUNCHES_ZIPF")]}
+
+
+def ops(coord: str, nproc: int, pid: int, platform: str, shards: int, primary: int,
+        secondary: int, seed: int, group_capacity: Optional[int],
+        steps: Optional[Sequence[str]] = None) -> List[dict]:
+    """One process of the distributed operators and R6 over ``nproc``
+    processes (see the module docstring); ``steps`` names a subset of
+    ``ops_steps``.  Returns the ``MP_OPS`` records it printed."""
+    from partitionedhashjoin_tpu_torch import bench_pipeline
+    from partitionedhashjoin_tpu_torch.parallel import distributed
+    from partitionedhashjoin_tpu_torch.utils.device import sync
+
+    distributed.initialize(coord, nproc, pid, platform=platform)
+    records = []
+    try:
+        mesh = distributed.global_mesh(shards)
+        device = mesh.device
+        on_card = device.type == "cuda"
+        rel = []
+        for col in bench_pipeline.make_relations(primary, secondary, device):
+            start, rows = distributed.host_slice(col.shape[0])
+            rel.append(col[start:start + rows].clone())
+            del col
+        if on_card:
+            torch.cuda.empty_cache()
+        counters = _launch_counters()
+        for name, run in ops_steps(mesh, rel, seed, group_capacity):
+            if steps is not None and name not in steps:
+                continue
+            out, _ = run()
+            del out
+            sync(device)
+            if on_card:
+                torch.cuda.reset_peak_memory_stats()
+                start_ev, end_ev = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            mesh.comm.reset()
+            for pairs in counters.values():
+                for module, attr in pairs:
+                    setattr(module, attr, 0)
+            t0 = time.perf_counter()
+            if on_card:
+                start_ev.record()
+            out, last_run = run()
+            if on_card:
+                end_ev.record()
+            sync(device)
+            host_ms = (time.perf_counter() - t0) * 1e3
+            record = {
+                "step": name, "pid": pid, "processes": nproc, "shards": mesh.size,
+                "digest": digest(out), "run": digest(last_run),
+                "host_ms": host_ms,
+                "device_ms": start_ev.elapsed_time(end_ev) if on_card else None,
+                "comm_ms": mesh.comm.seconds * 1e3, "comm_bytes": mesh.comm.bytes_sent,
+                "comm_sent": dict(mesh.comm.sent), "comm_calls": mesh.comm.calls,
+                "peak_bytes": torch.cuda.max_memory_allocated() if on_card else None,
+                "backend": mesh.backend, "device": str(device),
+                "launches": {k: sum(getattr(m, a) for m, a in pairs)
+                             for k, pairs in counters.items()},
+            }
+            del out
+            print("MP_OPS " + json.dumps(record), flush=True)
+            records.append(record)
+    finally:
+        distributed.shutdown()
+    return records
+
+
 def _parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog=f"python -m {PKG}.dryrun")
     p.add_argument("--platform", default="cuda", help="'cuda' (default) or 'cpu'")
     sub = p.add_subparsers(dest="command")
-    for name in ("worker", "measure"):
+    for name in ("worker", "measure", "ops"):
         s = sub.add_parser(name)
         s.add_argument("coordinator")
         s.add_argument("num_processes", type=int)
@@ -366,6 +598,14 @@ def _parser() -> argparse.ArgumentParser:
     m.add_argument("--secondary", type=int, default=200_000_000)
     m.add_argument("--skew", type=float, default=1.05)
     m.add_argument("--seed", type=int, default=20260816)
+    o = sub.choices["ops"]
+    o.add_argument("--shards", type=int, default=8)
+    o.add_argument("--primary", type=int, default=10_000_000)
+    o.add_argument("--secondary", type=int, default=200_000_000)
+    o.add_argument("--seed", type=int, default=20260816)
+    o.add_argument("--group-capacity", type=int, default=1 << 24)
+    o.add_argument("--steps", nargs="*", default=None,
+                   help="names of ops_steps to run (default: every step)")
     return p
 
 
@@ -377,6 +617,11 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     elif args.command == "measure":
         measure(args.coordinator, args.num_processes, args.process_id, args.platform,
                 args.shards, args.primary, args.secondary, args.skew, args.seed)
+        print(f"MP_OK pid={args.process_id}", flush=True)
+    elif args.command == "ops":
+        ops(args.coordinator, args.num_processes, args.process_id, args.platform,
+            args.shards, args.primary, args.secondary, args.seed, args.group_capacity,
+            args.steps)
         print(f"MP_OK pid={args.process_id}", flush=True)
     else:
         fn, fn_args = entry(args.platform)

@@ -36,18 +36,27 @@ Where the port departs from the JAX module (the results are the same):
   flag.  Its pass-2 compaction runs K5 on the card and its sort follows the
   sorter switch (K6 under "pallas"), as ``sort_aggregate`` does; JAX pins
   its plain compaction and XLA's sort inside ``shard_map``.
-  ``_gather_groups`` compacts with K5 on the card (JAX: ``compact_sort``).
+  ``mesh.gather_prefixes`` compacts with K5 on the card (JAX: ``compact_sort``).
 - The shards share one device (``parallel/mesh.py``): the combiners and
-  merges run in a loop over the shards, the routing once over the
-  ``(S, cap_local)`` partials.
+  merges run in a loop over a process's shards, the routing once over its
+  ``(local_size, cap_local)`` partials.
 - ``last_run`` records each attempt's counters and the exchange bytes.
+
+On a mesh over several processes (``parallel/distributed.py``) every
+process passes its own rows (``host_slice``'s layout, the same count in
+every process, else ``ValueError`` in every process) and gets the global
+result, equal bit for bit to one process's run on the concatenated rows:
+the owner hash takes the global S, the three overflow counters are
+``pmax`` / ``psum``'d so that every process retries or none does, and the
+merged groups are gathered (``mesh.gather_prefixes``), so that the result is
+replicated as JAX's ``out_specs=P()`` says.  ``seed=None`` raises there:
+each process would draw its own.
 """
 
 from __future__ import annotations
 
 from typing import Optional
 
-import numpy as np
 import torch
 
 from partitionedhashjoin_tpu_torch.data.table import Table
@@ -61,13 +70,17 @@ from partitionedhashjoin_tpu_torch.ops.kernels import compact as kcompact
 from partitionedhashjoin_tpu_torch.parallel.mesh import (
     Mesh,
     all_to_all,
-    require_one_process,
+    gather_prefixes,
+    local_rows,
+    pmax,
+    psum,
 )
 from partitionedhashjoin_tpu_torch.parallel.shuffle import (
     ROW_SLOT_BYTES,
     ExchangeRun,
     _bucketize,
     _owner_shard,
+    _random_seed,
 )
 from partitionedhashjoin_tpu_torch.utils.logger import get_new_logger
 
@@ -77,10 +90,6 @@ _FIELDS = ("keys", "count", "sum", "min", "max")
 #: bytes of one exchange slot: a partial's five int32 columns and its valid
 #: flag (the distinct plan's row slots: key, payload, valid)
 PARTIAL_SLOT_BYTES = 21
-
-
-def _random_seed() -> int:
-    return int(np.random.SeedSequence().entropy & _MASK)
 
 
 def _combiner_options(device: torch.device) -> dict:
@@ -106,11 +115,11 @@ def _combine(keys, pays, valid, cap: int, opts: dict, with_distinct: bool = Fals
 
 
 def _a2a(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-    """Per-shard send buffers ``(S, S * C)`` swapped: shard j's row holds
-    bucket j of every source shard, in source order (a one-process mesh:
-    the operators on it refuse more, ``require_one_process``)."""
-    s = mesh.size
-    return all_to_all(x.reshape(s, s, -1), mesh).reshape(s, -1)
+    """Per-shard send buffers ``(local_size, S * C)`` swapped: local shard
+    j's row holds its bucket of every source shard, in global source
+    order."""
+    lsz = mesh.local_size
+    return all_to_all(x.reshape(lsz, mesh.size, -1), mesh).reshape(lsz, -1)
 
 
 def _merge_partials(key, cnt, sm, mn, mx, valid, cap: int):
@@ -159,70 +168,54 @@ def _merge_partials(key, cnt, sm, mn, mx, valid, cap: int):
 
 def _route_and_merge_partials(mesh: Mesh, cols, p_valid, seed, cap_x: int,
                               cap_merge: int):
-    """Route every shard's partials (``cols``: key, count, sum, min, max,
-    each ``(S, cap_local)``; ``p_valid`` marks the live ones) to their
-    key's owner shard, then merge what each owner received.  Returns the
-    merged columns, each ``(S, cap_merge)``, the merged group counts
-    ``m_nums`` (S,) int64, ``m_need`` (the largest, an int) and the dropped
-    partials (an int).  Shared by the distributed GROUP BY and the
-    join → GROUP BY (``parallel/join_aggregate.py``)."""
-    s = p_valid.shape[0]
+    """Route every local shard's partials (``cols``: key, count, sum, min,
+    max, each ``(local_size, cap_local)``; ``p_valid`` marks the live ones)
+    to their key's owner shard among all S, then merge what each owner
+    received.  Returns the merged columns, each ``(local_size,
+    cap_merge)``, the merged group counts ``m_nums`` (local_size,) int64,
+    ``m_need`` (the largest over every shard, an int) and the dropped
+    partials (summed over every shard, an int).  Shared by the distributed
+    GROUP BY and the join → GROUP BY (``parallel/join_aggregate.py``)."""
+    s = mesh.size
     dest = _owner_shard(cols[0], seed, s)
     *bucketed, bv, dropped = _bucketize(dest, p_valid, cap_x, s, *cols)
     rk, rc, rs, rmn, rmx, rv = (_a2a(x, mesh) for x in (*bucketed, bv))
     del bucketed, bv
     merged = [_merge_partials(rk[i], rc[i], rs[i], rmn[i], rmx[i], rv[i], cap_merge)
-              for i in range(s)]
-    nums = [m[5] for m in merged]
+              for i in range(mesh.local_size)]
     columns = [torch.stack([m[f] for m in merged]) for f in range(5)]
-    m_nums = torch.tensor(nums, dtype=torch.int64, device=p_valid.device)
-    return (*columns, m_nums, max(nums), int(dropped))
+    m_nums = torch.tensor([m[5] for m in merged], dtype=torch.int64,
+                          device=p_valid.device)
+    return (*columns, m_nums, int(pmax(m_nums, mesh)), int(psum(dropped[None], mesh)))
 
 
-def _stack_groups(groups):
-    """``(columns (S, cap) each, num_groups (S,) int64, need)`` of per-shard
-    GroupByResults; ``need`` is the largest ``num_groups`` (an int)."""
+def _stack_groups(groups, mesh: Mesh):
+    """``(columns (local_size, cap) each, num_groups (local_size,) int64,
+    need)`` of per-shard GroupByResults; ``need`` is the largest
+    ``num_groups`` over every shard of the mesh (an int)."""
     nums = torch.stack([g.num_groups for g in groups]).to(torch.int64)
     columns = [torch.stack([getattr(g, f) for g in groups]) for f in _FIELDS]
-    return columns, nums, int(nums.max())
+    return columns, nums, int(pmax(nums, mesh))
 
 
 def _aggregate_exchange(mesh: Mesh, keys, pays, valid, shard_seed,
                         cap_local: int, cap_x: int, cap_merge: int):
     """Per-shard combiner aggregate, partial exchange, per-shard merge.
-    Returns the merged columns (each ``(S, cap_merge)``), the merged group
-    counts per shard, and the exactness telemetry: the largest combiner
-    group count (the exact capacity a retry needs), the dropped partials
-    and the largest merged group count."""
-    s = mesh.size
+    Returns the merged columns (each ``(local_size, cap_merge)``), the
+    merged group counts per local shard, and the exactness telemetry, each
+    over every shard of the mesh: the largest combiner group count (the
+    exact capacity a retry needs), the dropped partials and the largest
+    merged group count."""
+    lsz = mesh.local_size
     opts = _combiner_options(keys.device)
-    k2, p2, v2 = (x.reshape(s, -1) for x in (keys, pays, valid))
-    partials = [_combine(k2[i], p2[i], v2[i], cap_local, opts) for i in range(s)]
-    cols, nums, local_need = _stack_groups(partials)
+    k2, p2, v2 = (x.reshape(lsz, -1) for x in (keys, pays, valid))
+    partials = [_combine(k2[i], p2[i], v2[i], cap_local, opts) for i in range(lsz)]
+    cols, nums, local_need = _stack_groups(partials, mesh)
     del partials
     p_valid = torch.arange(cap_local, device=keys.device) < nums[:, None]
     *merged, m_nums, m_need, dropped = _route_and_merge_partials(
         mesh, cols, p_valid, shard_seed, cap_x, cap_merge)
     return (*merged, m_nums, local_need, dropped, m_need)
-
-
-def _compact_groups(m_nums, cap: int, *columns):
-    """The per-shard valid prefixes (``m_nums`` rows of each ``(S, cap)``
-    column) packed into one global prefix, zeros after it: owners hold
-    disjoint keys, so the concatenation is the global result.  K5 on the
-    card, its plain version on a CPU tensor.  Returns ``(count, *cols)``."""
-    slot = torch.arange(cap, device=m_nums.device)
-    keep = (slot[None, :] < m_nums[:, None]).reshape(-1)
-    count, _, *outs = kcompact.compact_rows(
-        keep, [c.reshape(-1) for c in columns], keep.shape[0])
-    return (count, *outs)
-
-
-def _gather_groups(mk, mc, ms, mmn, mmx, m_nums, num_shards: int, cap_merge: int):
-    """Compact the per-shard merged groups into one global valid prefix:
-    ``(keys, count, sum, min, max, num_groups)``."""
-    count, *cols = _compact_groups(m_nums, cap_merge, mk, mc, ms, mmn, mmx)
-    return (*cols, count)
 
 
 def _result(cols, count, n: int, distinct=None) -> GroupByResult:
@@ -243,7 +236,9 @@ class DistributedAggregateOperator:
     ``ops.aggregate.sort_aggregate`` on the unsharded table, on the mesh's
     device.  The table may be row-sharded already
     (``parallel.mesh.shard_table``) or anywhere else; it is placed on the
-    mesh's device.
+    mesh's device.  On a mesh over several processes it is this process's
+    rows and the result is the global one (module docstring); its
+    ``group_of_row`` has this process's rows.
 
     Exactness: three counters guard the three capacities (local combiner
     groups, exchange buckets, merged groups); any overflow doubles the
@@ -259,13 +254,12 @@ class DistributedAggregateOperator:
         slack: float = 2.0,
         max_retries: int = 5,
     ) -> None:
-        require_one_process(mesh, "DistributedAggregateOperator")
         self._mesh = mesh
         self._num_shards = int(mesh.size)
         if self._num_shards & (self._num_shards - 1):
             raise ValueError("mesh size must be a power of 2")
         if seed is None:
-            seed = _random_seed()
+            seed = _random_seed(mesh)
         self._shard_seed = seed & _MASK
         self._slack = slack
         self._max_retries = max_retries
@@ -292,36 +286,22 @@ class DistributedAggregateOperator:
                 "distributed aggregate is int32-only (keys "
                 f"{table.keys.dtype}, payloads {table.payloads.dtype})"
             )
-        n = table.size
+        mesh = self._mesh
         s = self._num_shards
-        device = self._mesh.device
+        n_rows = table.size
+        n, valid, (keys, pays) = local_rows(mesh, [table.keys, table.payloads], mask)
         self.last_run = ExchangeRun(num_shards=s)
         if n == 0:
-            z = torch.zeros((0,), dtype=torch.int32, device=device)
+            z = torch.zeros((0,), dtype=torch.int32, device=mesh.device)
             return GroupByResult(
                 keys=z, count=z, sum=z, min=z, max=z,
-                num_groups=torch.zeros((), dtype=torch.int32, device=device),
+                num_groups=torch.zeros((), dtype=torch.int32, device=mesh.device),
                 group_of_row=z,
             )
-        padded = (n + s - 1) // s * s
-        keys, pays = table.keys.to(device), table.payloads.to(device)
-        if padded != n:
-            pad = torch.zeros((padded - n,), dtype=torch.int32, device=device)
-            keys, pays = torch.cat([keys, pad]), torch.cat([pays, pad])
-        valid = torch.arange(padded, device=device) < n
-        if mask is not None:
-            m = torch.as_tensor(mask).to(device=device, dtype=torch.bool)
-            if m.shape != (n,):
-                raise ValueError(
-                    f"mask shape {tuple(m.shape)} must match table rows ({n},)"
-                )
-            if padded != n:
-                m = torch.cat([m, torch.zeros((padded - n,), dtype=torch.bool,
-                                              device=device)])
-            valid = valid & m
-        per_shard = padded // s
+        per_shard = keys.shape[0] // mesh.local_size
         if with_distinct:
-            return self._run_distinct(keys, pays, valid, n, per_shard, group_capacity)
+            return self._run_distinct(keys, pays, valid, n_rows, per_shard,
+                                      group_capacity)
         hint = per_shard if group_capacity is None else min(group_capacity, per_shard)
 
         cap_local = max(16, min(hint, per_shard))
@@ -342,10 +322,10 @@ class DistributedAggregateOperator:
                 "merge_need": m_need, "cap_merge": cap_merge})
             if l_need <= cap_local and dropped == 0 and m_need <= cap_merge:
                 self.last_run.exchange_bytes = s * s * cap_x * PARTIAL_SLOT_BYTES
-                *cols, count = _gather_groups(mk, mc, ms, mmn, mmx, m_nums,
-                                              num_shards=s, cap_merge=cap_merge)
+                *cols, count = gather_prefixes(mesh, m_nums, cap_merge,
+                                              mk, mc, ms, mmn, mmx)
                 self._logger.info("Number of groups: %d", int(count))
-                return _result(cols, count, n)
+                return _result(cols, count, n_rows)
             self.last_run.retries += 1
             self._logger.info(
                 "capacity overflow (local need=%d/%d, dropped=%d, merge "
@@ -382,8 +362,8 @@ class DistributedAggregateOperator:
                 "dropped": dropped, "group_need": g_need, "cap_groups": cap_groups})
             if dropped == 0 and g_need <= cap_groups:
                 self.last_run.exchange_bytes = s * s * cap_rows * ROW_SLOT_BYTES
-                *cols, d, count = _gather_groups_distinct(
-                    gk, gc, gs, gmn, gmx, gd, g_nums, cap_groups=cap_groups)
+                *cols, d, count = gather_prefixes(
+                    self._mesh, g_nums, cap_groups, gk, gc, gs, gmn, gmx, gd)
                 self._logger.info("Number of groups: %d", int(count))
                 return _result(cols, count, n, distinct=d)
             self.last_run.retries += 1
@@ -413,22 +393,15 @@ def _row_exchange_aggregate(mesh: Mesh, keys, pays, valid, shard_seed,
     Returns the per-shard group columns (each ``(S, cap_groups)``, distinct
     last), their group counts, the dropped rows and the largest group
     count."""
-    s = mesh.size
-    k2, p2, v2 = (x.reshape(s, -1) for x in (keys, pays, valid))
+    s, lsz = mesh.size, mesh.local_size
+    k2, p2, v2 = (x.reshape(lsz, -1) for x in (keys, pays, valid))
     bk, bp, bv, dropped = _bucketize(_owner_shard(k2, shard_seed, s), v2,
                                      cap_rows, s, k2, p2)
     rk, rp, rv = (_a2a(x, mesh) for x in (bk, bp, bv))
     del bk, bp, bv
     opts = _combiner_options(keys.device)
     groups = [_combine(rk[i], rp[i], rv[i], cap_groups, opts, with_distinct=True)
-              for i in range(s)]
-    cols, nums, need = _stack_groups(groups)
+              for i in range(lsz)]
+    cols, nums, need = _stack_groups(groups, mesh)
     distinct = torch.stack([g.distinct for g in groups])
-    return (*cols, distinct, nums, int(dropped), need)
-
-
-def _gather_groups_distinct(gk, gc, gs, gmn, gmx, gd, g_nums, cap_groups: int):
-    """Like ``_gather_groups`` with the distinct column riding along:
-    ``(keys, count, sum, min, max, distinct, num_groups)``."""
-    count, *cols = _compact_groups(g_nums, cap_groups, gk, gc, gs, gmn, gmx, gd)
-    return (*cols, count)
+    return (*cols, distinct, nums, int(psum(dropped[None], mesh)), need)

@@ -29,6 +29,13 @@ layer's ``carry="probe"``): each probe row whose key is among the build
 keys counts once, which is the single-device first-match materialize →
 GROUP BY.  The combiner runs K5 and follows the sorter switch as in
 ``parallel/aggregate_shuffle.py``; ``last_run`` records each attempt.
+
+On a mesh over several processes every process passes its own rows of both
+relations (``host_slice``'s layout, the same counts in every process) and
+gets the global groups, as the distributed GROUP BY does: the exchange's
+hot plan and drops are global already (``parallel/shuffle.py``), the
+aggregate's counters are ``pmax`` / ``psum``'d and the merged groups
+gathered (``mesh.gather_prefixes``).
 """
 
 from __future__ import annotations
@@ -37,18 +44,17 @@ from typing import Optional
 
 import torch
 
-from partitionedhashjoin_tpu_torch.data.table import Table
+from partitionedhashjoin_tpu_torch.data.table import Table, make_table
 from partitionedhashjoin_tpu_torch.ops.aggregate import GroupByResult
 from partitionedhashjoin_tpu_torch.parallel.aggregate_shuffle import (
     PARTIAL_SLOT_BYTES,
     _combine,
     _combiner_options,
-    _gather_groups,
     _result,
     _route_and_merge_partials,
     _stack_groups,
 )
-from partitionedhashjoin_tpu_torch.parallel.mesh import Mesh, require_one_process
+from partitionedhashjoin_tpu_torch.parallel.mesh import Mesh, gather_prefixes
 from partitionedhashjoin_tpu_torch.parallel.shuffle import (
     ExchangeRun,
     _effective_hot_valid,
@@ -85,16 +91,17 @@ def _join_aggregate_local(
     rows membership in the effective hot set), then the partials whose key
     has no build row are invalidated: cold presence from the received build
     set, hot presence from the hot plan.  Returns the merged columns (each
-    ``(S, cap_merge)``), the merged group counts and the exactness
-    telemetry (local need, dropped partials, merge need)."""
-    s = mesh.size
+    ``(local_size, cap_merge)``), the merged group counts and the exactness
+    telemetry over every shard (local need, dropped partials, merge
+    need)."""
+    lsz = mesh.local_size
     device = rk_a.device
     opts = _combiner_options(device)
     rka, rva, rkb, rpb, rvb, kb, pb, ihb = (
-        x.reshape(s, -1) for x in (rk_a, rv_a, rk_b, rp_b, rv_b, keys_b, pays_b, is_hot_b))
+        x.reshape(lsz, -1) for x in (rk_a, rv_a, rk_b, rp_b, rv_b, keys_b, pays_b, is_hot_b))
     slot = torch.arange(cap_local, device=device)
     groups, present = [], []
-    for i in range(s):
+    for i in range(lsz):
         # hot probe rows count only when their key has a replicated hot
         # build row (eff_hot_valid masks the plan keys that have none)
         if use_hot:
@@ -111,7 +118,7 @@ def _join_aggregate_local(
             hit = hit | _member_of_small(g.keys, hot_plan_keys, eff_hot_valid)
         groups.append(g)
         present.append(hit)
-    cols, nums, local_need = _stack_groups(groups)
+    cols, nums, local_need = _stack_groups(groups, mesh)
     del groups
     p_valid = (slot[None, :] < nums[:, None]) & torch.stack(present)
     *merged, m_nums, m_need, dropped = _route_and_merge_partials(
@@ -126,7 +133,8 @@ class DistributedJoinAggregateOperator(_ExchangeOperator):
     aggregates map) to the single-device plan
     ``scan(probe).join(scan(build)).group_by()`` with ``carry="probe"``:
     COUNT/SUM/MIN/MAX of the probe payload over probe rows whose key exists
-    in the build relation, on the mesh's device.
+    in the build relation, on the mesh's device (across processes: this
+    process's rows in, the global groups out).
 
     Shares the shuffle join's exchange knobs (slack, skew plan) and the
     distributed aggregate's capacity contract; every capacity has an
@@ -144,7 +152,6 @@ class DistributedJoinAggregateOperator(_ExchangeOperator):
         hot_min_frac: float = 0.005,
         max_retries: int = 5,
     ) -> None:
-        require_one_process(mesh, "DistributedJoinAggregateOperator")
         super().__init__(mesh, seed, slack, handle_skew, hot_capacity, hot_sample,
                          hot_min_frac, max_retries, "DistributedJoinAggregate")
         self._agg_seed = (self._seed ^ 0x85EBCA6B) & _MASK
@@ -169,17 +176,17 @@ class DistributedJoinAggregateOperator(_ExchangeOperator):
                     f"{t.keys.dtype}, payloads {t.payloads.dtype})"
                 )
         s = self._num_shards
-        if build.size % s or probe.size % s:
-            raise ValueError("relation sizes must divide the shard count")
         device = self._mesh.device
         ka, pa, kb, pb = (x.to(device) for x in (build.keys, build.payloads,
                                                  probe.keys, probe.payloads))
         va, vb = (None if v is None else torch.as_tensor(v).to(device)
                   for v in (build_valid, probe_valid))
+        self._check_inputs(make_table(ka, pa), make_table(kb, pb), va, vb)
         hot_keys, hot_valid = self._hot_plan(kb)
         self.last_run = run = ExchangeRun(num_shards=s)
         use_hot = self._handle_skew
-        per_shard_rows = probe.size // s  # local hot rows join the pool
+        # local hot rows join the pool
+        per_shard_rows = probe.size // self._mesh.local_size
 
         def aggregate_exchanged(exchanged, cap_a, cap_b):
             rk_a, _, rv_a, rk_b, rp_b, rv_b, is_hot_b, hk, _, hv, _ = exchanged
@@ -211,6 +218,7 @@ class DistributedJoinAggregateOperator(_ExchangeOperator):
         results are reused across retries).  Returns None when the aggregate
         keeps overflowing (the caller's outer loop gives up)."""
         s = self._num_shards
+        mesh = self._mesh
         hint = pool_rows if group_capacity is None else min(group_capacity, pool_rows)
         cap_local = max(16, hint)
         cap_merge_floor = 16
@@ -230,8 +238,8 @@ class DistributedJoinAggregateOperator(_ExchangeOperator):
             if l_need <= cap_local and dropped == 0 and m_need <= cap_merge:
                 self.last_run.exchange_bytes = (
                     exchange_bytes + s * s * cap_x * PARTIAL_SLOT_BYTES)
-                *cols, count = _gather_groups(mk, mc, ms, mmn, mmx, m_nums,
-                                              num_shards=s, cap_merge=cap_merge)
+                *cols, count = gather_prefixes(mesh, m_nums, cap_merge,
+                                              mk, mc, ms, mmn, mmx)
                 self._logger.info("Number of groups: %d", int(count))
                 return _result(cols, count, n_probe)
             self.last_run.retries += 1

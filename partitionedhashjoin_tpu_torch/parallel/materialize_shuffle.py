@@ -36,6 +36,13 @@ replication) grow their capacity and retry.  Filters (``build_valid`` /
 ``probe_valid``) push into the exchange, and the received-slot masks feed the
 typed materializer, so the variants under filters match the single-device
 masked materializer row for row.
+
+On a mesh over several processes every process passes its own rows of both
+relations (``host_slice``'s layout, the same counts in every process) and
+gets the whole joined table, replicated: each process's pools are cut to
+the longest shard's rows (``pmax``) and gathered before the compaction
+(``mesh.gather_prefixes``), so the rows, their order,
+``count`` and ``matched`` are one process's bit for bit.
 """
 
 from __future__ import annotations
@@ -44,10 +51,9 @@ from typing import Optional
 
 import torch
 
-from partitionedhashjoin_tpu_torch.data.table import JoinedTable, Table
-from partitionedhashjoin_tpu_torch.ops.kernels import compact as kcompact
+from partitionedhashjoin_tpu_torch.data.table import JoinedTable, Table, make_table
 from partitionedhashjoin_tpu_torch.ops.sort_merge import _materialize_typed
-from partitionedhashjoin_tpu_torch.parallel.mesh import Mesh, psum, require_one_process
+from partitionedhashjoin_tpu_torch.parallel.mesh import Mesh, gather_prefixes
 from partitionedhashjoin_tpu_torch.parallel.shuffle import ExchangeRun, _ExchangeOperator
 
 
@@ -59,45 +65,34 @@ def _materialize_local(
     hk, hp, hv,
     join_type: str,
 ):
-    """Per-shard union materialize, the pools gathered in shard order.
+    """Per-shard union materialize into pools of the received probe slots
+    plus the local rows.
 
-    Returns ``(keys, pay_a, pay_b, matched, live, total)``: the S pools
-    concatenated (each shard's first ``count_s`` rows valid, flagged by
-    ``live``) and ``total``, the exact row count (0-dim int64)."""
-    s = mesh.size
+    Returns ``(counts, keys, pay_a, pay_b, matched)``: each local shard's
+    row count (``(local_size,)``) and its pool's columns, each
+    ``(local_size, pool)`` int32 (``matched`` as 0/1), the first
+    ``counts[i]`` rows of row ``i`` valid."""
+    lsz = mesh.local_size
     device = rk_a.device
     rka, rpa, rva, rkb, rpb, rvb = (
-        x.reshape(s, -1) for x in (rk_a, rp_a, rv_a, rk_b, rp_b, rv_b))
-    kb, pb, ihb = (x.reshape(s, -1) for x in (keys_b, pays_b, is_hot_b))
+        x.reshape(lsz, -1) for x in (rk_a, rp_a, rv_a, rk_b, rp_b, rv_b))
+    kb, pb, ihb = (x.reshape(lsz, -1) for x in (keys_b, pays_b, is_hot_b))
     pool = rkb.shape[1] + kb.shape[1]
-    keys = torch.empty((s, pool), dtype=rkb.dtype, device=device)
-    pay_a = torch.empty((s, pool), dtype=rpa.dtype, device=device)
-    pay_b = torch.empty((s, pool), dtype=rpb.dtype, device=device)
-    matched = torch.empty((s, pool), dtype=torch.bool, device=device)
+    cols = [torch.empty((lsz, pool), dtype=torch.int32, device=device)
+            for _ in range(4)]
     counts = []
-    for i in range(s):
+    for i in range(lsz):
         out = _materialize_typed(
             torch.cat([rka[i], hk]), torch.cat([rpa[i], hp]),
             torch.cat([rkb[i], kb[i]]), torch.cat([rpb[i], pb[i]]), join_type,
             build_valid=torch.cat([rva[i], hv]),
             probe_valid=torch.cat([rvb[i], ihb[i]]),
         )
-        for dst, src in zip((keys, pay_a, pay_b, matched), out[:4]):
+        for dst, src in zip(cols, out[:4]):
             dst[i].copy_(src)
         counts.append(out[4])
         del out
-    counts = torch.stack(counts)
-    live = torch.arange(pool, device=device)[None, :] < counts[:, None]
-    return (keys.reshape(-1), pay_a.reshape(-1), pay_b.reshape(-1),
-            matched.reshape(-1), live.reshape(-1), psum(counts, mesh))
-
-
-def _compact_gathered(keys, pa, pb, matched, live, total):
-    """Compact the gathered pools to a prefix, zeros after it: one stable
-    compaction of four int32 columns (K5 on the card)."""
-    count, _, k, a, b, m = kcompact.compact_rows(
-        live, [keys, pa, pb, matched.to(torch.int32)], live.shape[0])
-    return k, a, b, m > 0, count
+    return (torch.stack(counts), *cols)
 
 
 class DistributedMaterializeJoiner(_ExchangeOperator):
@@ -121,7 +116,6 @@ class DistributedMaterializeJoiner(_ExchangeOperator):
         hot_min_frac: float = 0.005,
         max_retries: int = 5,
     ) -> None:
-        require_one_process(mesh, "DistributedMaterializeJoiner")
         super().__init__(mesh, seed, slack, handle_skew, hot_capacity, hot_sample,
                          hot_min_frac, max_retries, "DistributedMaterialize")
         self.last_run: Optional[ExchangeRun] = None
@@ -146,26 +140,28 @@ class DistributedMaterializeJoiner(_ExchangeOperator):
                     f"{t.keys.dtype}, payloads {t.payloads.dtype})"
                 )
         s = self._num_shards
-        if build.size % s or probe.size % s:
-            raise ValueError("relation sizes must divide the shard count")
         device = self._mesh.device
         ka, pa, kb, pb = (x.to(device) for x in (build.keys, build.payloads,
                                                  probe.keys, probe.payloads))
         va, vb = (None if v is None else torch.as_tensor(v).to(device)
                   for v in (build_valid, probe_valid))
+        self._check_inputs(make_table(ka, pa), make_table(kb, pb), va, vb)
         hot_keys, hot_valid = self._hot_plan(kb)
         self.last_run = run = ExchangeRun(num_shards=s)
 
         def materialize_exchanged(exchanged, cap_a, cap_b):
             rk_a, rp_a, rv_a, rk_b, rp_b, rv_b, is_hot_b, hk, hp, hv, _ = exchanged
             exchanged.clear()
-            gathered = _materialize_local(
+            counts, *pools = _materialize_local(
                 self._mesh, rk_a, rp_a, rv_a, rk_b, rp_b, rv_b, kb, pb, is_hot_b,
                 hk, hp, hv, join_type,
             )
             del rk_a, rp_a, rv_a, rk_b, rp_b, rv_b, is_hot_b
-            keys, pay_a, pay_b, matched, count = _compact_gathered(*gathered)
-            del gathered
+            # one stable compaction of the four columns (K5 on the card)
+            keys, pay_a, pay_b, matched, count = gather_prefixes(
+                self._mesh, counts, pools[0].shape[1], *pools)
+            del pools
+            matched = matched > 0
             self._logger.info("Number of joined tuples: %d", int(count))
             return JoinedTable(keys=keys, payloads_a=pay_a, payloads_b=pay_b,
                                count=count, matched=matched)

@@ -33,8 +33,15 @@ local shard, and take the mesh:
   for other processes go through one ``all_to_all_single``;
 - ``all_gather(x, mesh)``: every shard's ``x[s]``, concatenated in global
   shard order (``all_gather_into_tensor`` across processes);
-- ``psum(x, mesh)``: the sum over the leading axis, then over the
-  processes (``all_reduce``).
+- ``psum(x, mesh)`` / ``pmax(x, mesh)``: the sum (the max) over the
+  leading axis, then over the processes (``all_reduce``);
+- ``check_local_rows(rows, mesh)``: every process's local row counts,
+  gathered and checked equal, so that a refusal raises in every process;
+- ``local_rows(mesh, cols, mask)``: the row layout of the distributed
+  operators: this process's rows checked, padded to its shards, with their
+  validity and the global row count;
+- ``gather_prefixes(mesh, nums, cap, *cols)``: every shard's valid prefix
+  packed into one, in global shard order, in every process.
 
 Across processes the collectives hand the group the card's tensors as they
 are, under NCCL and gloo alike.  Gloo (processes that share one card: NCCL
@@ -57,6 +64,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 
 from partitionedhashjoin_tpu_torch.data.table import Table
+from partitionedhashjoin_tpu_torch.ops.kernels import compact as kcompact
 from partitionedhashjoin_tpu_torch.utils.device import resolve_device
 
 SHARD_AXIS = "shards"
@@ -173,16 +181,6 @@ def make_mesh(num_devices: Optional[int] = None, devices=None) -> Mesh:
     return Mesh(device=distinct.pop(), size=size)
 
 
-def require_one_process(mesh: Mesh, what: str) -> None:
-    """Refuse ``what`` on a mesh over several processes: it is not ported
-    there (ROADMAP Queue 1 item 6d)."""
-    if mesh.process_count > 1:
-        raise NotImplementedError(
-            f"{what} on a mesh over {mesh.process_count} processes is not yet "
-            "ported (ROADMAP Queue 1 item 6d); it runs on a one-process mesh"
-        )
-
-
 def row_sharding(mesh: Mesh) -> Sharding:
     """Rows split across the shard axis."""
     return Sharding(mesh, (SHARD_AXIS,))
@@ -296,6 +294,17 @@ def all_gather(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
         flat.numel() * flat.element_size() * (mesh.process_count - 1))
 
 
+def _all_reduce(x: torch.Tensor, mesh: Mesh, name: str, op) -> torch.Tensor:
+    import torch.distributed as dist
+
+    def reduce(out, inp):
+        out.copy_(inp)
+        dist.all_reduce(out, op=op, group=mesh.group)
+
+    return _collective(mesh, name, torch.empty_like(x), reduce, x,
+                       x.numel() * x.element_size())
+
+
 def psum(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     """The sum of the values ``x[i]`` over the leading axis (this process's
     shards), then over the processes."""
@@ -304,9 +313,107 @@ def psum(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
         return local
     import torch.distributed as dist
 
-    def reduce(out, inp):
-        out.copy_(inp)
-        dist.all_reduce(out, group=mesh.group)
+    return _all_reduce(local, mesh, "psum", dist.ReduceOp.SUM)
 
-    return _collective(mesh, "psum", torch.empty_like(local), reduce, local,
-                       local.numel() * local.element_size())
+
+def pmax(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """The max of the values ``x[i]`` over the leading axis (this process's
+    shards), then over the processes: ``jax.lax.pmax``."""
+    local = x.amax(dim=0)
+    if mesh.process_count == 1:
+        return local
+    import torch.distributed as dist
+
+    return _all_reduce(local, mesh, "pmax", dist.ReduceOp.MAX)
+
+
+def check_local_rows(rows: Sequence[int], mesh: Mesh, what: str = "relation",
+                     problem: Optional[str] = None) -> None:
+    """Raise ``ValueError`` in every process unless each count in ``rows``
+    (this process's rows of each input) divides by the process's shard
+    count and equals the other processes' (gathered, so that the check
+    raises alike in every process, where a check on the local counts alone
+    would raise in one while the others wait in a collective): the row layout
+    of ``host_slice``, in which global shard ``s`` holds the rows ``[s * n
+    // S, (s + 1) * n // S)``.  ``problem``, a local refusal found by the
+    caller (a mask of the wrong shape), raises here too, in its own process
+    with its words and in every other."""
+    every = [[*rows, problem is not None]]
+    if mesh.process_count > 1:  # one small all_gather of every process's counts
+        x = torch.tensor(every[0], dtype=torch.int64, device=mesh.device)
+        every = all_gather(x[None], mesh).view(mesh.process_count, -1).tolist()
+    if problem is not None:
+        raise ValueError(problem)
+    refused = [q for q, r in enumerate(every) if r[-1]]
+    if refused:
+        raise ValueError(f"process {refused[0]} refused its {what} inputs")
+    every = [r[:-1] for r in every]
+    if any(r != every[0] for r in every):
+        raise ValueError(
+            f"the processes hold unequal {what} row counts {every}: each must "
+            "pass its host_slice of the global rows, the same count in every "
+            "process"
+        )
+    if any(n % mesh.local_size for n in every[0]):
+        raise ValueError(
+            f"{what} sizes must divide the shard count (this process's rows "
+            f"{every[0]} over its {mesh.local_size} shards)"
+        )
+
+
+def local_rows(mesh: Mesh, cols: Sequence[torch.Tensor], mask=None,
+               what: str = "relation"):
+    """The row layout that the distributed operators share.  ``cols`` are
+    this process's rows of one relation (``host_slice``'s layout; on one
+    process the whole relation) and ``mask`` their validity, one flag per
+    row.  The mask's shape is checked, and across processes the row counts
+    (``check_local_rows``), so that a refusal raises in every process.  The
+    columns are placed on the mesh's device and padded with zeros to a
+    multiple of ``local_size``: on one process that pads to S, across
+    processes the checked counts divide already.  Returns ``(n, valid,
+    cols)``: the global row count (this process's times the process count),
+    the padded rows' validity (False on padding and masked-out rows) and
+    the padded columns."""
+    device = mesh.device
+    n_local = cols[0].shape[0]
+    m = problem = None
+    if mask is not None:
+        m = torch.as_tensor(mask).to(device=device, dtype=torch.bool)
+        if m.shape != (n_local,):
+            problem = f"mask shape {tuple(m.shape)} must match table rows ({n_local},)"
+    if mesh.process_count > 1:
+        check_local_rows([n_local], mesh, what, problem=problem)
+    elif problem is not None:
+        raise ValueError(problem)
+    pad = -n_local % mesh.local_size
+    cols = [c.to(device) for c in cols]
+    if pad:
+        cols = [torch.cat([c, c.new_zeros((pad,))]) for c in cols]
+    valid = torch.arange(n_local + pad, device=device) < n_local
+    if m is not None:
+        valid[:n_local] &= m
+    return n_local * mesh.process_count, valid, cols
+
+
+def gather_prefixes(mesh: Mesh, nums: torch.Tensor, cap: int, *columns):
+    """The per-shard valid prefixes (``nums`` rows of each ``(local_size,
+    cap)`` int32 column) packed into one global prefix in global shard
+    order, zeros after it, ``S * cap`` long: the distributed GROUP BY's
+    merged groups (owners hold disjoint keys, so the concatenation is the
+    global result) and the materializer's pools.  Across processes each
+    process's columns are first cut to the widest shard's prefix (``pmax``)
+    and gathered with the counts, so that every process holds every shard's
+    rows; the packed result is the one-process result bit for bit.  One
+    compaction, K5 on the card, its plain version on a CPU tensor.  Returns
+    ``(*cols, count)``."""
+    width = cap
+    if mesh.process_count > 1:
+        width = max(1, int(pmax(nums, mesh)))
+        columns = [all_gather(c[:, :width].contiguous(), mesh).view(mesh.size, width)
+                   for c in columns]
+        nums = all_gather(nums, mesh)
+    slot = torch.arange(width, device=nums.device)
+    keep = (slot[None, :] < nums[:, None]).reshape(-1)
+    count, _, *outs = kcompact.compact_rows(
+        keep, [c.reshape(-1) for c in columns], mesh.size * cap)
+    return (*outs, count)

@@ -20,6 +20,11 @@ packed pair), never K3 for k = 2 as on one device: the JAX protocol, kept
 as it is.  No heavy-hitter replication: a hot TUPLE costs balance, and the
 capacity retries absorb it.  ``last_run`` records each attempt's drops and
 the exchange bytes.
+
+On a mesh over several processes every process passes its own rows of each
+column (``host_slice``'s layout, the same counts in every process): the
+tuple hash routes by the global S, the drops are ``psum``'d before the
+retry decision and the count is global in every process.
 """
 
 from __future__ import annotations
@@ -31,9 +36,9 @@ import torch
 from partitionedhashjoin_tpu_torch.ops import hash_table as ht
 from partitionedhashjoin_tpu_torch.ops import hashing
 from partitionedhashjoin_tpu_torch.ops import multi_key
-from partitionedhashjoin_tpu_torch.parallel.aggregate_shuffle import _a2a, _random_seed
-from partitionedhashjoin_tpu_torch.parallel.mesh import Mesh, psum, require_one_process
-from partitionedhashjoin_tpu_torch.parallel.shuffle import ExchangeRun, _bucketize
+from partitionedhashjoin_tpu_torch.parallel.aggregate_shuffle import _a2a
+from partitionedhashjoin_tpu_torch.parallel.mesh import Mesh, local_rows, psum
+from partitionedhashjoin_tpu_torch.parallel.shuffle import ExchangeRun, _bucketize, _random_seed
 from partitionedhashjoin_tpu_torch.utils.logger import get_new_logger
 
 _MASK = 0xFFFFFFFF
@@ -57,26 +62,28 @@ def _mk_exchange_and_count(mesh: Mesh, a_cols, b_cols, a_valid, b_valid,
                            shard_seed, cap_a: int, cap_b: int):
     """Tuple-hash routing, bucket exchange of every key column, and each
     shard's multi-key count with its tag column, ``psum``'d.  Returns
-    ``(count, dropped_a, dropped_b)``, 0-dim int64 tensors."""
-    s = mesh.size
-    a2 = [c.reshape(s, -1) for c in a_cols]
-    b2 = [c.reshape(s, -1) for c in b_cols]
+    ``(count, dropped_a, dropped_b)``, 0-dim int64 tensors, each summed
+    over every shard of the mesh."""
+    s, lsz = mesh.size, mesh.local_size
+    a2 = [c.reshape(lsz, -1) for c in a_cols]
+    b2 = [c.reshape(lsz, -1) for c in b_cols]
     dest_a = (_hash_tuple(a2, shard_seed) & (s - 1)).to(torch.int32)
     dest_b = (_hash_tuple(b2, shard_seed) & (s - 1)).to(torch.int32)
-    *ba, bv_a, drop_a = _bucketize(dest_a, a_valid.reshape(s, -1), cap_a, s, *a2)
-    *bb, bv_b, drop_b = _bucketize(dest_b, b_valid.reshape(s, -1), cap_b, s, *b2)
+    *ba, bv_a, drop_a = _bucketize(dest_a, a_valid.reshape(lsz, -1), cap_a, s, *a2)
+    *bb, bv_b, drop_b = _bucketize(dest_b, b_valid.reshape(lsz, -1), cap_b, s, *b2)
     ra = [_a2a(c, mesh) for c in ba]
     rb = [_a2a(c, mesh) for c in bb]
     rv_a, rv_b = _a2a(bv_a, mesh), _a2a(bv_b, mesh)
     del ba, bb, bv_a, bv_b
     counts = []
-    for i in range(s):
+    for i in range(lsz):
         # tag column: 0 = live row; 1/2 = dead build/probe slot
         tag_a = torch.where(rv_a[i], 0, 1).to(torch.int32)
         tag_b = torch.where(rv_b[i], 0, 2).to(torch.int32)
         counts.append(multi_key.multi_key_count([c[i] for c in ra] + [tag_a],
                                                 [c[i] for c in rb] + [tag_b]))
-    return psum(torch.stack(counts), mesh), drop_a, drop_b
+    drops = psum(torch.stack([drop_a, drop_b])[None], mesh)
+    return psum(torch.stack(counts), mesh), drops[0], drops[1]
 
 
 def _split_i64(keys) -> tuple:
@@ -95,7 +102,8 @@ class MultiKeyShuffleJoiner:
     (probe rows whose full key tuple appears among build rows), equal to
     ``ops/multi_key.multi_key_count`` on one device.  Bucket capacities
     retry with doubled slack on overflow.  Columns are placed on the mesh's
-    device.
+    device; across processes they are this process's rows and the count is
+    the global one.
     """
 
     def __init__(
@@ -105,30 +113,17 @@ class MultiKeyShuffleJoiner:
         slack: float = 2.0,
         max_retries: int = 4,
     ) -> None:
-        require_one_process(mesh, "MultiKeyShuffleJoiner")
         self._mesh = mesh
         self._num_shards = int(mesh.size)
         if self._num_shards & (self._num_shards - 1):
             raise ValueError("mesh size must be a power of 2")
         if seed is None:
-            seed = _random_seed()
+            seed = _random_seed(mesh)
         self._shard_seed = seed & _MASK
         self._slack = slack
         self._max_retries = max_retries
         self._logger = get_new_logger("MultiKeyShuffleJoiner")
         self.last_run: Optional[ExchangeRun] = None
-
-    def _pad(self, cols, n):
-        """Pad each column (and build the validity mask) so rows divide the
-        shard count; padded rows are dropped at bucketize (valid=False)."""
-        s = self._num_shards
-        device = self._mesh.device
-        padded = (n + s - 1) // s * s
-        cols = tuple(c.to(device) for c in cols)
-        if padded != n:
-            cols = tuple(torch.cat([c, c.new_zeros((padded - n,))]) for c in cols)
-        valid = torch.arange(padded, device=device) < n
-        return cols, valid, padded
 
     def _capacity(self, rows_per_shard: int, slack: float) -> int:
         per_dest = rows_per_shard / self._num_shards
@@ -145,19 +140,17 @@ class MultiKeyShuffleJoiner:
         probe_cols: Sequence[torch.Tensor],
     ) -> int:
         build_cols, probe_cols = multi_key._check_sides(build_cols, probe_cols)
-        n_a = build_cols[0].shape[0]
-        n_b = probe_cols[0].shape[0]
-        s = self._num_shards
+        s, lsz = self._num_shards, self._mesh.local_size
+        n_a, a_valid, a_cols = local_rows(self._mesh, build_cols, what="build")
+        n_b, b_valid, b_cols = local_rows(self._mesh, probe_cols, what="probe")
         self.last_run = run = ExchangeRun(num_shards=s)
         if n_a == 0 or n_b == 0:
             return 0
-        a_cols, a_valid, pad_a = self._pad(build_cols, n_a)
-        b_cols, b_valid, pad_b = self._pad(probe_cols, n_b)
 
         slack = self._slack
         for _ in range(self._max_retries):
-            cap_a = self._capacity(pad_a // s, slack)
-            cap_b = self._capacity(pad_b // s, slack)
+            cap_a = self._capacity(a_valid.shape[0] // lsz, slack)
+            cap_b = self._capacity(b_valid.shape[0] // lsz, slack)
             count, drop_a, drop_b = _mk_exchange_and_count(
                 self._mesh, a_cols, b_cols, a_valid, b_valid,
                 self._shard_seed, cap_a, cap_b,

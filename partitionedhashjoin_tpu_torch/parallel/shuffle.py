@@ -77,6 +77,7 @@ from partitionedhashjoin_tpu_torch.parallel.mesh import (
     Mesh,
     all_gather,
     all_to_all,
+    check_local_rows,
     psum,
 )
 from partitionedhashjoin_tpu_torch.utils.device import sync
@@ -582,6 +583,18 @@ class ExchangeRun:
             self.exchange_bytes = s * s * (cap_a * ROW_SLOT_BYTES + cap_b * b_slot_bytes)
 
 
+def _random_seed(mesh: Mesh) -> int:
+    """A fresh seed for ``seed=None``; refused on a mesh over several
+    processes, where each would draw its own and route rows differently."""
+    if mesh.process_count > 1:
+        raise ValueError(
+            f"seed=None on a mesh over {mesh.process_count} processes: each "
+            "would draw its own entropy and hash rows differently; pass one "
+            "seed to every process"
+        )
+    return int(np.random.SeedSequence().entropy & _MASK)
+
+
 class _ExchangeOperator:
     """The knobs and the retry policy that the shuffle join and the
     operators on its exchange share: seeds, the hot-key plan, the bucket
@@ -595,13 +608,7 @@ class _ExchangeOperator:
         if self._num_shards & (self._num_shards - 1):
             raise ValueError("mesh size must be a power of 2")
         if seed is None:
-            if mesh.process_count > 1:
-                raise ValueError(
-                    f"seed=None on a mesh over {mesh.process_count} processes: "
-                    "each would draw its own entropy and hash rows differently; "
-                    "pass one seed to every process"
-                )
-            seed = int(np.random.SeedSequence().entropy & _MASK)
+            seed = _random_seed(mesh)
         self._seed = seed & _MASK
         self._shard_seed = self._seed
         self._hot_seed = (seed ^ 0x9E3779B9) & _MASK
@@ -629,6 +636,27 @@ class _ExchangeOperator:
         device = keys_b.device
         return (torch.zeros((self._hot_capacity,), dtype=torch.int32, device=device),
                 torch.zeros((self._hot_capacity,), dtype=torch.bool, device=device))
+
+    def _check_inputs(self, table_a: Table, table_b: Table, valid_a, valid_b):
+        """The shared input contract (``mesh.check_local_rows``): this
+        process's rows of each relation divide by its shards and equal the
+        other processes', the masks (per local row) and the tables sit on
+        the mesh's device; any refusal raises in every process."""
+        problem = None
+        for name, t, table in (("table_a", table_a.keys, table_a),
+                               ("table_b", table_b.keys, table_b),
+                               ("valid_a", valid_a, table_a),
+                               ("valid_b", valid_b, table_b)):
+            if t is None or problem is not None:
+                continue
+            if t.device != self._mesh.device:
+                problem = (f"{name} is on {t.device}, the mesh on "
+                           f"{self._mesh.device}; place it with shard_table / "
+                           "shard_array")
+            elif t.shape != (table.size,):
+                problem = (f"{name} has shape {tuple(t.shape)}, the relation "
+                           f"{table.size} rows")
+        check_local_rows([table_a.size, table_b.size], self._mesh, problem=problem)
 
     def _exchange_with_retries(self, keys_a, pays_a, keys_b, pays_b, hot_keys,
                                hot_valid, valid_a, valid_b, run, consume, what,
@@ -724,26 +752,6 @@ class DistributedShuffleJoiner(_ExchangeOperator):
         self._pipeline_chunks = pipeline_chunks
         self._bucket_seed = (self._seed ^ 0xC2B2AE35) & _MASK
         self.last_run: Optional[ShuffleRun] = None
-
-    def _check_inputs(self, table_a: Table, table_b: Table, valid_a, valid_b):
-        s = self._mesh.local_size
-        if table_a.size % s or table_b.size % s:
-            raise ValueError("relation sizes must divide the shard count (this "
-                             "process's rows over its shards)")
-        for name, t, table in (("table_a", table_a.keys, table_a),
-                               ("table_b", table_b.keys, table_b),
-                               ("valid_a", valid_a, table_a),
-                               ("valid_b", valid_b, table_b)):
-            if t is None:
-                continue
-            if t.device != self._mesh.device:
-                raise ValueError(
-                    f"{name} is on {t.device}, the mesh on {self._mesh.device}; "
-                    "place it with shard_table / shard_array"
-                )
-            if t.shape != (table.size,):
-                raise ValueError(f"{name} has shape {tuple(t.shape)}, "
-                                 f"the relation {table.size} rows")
 
     def run(
         self,

@@ -12,6 +12,12 @@ order), and the candidates are gathered in shard order, so the final
 selection's ties fall in global row order too.  The masked variant orders
 by (invalid, value, row) with ``_valid_first_order`` (two stable sorts), so
 an invalid row can never displace a tied valid one.
+
+On a mesh over several processes every process passes its own rows
+(``host_slice``'s layout, the same count in every process) and its mask per
+local row; the candidates are gathered from every process in global shard
+order, the valid rows counted by ``psum``, so every process returns the
+global top k.
 """
 
 from __future__ import annotations
@@ -27,14 +33,15 @@ from partitionedhashjoin_tpu_torch.ops.order_by import (
 from partitionedhashjoin_tpu_torch.parallel.mesh import (
     Mesh,
     all_gather,
-    require_one_process,
+    local_rows,
+    psum,
 )
 
 
 def _shard_columns(mesh: Mesh, keys, pays, valid, by: str):
-    """(ordered column, carried column, valid), each ``(S, rows)``."""
+    """(ordered column, carried column, valid), each ``(local_size, rows)``."""
     col, other = (keys, pays) if by == "key" else (pays, keys)
-    return tuple(x.reshape(mesh.size, -1) for x in (col, other, valid))
+    return tuple(x.reshape(mesh.local_size, -1) for x in (col, other, valid))
 
 
 def _dist_top_k(mesh: Mesh, keys, pays, valid, k: int, by: str, descending: bool):
@@ -45,7 +52,7 @@ def _dist_top_k(mesh: Mesh, keys, pays, valid, k: int, by: str, descending: bool
     col, other, valid = _shard_columns(mesh, keys, pays, valid, by)
     least = torch.iinfo(col.dtype).min
     cand = []
-    for i in range(mesh.size):
+    for i in range(mesh.local_size):
         ranked = torch.where(valid[i], _order_key(col[i], not descending), least)
         idx = _top_k_indices(ranked, k)
         cand.append((ranked[idx], other[i][idx], valid[i][idx]))
@@ -66,7 +73,7 @@ def _dist_top_k_masked(mesh: Mesh, keys, pays, valid, k: int, by: str,
     ``n_valid`` is the global valid-row count."""
     col, other, valid = _shard_columns(mesh, keys, pays, valid, by)
     cand = []
-    for i in range(mesh.size):
+    for i in range(mesh.local_size):
         nrank = ~_order_key(col[i], not descending)  # ascending = best first
         invalid = ~valid[i]
         order = _valid_first_order(invalid, nrank)[:k]
@@ -75,7 +82,7 @@ def _dist_top_k_masked(mesh: Mesh, keys, pays, valid, k: int, by: str,
     forder = _valid_first_order(ginv, gnrank)[:k]
     ranked_out = ~gnrank[forder]
     col_out = ~ranked_out if not descending else ranked_out
-    return col_out, gother[forder], ~ginv[forder], valid.sum()
+    return col_out, gother[forder], ~ginv[forder], psum(valid.sum()[None], mesh)
 
 
 def distributed_top_k(
@@ -98,40 +105,30 @@ def distributed_top_k(
     prefix of the k-row table (rows past it are zeroed).  Without a mask,
     ``n_live == k``; with one (a pushed-down FILTER, the query layer's R2
     and R6) ``n_live = min(k, #valid rows)``, and an invalid row is never
-    selected.
+    selected.  On a mesh over several processes ``table`` and ``mask`` are
+    this process's rows, the result the global one (module docstring).
     """
-    require_one_process(mesh, "distributed_top_k")
     if by not in ("key", "payload"):
         raise ValueError(f"by must be 'key' or 'payload', got {by!r}")
-    n = table.size
-    s = int(mesh.size)
     if k <= 0:
         raise ValueError(f"k must be positive, got {k}")
+    n, valid, (keys, pays) = local_rows(mesh, [table.keys, table.payloads], mask)
     if k > n:
         raise ValueError(f"k={k} exceeds table size {n}")
-    device = mesh.device
-    padded = (n + s - 1) // s * s
-    keys, pays = table.keys.to(device), table.payloads.to(device)
-    if padded != n:
-        keys = torch.cat([keys, keys.new_zeros((padded - n,))])
-        pays = torch.cat([pays, pays.new_zeros((padded - n,))])
-    if k > padded // s:
+    per_shard = valid.shape[0] // mesh.local_size
+    if k > per_shard:
         raise ValueError(
-            f"k={k} exceeds the per-shard row count {padded // s}; "
+            f"k={k} exceeds the per-shard row count {per_shard}; "
             "use order_by on gathered data for relation-sized limits"
         )
-    valid = torch.arange(padded, device=device) < n
     if mask is not None:
-        m = torch.as_tensor(mask).to(device=device, dtype=torch.bool)
-        if padded != n:
-            m = torch.cat([m, m.new_zeros((padded - n,))])
         col, other, live, n_valid = _dist_top_k_masked(
-            mesh, keys, pays, valid & m, k, by, descending)
+            mesh, keys, pays, valid, k, by, descending)
         n_live = torch.clamp(n_valid, max=k)
         col = torch.where(live, col, 0).to(col.dtype)
         other = torch.where(live, other, 0).to(other.dtype)
     else:
         col, other, _ = _dist_top_k(mesh, keys, pays, valid, k, by, descending)
-        n_live = torch.tensor(k, dtype=torch.int64, device=device)
+        n_live = torch.tensor(k, dtype=torch.int64, device=mesh.device)
     out = make_table(col, other) if by == "key" else make_table(other, col)
     return out, n_live

@@ -43,7 +43,13 @@ Physical rewrite rules, with the JAX package's tags:
       the one-shuffle join-aggregate (the join exchange co-partitions the
       groups).  Filters push into the exchange bucketizer everywhere, so
       invalid rows never travel.  Other shapes raise ``PlanError`` with the
-      JAX package's words.
+      JAX package's words.  On a mesh over several processes
+      (``parallel.distributed.global_mesh``) each relation a process scans
+      is its own rows, and every process gets the global result: the
+      operators return it replicated, a count of scanned rows is
+      ``psum``'d, a scanned relation that is returned or aggregated whole
+      is gathered, and a replicated join output that feeds a distributed
+      GROUP BY is cut to the process's slice.
   R7  filtered JOIN → GROUP BY composes R5 with R3: K5 compacts the
       filtered probe, invalid build rows re-key to INT32_MIN (no surviving
       probe row holds it), and the kernel pipeline runs on the survivors;
@@ -158,6 +164,9 @@ class _T:
     mask: Optional[torch.Tensor] = None
     prefix_count: Optional[torch.Tensor] = None
     joined: Optional[JoinedTable] = None  # set by a materializing join
+    #: this process's rows of a relation scanned on a mesh over several
+    #: processes (R6); False for a value every process holds whole
+    local: bool = False
 
     def count(self) -> torch.Tensor:
         if self.prefix_count is not None:
@@ -340,8 +349,9 @@ class Query:
                 "aggregate() applies to a table stage (ordering cannot "
                 "change a scalar aggregate; drop the order_by/limit)"
             )
-        inner = _exec_table(self._node, _Ctx.make(mesh), [])
-        t = inner()
+        ctx = _Ctx.make(mesh)
+        inner = _exec_table(self._node, ctx, [])
+        t = _global_rows(inner(), ctx.mesh)
         return _scalar_aggregate(t.pays, t.effective_mask(), with_distinct)
 
     def explain(self, mesh=None) -> str:
@@ -373,15 +383,13 @@ class _Ctx:
 
     @classmethod
     def make(cls, mesh=None) -> "_Ctx":
-        from partitionedhashjoin_tpu_torch.parallel.mesh import Mesh, require_one_process
+        from partitionedhashjoin_tpu_torch.parallel.mesh import Mesh
 
         if mesh is not None and not isinstance(mesh, Mesh):
             raise PlanError(
                 "mesh must be a parallel.mesh.Mesh (make_mesh), not "
                 f"{type(mesh).__name__}"
             )
-        if mesh is not None:
-            require_one_process(mesh, "the query layer's mesh execution (R6)")
         return cls(mesh=mesh)
 
     def header(self) -> str:
@@ -413,7 +421,8 @@ def _exec_table(node, ctx: _Ctx, steps: list) -> Callable[[], _T]:
             f"{str(node.table.keys.dtype).removeprefix('torch.')})"
         )
         t = node.table
-        return lambda: _T(t.keys, t.payloads)
+        local = ctx.mesh is not None and ctx.mesh.process_count > 1
+        return lambda: _T(t.keys, t.payloads, local=local)
     if isinstance(node, _Filter):
         inner = _exec_table(node.child, ctx, steps)
         steps.append("filter -> validity mask, no materialization (R2)")
@@ -425,7 +434,7 @@ def _exec_table(node, ctx: _Ctx, steps: list) -> Callable[[], _T]:
             em = t.effective_mask()  # folds a join output's prefix_count
             if em is not None:
                 m = m & em
-            return _T(t.keys, t.pays, m)
+            return _T(t.keys, t.pays, m, local=t.local)
 
         return run
     if isinstance(node, _Join):
@@ -441,6 +450,34 @@ def _exec_join_sides(node: _Join, ctx: _Ctx, steps: list):
     steps.extend(psteps)
     steps.extend("  [build] " + s for s in bsteps)
     return build, probe
+
+
+def _global_rows(t: _T, mesh) -> _T:
+    """R6 across processes: a value of this process's rows as the global
+    relation, gathered from every process in process order (the processes'
+    row counts checked equal first, in every process); any other value as
+    it is."""
+    if not t.local:
+        return t
+    from partitionedhashjoin_tpu_torch.parallel.mesh import all_gather, check_local_rows
+
+    check_local_rows([t.keys.shape[0]], mesh)
+    mask = None if t.mask is None else all_gather(t.mask, mesh)
+    return _T(all_gather(t.keys, mesh), all_gather(t.pays, mesh), mask)
+
+
+def _process_rows(t: _T, mesh) -> _T:
+    """R6 across processes: the rows this process hands a distributed
+    operator: its own rows of a scanned relation as they are, and its
+    ``host_slice`` of a value that every process holds whole (a
+    materialized join's output), with the validity folded into one
+    mask."""
+    if t.local or mesh.process_count == 1:
+        return t
+    rows = t.keys.shape[0] // mesh.process_count
+    cut = slice(mesh.process_index * rows, (mesh.process_index + 1) * rows)
+    m = t.effective_mask()
+    return _T(t.keys[cut], t.pays[cut], None if m is None else m[cut], local=True)
 
 
 def _join_is_plain(node: _Join) -> bool:
@@ -556,7 +593,7 @@ def _compile(node, ctx: _Ctx) -> _Plan:
             steps.append("emit TableResult (compact if filtered)")
 
             def run_table():
-                t = inner()
+                t = _global_rows(inner(), ctx.mesh)
                 if t.mask is None:
                     return TableResult(make_table(t.keys, t.pays), t.count())
                 from partitionedhashjoin_tpu_torch.ops.filter import compact_sort
@@ -941,7 +978,7 @@ def _exec_group_mesh(node: _GroupBy, ctx: _Ctx, steps: list):
             DistributedAggregateOperator,
         )
 
-        t = inner()
+        t = _process_rows(inner(), mesh)
         return DistributedAggregateOperator(mesh, seed=_MESH_SEED).run(
             make_table(t.keys, t.pays), group_capacity=cap,
             mask=t.mask, with_distinct=wd,
@@ -1248,7 +1285,13 @@ def _compile_count(node, ctx: _Ctx) -> _Plan:
         steps.append("count -> mask popcount (no materialization, R1)")
 
         def run():
-            return inner().count()
+            t = inner()
+            if not t.local:
+                return t.count()
+            from partitionedhashjoin_tpu_torch.parallel.mesh import check_local_rows, psum
+
+            check_local_rows([t.keys.shape[0]], ctx.mesh)
+            return psum(t.count()[None], ctx.mesh)
 
     if k_limit is None:
         return _Plan(steps, run)

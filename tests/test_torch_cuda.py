@@ -1378,6 +1378,69 @@ def test_two_process_shuffle_join_on_one_card(cuda):
         assert line == f"MP_OK pid={pid} counts=4096,4096,4096 backend=gloo"
 
 
+def _two_process_ops_equal_one_process(cuda, steps):
+    """The dry-run ``ops`` worker in 2 processes x 4 shards on the card
+    (gloo) at 40,000 x 400,000: each step's digest and ``last_run`` equal
+    the one-process 8-shard run's on the same rows, in both processes.
+    Returns the records, by step and process."""
+    import json
+    import os
+    import sys
+
+    from partitionedhashjoin_tpu_torch import bench_pipeline, dryrun
+    from partitionedhashjoin_tpu_torch.parallel import mesh as pm
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    size = ["--primary", "40000", "--secondary", "400000", "--seed", "11",
+            "--group-capacity", str(1 << 16)]
+    coord = dryrun.free_coordinator()
+    results = dryrun.run_processes(
+        [[sys.executable, "-m", "partitionedhashjoin_tpu_torch.dryrun", "ops", coord, "2",
+          str(pid), "--platform", "cuda", *size, "--steps", *steps] for pid in range(2)],
+        300, env={**os.environ, "PYTHONPATH": repo}, cwd=repo)
+    records = {}
+    for _, out, _ in results:
+        for line in out.splitlines():
+            if line.startswith("MP_OPS "):
+                rec = json.loads(line.removeprefix("MP_OPS "))
+                records.setdefault(rec["step"], []).append(rec)
+    assert sorted(records) == sorted(steps)
+    rel = bench_pipeline.make_relations(40000, 400000, cuda)
+    runs = dict(dryrun.ops_steps(pm.make_mesh(8, devices=[cuda]), rel, 11, 1 << 16))
+    for name in steps:
+        out, last_run = runs[name]()
+        want = json.loads(json.dumps([dryrun.digest(out), dryrun.digest(last_run)]))
+        assert len(records[name]) == 2
+        for rec in records[name]:
+            assert [rec["digest"], rec["run"]] == want, (name, rec["pid"])
+            assert rec["backend"] == "gloo" and rec["device_ms"] > 0
+    return records
+
+
+def test_two_process_group_by_on_one_card(cuda):
+    """The distributed GROUP BY, plain, masked and COUNT DISTINCT, over 2
+    processes that share the card, equals the one-process run; K5 and K7
+    launch inside each process."""
+    records = _two_process_ops_equal_one_process(
+        cuda, ["(a) aggregate", "(a) aggregate mask", "(a) aggregate distinct"])
+    for recs in records.values():
+        for rec in recs:
+            assert rec["launches"]["k5"] > 0 and rec["launches"]["k7"] > 0
+            assert rec["comm_sent"]["all_to_all"] > 0 and rec["comm_sent"]["pmax"] > 0
+
+
+def test_two_process_materialize_on_one_card(cuda):
+    """The four materializing joins over 2 processes that share the card
+    equal the one-process rows, order, count and matched flags; K5 and K7
+    launch inside each process."""
+    records = _two_process_ops_equal_one_process(
+        cuda, ["(d) materialize inner", "(d) materialize anti", "(d) materialize left",
+               "(d) materialize semi mask"])
+    for recs in records.values():
+        for rec in recs:
+            assert rec["launches"]["k5"] > 0 and rec["launches"]["k7"] > 0
+
+
 def test_nccl_on_a_shared_card_raises(cuda):
     """Two processes on the one card asking for backend="nccl" both raise
     once they have read each other's card from the store, before any group

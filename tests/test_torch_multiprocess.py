@@ -315,52 +315,6 @@ def test_seed_none_refused_across_processes(scenario):
         assert "seed=None on a mesh over 2 processes" in res["seed_none"]
 
 
-def _two_process_mesh():
-    """A mesh as ``global_mesh(8)`` gives process 0 of 2; nothing here
-    reaches a collective, so it needs no group."""
-    return pm.Mesh(device=torch.device("cpu"), size=8, process_index=0, process_count=2,
-                   backend="gloo")
-
-
-def _refused_operators():
-    from partitionedhashjoin_tpu_torch.parallel.aggregate_shuffle import (
-        DistributedAggregateOperator,
-    )
-    from partitionedhashjoin_tpu_torch.parallel.join_aggregate import (
-        DistributedJoinAggregateOperator,
-    )
-    from partitionedhashjoin_tpu_torch.parallel.materialize_shuffle import (
-        DistributedMaterializeJoiner,
-    )
-    from partitionedhashjoin_tpu_torch.parallel.multi_key_shuffle import MultiKeyShuffleJoiner
-    from partitionedhashjoin_tpu_torch.parallel.top_k import distributed_top_k
-    from partitionedhashjoin_tpu_torch.query import scan
-    from partitionedhashjoin_tpu_torch.sql import execute_sql
-
-    t = table_from_numpy(np.arange(1, 65, dtype=np.int32), np.arange(64, dtype=np.int32),
-                         "cpu")
-    return {
-        "aggregate": lambda m: DistributedAggregateOperator(m, seed=1),
-        "join_aggregate": lambda m: DistributedJoinAggregateOperator(m, seed=1),
-        "materialize": lambda m: DistributedMaterializeJoiner(m, seed=1),
-        "multi_key": lambda m: MultiKeyShuffleJoiner(m, seed=1),
-        "top_k": lambda m: distributed_top_k(m, t, 4),
-        "query_r6": lambda m: scan(t).join(scan(t)).count(mesh=m),
-        "sql_r6": lambda m: execute_sql("SELECT COUNT(*) FROM b JOIN a USING (key)",
-                                        {"a": t, "b": t}, mesh=m),
-    }
-
-
-@pytest.mark.parametrize("name", list(_refused_operators()))
-def test_operators_refuse_a_mesh_over_processes(name):
-    """The PR 12 operators and R6 are not ported across processes (ROADMAP
-    item 6d): each raises on such a mesh, and runs on a one-process one."""
-    make = _refused_operators()[name]
-    with pytest.raises(NotImplementedError, match="item 6d"):
-        make(_two_process_mesh())
-    make(pm.make_mesh(8, devices=["cpu"]))
-
-
 def test_cli_renders_on_process_zero(tmp_path):
     """As tests/test_multiprocess.py's CLI test: two processes, 8 shards;
     process 0 writes the one document, process 1 prints none."""
