@@ -40,7 +40,10 @@ and raises on the first failure:
              constant operands whose every digit is skipped, keys in
              [1, 10M], INT32_MIN/MAX-only operands, and 600,000,001 rows at
              k = 1 so that byte offsets pass 2^31, exactly), and its two
-             phase counterparts, phase A K6a and merge pass K6b; K7 (the
+             phase counterparts, phase A K6a (the block-local radix sort:
+             also eight edge blocks side by side, each with its own varying
+             digits, and their views off a 16-byte boundary) and merge pass
+             K6b; K7 (the
              seeded hash, bitwise) and
              K8 (the Zipf sampler: its uniforms bit for bit, at most 1e-4 of
              its keys off by at most 2, also with 1 round; with 0 rounds
@@ -51,7 +54,8 @@ and raises on the first failure:
              (``torch.sort`` for a 1-operand sort, also over the main
              path's 200M Zipf probe keys, the packed int64
              ``sort_by_key_payload`` for 2 operands, the batched
-             ``torch.sort(..., dim=1)`` over one row per block for K6a and
+             ``torch.sort(..., dim=1)`` over one row per block for K6a, at
+             k = 1 and over the packed int64 (key, payload) at k = 2, and
              per pair of runs for K6b, each also checked equal to them).
 4. library — at 10M ⋈ 200M: ``sort_merge_count`` and ``anti_count`` through
              K2, ``two_run_count_i64`` and an int64 ``PreparedBuild`` through
@@ -1180,6 +1184,47 @@ def _radix_edge_operands(torch, device, gen, k, n):
     }
 
 
+def _block_edge_operands(torch, device, gen, k, blk):
+    """K6a's edge blocks side by side, one ``blk``-row block each, every
+    block with its own set of varying digits (a digit plan shared across
+    blocks would fail): one tuple; only byte 0 of the last operand varies;
+    only the top byte varies; INT32_MIN, -1, 0 and INT32_MAX; keys in
+    [1, 10M]; a narrow leading operand with full-domain trailing ones; 90%
+    of rows one tuple; every row INT32_MAX."""
+
+    def rand(lo, hi):
+        return torch.randint(lo, hi, (blk,), generator=gen, dtype=torch.int64,
+                             device=device)
+
+    def full():
+        return torch.randint(I32_MIN, I32_MAX, (blk,), generator=gen,
+                             dtype=torch.int32, device=device)
+
+    def const(v):
+        return torch.full((blk,), v, dtype=torch.int32, device=device)
+
+    def top_byte():
+        biased = (rand(0, 256) << 24) | 0x00ABCDEF
+        return (biased - (biased >= 2**31).to(torch.int64) * 2**32).to(torch.int32)
+
+    ends = torch.tensor([I32_MIN, -1, 0, I32_MAX], dtype=torch.int32,
+                        device=device)
+    hot = torch.rand(blk, generator=gen, device=device) < 0.9
+    narrow = [rand(-2, 2).to(torch.int32) for _ in range(k - 1)]
+    blocks = [
+        [const(5 - c) for c in range(k)],
+        [const(-c) for c in range(k - 1)]
+        + [(0x12345600 | rand(0, 256)).to(torch.int32)],
+        [top_byte() for _ in range(k)],
+        [ends[rand(0, 4)] for _ in range(k)],
+        narrow + [rand(1, N_PRIMARY + 1).to(torch.int32)],
+        [rand(-3, 3).to(torch.int32)] + [full() for _ in range(k - 1)],
+        [torch.where(hot, 7, full()) for _ in range(k)],
+        [const(I32_MAX) for _ in range(k)],
+    ]
+    return [torch.cat([b[c] for b in blocks]) for c in range(k)]
+
+
 def parity_k6(torch, device):
     """The full sort (the radix sort), K6a and K6b against their plain
     versions at 1 to 4 operands; then times at 200M rows (and 10M at
@@ -1224,6 +1269,15 @@ def parity_k6(torch, device):
         par_a.check_tensors(f"sort_blocks k={k} n={n}",
                             lambda: bs.sort_blocks_tuple(*cols),
                             lambda: bs.sort_blocks_plain(*cols))
+        # the edge blocks in one call, then as views off a 16-byte boundary
+        edges = _block_edge_operands(torch, device, gen, k, blk)
+        shifted = [torch.cat([c[:1], c])[1:] for c in edges]
+        for name, ops in (("edge blocks", edges),
+                          ("edge blocks, unaligned", shifted)):
+            par_a.check_tensors(f"sort_blocks k={k} {name}",
+                                lambda: bs.sort_blocks_tuple(*ops),
+                                lambda: bs.sort_blocks_plain(*ops))
+        del edges, shifted
         # runs of 1 and 4 blocks, and of 3 blocks (lone and truncated runs)
         for run in (blk, 4 * blk, 3 * blk):
             src = [c.contiguous() for c in bs._segment_sort_plain(cols, run)]
@@ -1265,52 +1319,97 @@ def parity_k6(torch, device):
           lambda: sort_ops.sort_by_key_payload(x, pay))
     inv = torch.zeros_like(x)
     timed("(invalid flag, key, payload): masked GROUP BY pass 1", [inv, x, pay])
-    del inv, pay
+    del inv
     _, zipf = _reference_data(torch, device, torch.int32)
     timed("the main path's Zipf probe keys", [zipf], lambda: torch.sort(zipf).values)
     del zipf
 
-    # the phases alone at k = 1 over whole blocks
+    # the phases alone over whole blocks
     n = N_SECONDARY // blk * blk
-    xb = x[:n]
-    del x
-    a_ms, a_plain_ms = _time_pair(torch, lambda: bs.sort_blocks_tuple(xb),
-                                  lambda: bs.sort_blocks_plain(xb), rounds=2, reps=3)
-    blocks = bs.sort_blocks_tuple(xb)[0]
-    b_ms, b_plain_ms = _time_pair(
-        torch, lambda: bs.merge_pass_tuple(blocks, run_len=blk),
-        lambda: bs.merge_pass_plain(blocks, run_len=blk), rounds=2, reps=3)
-    # the library's batched segmented sort: one row per block, and one row
-    # per pair of runs (n holds an even number of blocks)
-    pairs = blocks[: n // (2 * blk) * 2 * blk]
+    k6a, k6b = time_block_phases(torch, bs, x[:n], pay[:n])
+    del x, pay
+    k6a["max_abs_err"] = max(k6a["max_abs_err"], par_a.max_err)
+    k6b["max_abs_err"] = max(k6b["max_abs_err"], par_b.max_err)
+    sort_ms, sort_plain_ms, sort_bound, sort_lib_ms = stat
+    return k6a, k6b, {
+        "max_abs_err": par.max_err, "ms": sort_ms, "plain_ms": sort_plain_ms,
+        "bound_ms": sort_bound, "library_ms": sort_lib_ms,
+    }
+
+
+def time_block_phases(torch, bs, x, pay):
+    """K6a over ``x`` (k = 1) and ``(x, pay)`` (k = 2, payloads in
+    [0, 2^31)), and one K6b pass (runs of one block) over x's sorted blocks,
+    each timed beside its plain version, its bound and the library's
+    batched segmented sort (one row per block, or per pair of runs; at
+    k = 2 over the packed int64 (key << 32 | payload), packed and unpacked
+    in the call), and checked equal to the library's result.  ``x`` holds
+    whole blocks of the module ``bs`` (the port's ``bitonic_sort``, or
+    another tree's, to time two versions by the same code).  Returns the
+    stats of K6a (k = 2 under ``"k2"``) and of K6b."""
+    blk = bs.BLK
+    n = x.shape[0]
+    par_a, par_b = Parity(torch, "K6a"), Parity(torch, "K6b")
 
     def sort_rows(t, width):
         return torch.sort(t.view(-1, width), dim=1).values
 
-    a_lib_ms = _time_ms(torch, lambda: sort_rows(xb, blk), reps=3)
-    b_lib_ms = _time_ms(torch, lambda: sort_rows(pairs, 2 * blk), reps=3)
+    def packed_rows():
+        key_pay = (x.to(torch.int64) << 32) | pay.to(torch.int64)
+        s = sort_rows(key_pay, blk).view(-1)
+        return [(s >> 32).to(torch.int32), (s & 0x7FFFFFFF).to(torch.int32)]
+
+    a_ms, a_plain_ms = _time_pair(torch, lambda: bs.sort_blocks_tuple(x),
+                                  lambda: bs.sort_blocks_plain(x), rounds=2, reps=3)
+    a_lib_ms = _time_ms(torch, lambda: sort_rows(x, blk), reps=3)
+    # the same keys with only their low 0 and 16 bits varying: K6a's cost
+    # without its digit passes, and with half of them
+    part_ms = {}
+    for bits in (0, 16):
+        low = (x & ((1 << bits) - 1)).contiguous()
+        part_ms[bits] = _time_ms(torch, lambda: bs.sort_blocks_tuple(low), reps=3)
+        del low
+    blocks = bs.sort_blocks_tuple(x)[0]
     par_a.check_tensors(f"sort_blocks {n:,} rows == torch.sort per block",
-                        lambda: [blocks], lambda: [sort_rows(xb, blk).view(-1)])
+                        lambda: [blocks], lambda: [sort_rows(x, blk).view(-1)])
+    a2_ms, a2_plain_ms = _time_pair(
+        torch, lambda: bs.sort_blocks_tuple(x, pay),
+        lambda: bs.sort_blocks_plain(x, pay), rounds=2, reps=3)
+    a2_lib_ms = _time_ms(torch, packed_rows, reps=3)
+    par_a.check_tensors(
+        f"sort_blocks (key, payload) {n:,} rows == packed torch.sort per block",
+        lambda: bs.sort_blocks_tuple(x, pay), packed_rows)
+    # one row per pair of runs: n holds an even number of blocks
+    pairs = blocks[: n // (2 * blk) * 2 * blk]
+    b_ms, b_plain_ms = _time_pair(
+        torch, lambda: bs.merge_pass_tuple(blocks, run_len=blk),
+        lambda: bs.merge_pass_plain(blocks, run_len=blk), rounds=2, reps=3)
+    b_lib_ms = _time_ms(torch, lambda: sort_rows(pairs, 2 * blk), reps=3)
     par_b.check_tensors(
         f"merge_pass {pairs.shape[0]:,} rows == torch.sort per run pair",
         lambda: [bs.merge_pass_tuple(pairs, run_len=blk)[0]],
         lambda: [sort_rows(pairs, 2 * blk).view(-1)])
-    bound = _bound_ms(n * 4 * 2)
+    bound, bound2 = _bound_ms(n * 4 * 2), _bound_ms(n * 4 * 2 * 2)
     log(f"[time K6a] sort_blocks, {n:,} rows, k=1: kernel {a_ms:.4f} ms, plain "
         f"{a_plain_ms:.4f} ms, torch.sort(dim=1) over {blk}-row rows "
-        f"{a_lib_ms:.4f} ms, bound {bound:.4f} ms")
+        f"{a_lib_ms:.4f} ms, bound {bound:.4f} ms; keys with only their low "
+        f"0 / 16 / 32 bits varying {part_ms[0]:.4f} / {part_ms[16]:.4f} / "
+        f"{a_ms:.4f} ms")
+    log(f"[time K6a] sort_blocks (key, payload), {n:,} rows, k=2: kernel "
+        f"{a2_ms:.4f} ms, plain {a2_plain_ms:.4f} ms, packed int64 "
+        f"torch.sort(dim=1) over {blk}-row rows {a2_lib_ms:.4f} ms, bound "
+        f"{bound2:.4f} ms")
     log(f"[time K6b] one merge pass (runs of {blk}), {n:,} rows, k=1: kernel "
         f"{b_ms:.4f} ms, plain {b_plain_ms:.4f} ms, torch.sort(dim=1) over "
         f"{2 * blk}-row rows {b_lib_ms:.4f} ms, bound {bound:.4f} ms")
-    del xb, blocks, pairs
-    sort_ms, sort_plain_ms, sort_bound, sort_lib_ms = stat
     return (
         {"max_abs_err": par_a.max_err, "ms": a_ms, "plain_ms": a_plain_ms,
-         "bound_ms": bound, "library_ms": a_lib_ms},
+         "bound_ms": bound, "library_ms": a_lib_ms,
+         "low_bits_ms": {"0": part_ms[0], "16": part_ms[16]},
+         "k2": {"ms": a2_ms, "plain_ms": a2_plain_ms, "bound_ms": bound2,
+                "library_ms": a2_lib_ms}},
         {"max_abs_err": par_b.max_err, "ms": b_ms, "plain_ms": b_plain_ms,
          "bound_ms": bound, "library_ms": b_lib_ms},
-        {"max_abs_err": par.max_err, "ms": sort_ms, "plain_ms": sort_plain_ms,
-         "bound_ms": sort_bound, "library_ms": sort_lib_ms},
     )
 
 

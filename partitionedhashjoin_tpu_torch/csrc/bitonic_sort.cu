@@ -11,23 +11,47 @@
 // and the kernels agree with any correct sort (the plain PyTorch version is
 // a cascade of stable torch.sort calls).
 //
-// What bounds it on this card: bytes.  The compulsory traffic of a sort is
-// each operand read once and written once; this design touches device memory
-// once per phase (phase A, then one read and one write per merge pass:
-// ceil(log2(n / kBlk)) passes, 15 at 200M rows), so it moves 16x the
-// compulsory bytes at 200M rows.  The comparisons, n log2 n of them, are far
-// below the card's arithmetic rate.
+// What bounds them on this card.  The work's own bound is bytes: each
+// operand read once and written once, 8 k bytes a row (0.48 ms for 200M rows
+// at k = 1); a block's comparisons or digit counts are far below the card's
+// arithmetic rate.  The full sort no longer uses these kernels: it is the
+// radix sort of radix_sort.cu, since a merge sort touches device memory once
+// per phase (16x the compulsory bytes at 200M rows).
 //
-// What the design does about it.  The TPU kernel keeps a whole block in
+// What the designs do about it.  The TPU kernel keeps a whole block in
 // vector registers, builds partner exchanges from lane rotations and static
 // sublane swaps, and overlays a reversed B window on A in (ROWS + 1)-row DMA
 // windows, because of Mosaic's limits.  Here:
-// - sort_blocks_kernel: one CTA of 1024 threads per kBlk-row block of k
-//   operands in dynamic shared memory (32 KB per operand), the 91-stage
-//   bitonic network with a tuple compare-exchange per pair and a barrier
-//   between stages.  Rows past the input read as all-INT32_MAX tuples, the
-//   maximal tuple, so padding sorts last or next to bit-identical genuine
-//   rows.
+// - sort_blocks_kernel (K6a): a block-local LSD radix sort in shared memory.
+//   A bitonic network over a block is 91 compare-exchange stages, each a
+//   round trip of every row through shared memory and a barrier, moving all
+//   k operands at every swap; that held K6a at 20x its bytes.  Here one CTA
+//   of 512 threads per kBlk-row block reads the k operands once (16 bytes a
+//   thread) into shared memory, biased so that unsigned order is the
+//   signed order, and takes on the way each operand's AND and OR over the
+//   block: a 4-bit digit whose AND equals its OR is the same in every row,
+//   so its pass is skipped (keys in [1, 10M] skip two of eight; a block
+//   whose rows are all one tuple is copied through).  Each varying digit,
+//   least significant first (operand k-1's digit 0 first, operand 0's digit
+//   7 last), is one stable counting pass with three barriers: thread t
+//   ranks rows 16 t .. 16 t + 15 of the current order with its own column
+//   of 16 counters (no atomics, no bank conflicts beyond two threads a
+//   word), one scan of all 8,192 counters in (digit, thread) order gives
+//   every (digit, thread) its first place, and each row goes to its place.
+//   Why not the sweep's ranking of 32 rows a round by ballots: it issued
+//   some 80 instructions a row for each 8-bit digit, where a thread's own
+//   counters issue about 26 for each 4-bit digit.  At k = 1 a pass moves
+//   the values themselves; at k > 1 it moves only a 16-bit permutation
+//   (place -> row) and reads each row's digit through it, so no operand
+//   moves between passes.  Each operand is then written once, 16 bytes a
+//   thread: output row i is row perm[i].  Rows sit in shared memory with
+//   one pad word per 32 (pad(), pad16() for the permutation), so a
+//   thread's run of 16 rows and the coalesced reads and writes are free of
+//   bank conflicts.  Shared memory is k x 33 KB of operands, 16 KB of
+//   counters and (k > 1) 17 KB of permutation: two CTAs per SM at k <= 2,
+//   so one block's loads overlap another's passes, and one at k = 3, 4.
+//   Ties are bit-identical tuples, so the stable sort's order is the one
+//   correct order.
 // - diag_kernel: one thread per output tile of a merge pass finds the tile's
 //   merge-path split (how many rows of run A precede it) by binary search
 //   over the pair in device memory: the largest i with A[i - 1] <= B[g - i].
@@ -55,13 +79,19 @@ namespace {
 constexpr int kMaxOperands = 4;
 constexpr int kLogBlk = 13;
 constexpr int kBlk = 1 << kLogBlk;  // rows per phase-A block and merge tile
-constexpr int kSortThreads = 1024;
-constexpr int kPairsPerThread = kBlk / 2 / kSortThreads;
+constexpr uint32_t kBias = 0x80000000u;  // signed order becomes unsigned order
+constexpr unsigned int kFull = 0xffffffffu;
+constexpr int kSortThreads = 512;
+constexpr int kSortWarps = kSortThreads / 32;
+constexpr int kSortItems = kBlk / kSortThreads;  // rows per thread
+constexpr int kSortVecs = kBlk / 4 / kSortThreads;  // int4 per thread and operand
+constexpr int kDigitBits = 4;
+constexpr int kDigitValues = 1 << kDigitBits;
+constexpr int kDigits = 32 / kDigitBits;  // digits of an int32 operand
 constexpr int kMergeThreads = 512;
 constexpr int kItems = kBlk / kMergeThreads;  // outputs per merge thread
-constexpr int kPadBlk = kBlk + kBlk / 32;
+constexpr int kPadBlk = kBlk + kBlk / 32;  // a block's rows with their pads
 constexpr int kDiagThreads = 256;
-constexpr int32_t kInt32Max = 2147483647;
 
 struct Operands {
   const int32_t* in[kMaxOperands];
@@ -69,6 +99,10 @@ struct Operands {
 };
 
 __device__ __forceinline__ int pad(int i) { return i + (i >> 5); }
+
+__device__ __forceinline__ bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
+}
 
 // Strict lexicographic a < b over K operands.
 template <int K>
@@ -102,49 +136,239 @@ __device__ __forceinline__ void load_global(int32_t (&v)[K],
   }
 }
 
+// ------------------------------------------------------------ block sort
+
+// The padded index of a uint16 row: two pad halves per 64 rows, so that
+// 32 threads reading rows 16 t + i (a thread's run) hit 32 banks.
+__device__ __forceinline__ int pad16(int i) { return i + 2 * (i >> 6); }
+
 template <int K>
-__global__ void __launch_bounds__(kSortThreads)
-    sort_blocks_kernel(Operands ops, int64_t n_in, int64_t n_out) {
-  extern __shared__ int32_t smem[];  // K operands x kBlk rows
-  const int64_t base = static_cast<int64_t>(blockIdx.x) * kBlk;
+struct __align__(16) BlockShared {
+  // the block's operands, biased (^ kBias), at pad(row); K = 1 moves the
+  // values, K > 1 never moves them
+  uint32_t val[K][kPadBlk];
+  uint16_t perm[K > 1 ? kPadBlk : 8];  // K > 1: place -> row, at pad16
+  // count[d][t]: thread t's rows of digit d in this pass, then the
+  // exclusive prefix of (d, t) in digit-major, thread-minor order
+  uint16_t count[kDigitValues][kSortThreads];
+  uint32_t warp_total[kSortWarps];
+  uint32_t warp_and[K][kSortWarps];
+  uint32_t warp_or[K][kSortWarps];
+};
+
+// The block's digits that vary, as a mask over the passes in order: bit
+// kDigits (K - 1 - c) + b is digit b (0 = least significant) of operand c.
+// A digit whose bits agree in the AND and the OR of the block's rows is
+// the same in every row (the bias flips bit 31 of every row, so it changes
+// neither), and a stable pass by it moves nothing.
+template <int K>
+__device__ __forceinline__ uint32_t varying_digits(const BlockShared<K>& s) {
+  uint32_t plan = 0;
 #pragma unroll
   for (int c = 0; c < K; ++c) {
-    for (int i = threadIdx.x; i < kBlk; i += kSortThreads) {
-      const int64_t row = base + i;
-      smem[c * kBlk + i] = row < n_in ? ops.in[c][row] : kInt32Max;
+    uint32_t all = kFull, any = 0;
+#pragma unroll
+    for (int w = 0; w < kSortWarps; ++w) {
+      all &= s.warp_and[c][w];
+      any |= s.warp_or[c][w];
     }
+    const uint32_t vary = all ^ any;
+#pragma unroll
+    for (int b = 0; b < kDigits; ++b) {
+      if ((vary >> (kDigitBits * b)) & (kDigitValues - 1)) {
+        plan |= 1u << (kDigits * (K - 1 - c) + b);
+      }
+    }
+  }
+  return plan;
+}
+
+// Every thread: the counters, read in (digit, thread) order as 8 words of
+// two counts per thread, become exclusive prefixes.  Two __syncthreads.
+__device__ __forceinline__ void scan_counts(
+    uint16_t (&count)[kDigitValues][kSortThreads], uint32_t* warp_total) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  uint4* words = reinterpret_cast<uint4*>(&count[0][0]) + 2 * threadIdx.x;
+  uint32_t total = 0;
+  {
+    const uint4 w0 = words[0];
+    const uint4 w1 = words[1];
+    const uint32_t x[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      total += (x[k] & 0xffffu) + (x[k] >> 16);
+    }
+  }
+  uint32_t inc = total;
+#pragma unroll
+  for (int offset = 1; offset < 32; offset <<= 1) {
+    const uint32_t up = __shfl_up_sync(kFull, inc, offset);
+    if (lane >= offset) {
+      inc += up;
+    }
+  }
+  if (lane == 31) {
+    warp_total[warp] = inc;
   }
   __syncthreads();
-  for (int k = 1; k <= kLogBlk; ++k) {
-    for (int j = k - 1; j >= 0; --j) {
+  // the totals of the warps before this one: lane v < kSortWarps holds warp
+  // v's, and a sum over the lanes below this warp's index
+  uint32_t before = lane < warp ? warp_total[lane] : 0u;
 #pragma unroll
-      for (int r = 0; r < kPairsPerThread; ++r) {
-        const int p = threadIdx.x + r * kSortThreads;
-        // the pair's lower row: p with a zero bit inserted at position j
-        const int lo = ((p >> j) << (j + 1)) | (p & ((1 << j) - 1));
-        const int hi = lo | (1 << j);
-        const bool ascending = ((lo >> k) & 1) == 0;
-        int32_t x[K], y[K];
-        load_shared(x, smem, kBlk, lo);
-        load_shared(y, smem, kBlk, hi);
-        if (ascending ? tuple_less(y, x) : tuple_less(x, y)) {
-#pragma unroll
-          for (int c = 0; c < K; ++c) {
-            smem[c * kBlk + lo] = y[c];
-            smem[c * kBlk + hi] = x[c];
-          }
-        }
-      }
-      __syncthreads();
-    }
+  for (int offset = 16; offset > 0; offset >>= 1) {
+    before += __shfl_xor_sync(kFull, before, offset);
   }
+  // the thread's counters again (only this thread writes them, below)
+  const uint4 w0 = words[0];
+  const uint4 w1 = words[1];
+  uint32_t x[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
+  uint32_t run = before + inc - total;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const uint32_t lo = x[k] & 0xffffu;
+    const uint32_t hi = x[k] >> 16;
+    x[k] = run | ((run + lo) << 16);
+    run += lo + hi;
+  }
+  words[0] = make_uint4(x[0], x[1], x[2], x[3]);
+  words[1] = make_uint4(x[4], x[5], x[6], x[7]);
+  __syncthreads();
+}
+
+template <int K>
+__global__ void __launch_bounds__(kSortThreads, K <= 2 ? 2 : 1)
+    sort_blocks_kernel(Operands ops) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  BlockShared<K>& s = *reinterpret_cast<BlockShared<K>*>(smem_raw);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int64_t base = static_cast<int64_t>(blockIdx.x) * kBlk;
+
+  // 1. The block's operands into shared memory, biased, 16 bytes a thread
+  //    where the operand allows it, with the AND and OR of every operand's
+  //    rows; the counters zeroed.
 #pragma unroll
   for (int c = 0; c < K; ++c) {
-    for (int i = threadIdx.x; i < kBlk; i += kSortThreads) {
-      const int64_t row = base + i;
-      if (row < n_out) {
-        ops.out[c][row] = smem[c * kBlk + i];
+    const int32_t* src = ops.in[c] + base;
+    uint32_t all = kFull, any = 0;
+    if (aligned16(src)) {
+#pragma unroll
+      for (int m = 0; m < kSortVecs; ++m) {
+        const int q = m * kSortThreads + threadIdx.x;
+        const int4 v = __ldg(reinterpret_cast<const int4*>(src) + q);
+        const uint32_t x[4] = {static_cast<uint32_t>(v.x), static_cast<uint32_t>(v.y),
+                               static_cast<uint32_t>(v.z), static_cast<uint32_t>(v.w)};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s.val[c][pad(4 * q + e)] = x[e] ^ kBias;
+          all &= x[e];
+          any |= x[e];
+        }
       }
+    } else {
+#pragma unroll
+      for (int m = 0; m < kSortItems; ++m) {
+        const int r = m * kSortThreads + threadIdx.x;
+        const uint32_t x = static_cast<uint32_t>(__ldg(src + r));
+        s.val[c][pad(r)] = x ^ kBias;
+        all &= x;
+        any |= x;
+      }
+    }
+    all = __reduce_and_sync(kFull, all);
+    any = __reduce_or_sync(kFull, any);
+    if (lane == 0) {
+      s.warp_and[c][warp] = all;
+      s.warp_or[c][warp] = any;
+    }
+  }
+  uint4* counters = reinterpret_cast<uint4*>(&s.count[0][0]) + 2 * threadIdx.x;
+  counters[0] = make_uint4(0, 0, 0, 0);
+  counters[1] = make_uint4(0, 0, 0, 0);
+  __syncthreads();
+
+  // 2. One stable counting pass per varying digit, least significant first.
+  //    Thread t ranks rows 16 t .. 16 t + 15 of the current order: its own
+  //    column of counters counts its rows of each digit (and gives each row
+  //    the count of its earlier rows of its digit), and the scan of all
+  //    counters in (digit, thread) order gives each (digit, thread) its
+  //    first place.  K = 1 moves the values (held in registers across the
+  //    scan); K > 1 moves the permutation (place -> row, 16 bits) and reads
+  //    each row's digit through it.
+  const uint32_t plan = varying_digits(s);
+  const int first = kSortItems * threadIdx.x;
+  uint16_t* column = &s.count[0][threadIdx.x];
+  bool moved = false;  // K > 1: perm holds the order so far
+#pragma unroll 1
+  for (int t = 0; t < kDigits * K; ++t) {
+    if (((plan >> t) & 1u) == 0) {
+      continue;
+    }
+    const int c = K - 1 - t / kDigits;
+    const int shift = kDigitBits * (t % kDigits);
+    uint32_t item[kSortItems];  // K = 1: the value; K > 1: row | digit << 16
+    if constexpr (K == 1) {
+#pragma unroll
+      for (int i = 0; i < kSortItems; ++i) {
+        item[i] = s.val[0][pad(first + i)];
+      }
+    }
+    uint32_t before[2] = {0, 0};  // 4 bits per row: its thread's earlier rows of its digit
+#pragma unroll
+    for (int i = 0; i < kSortItems; ++i) {
+      unsigned int d;
+      if constexpr (K == 1) {
+        d = (item[i] >> shift) & (kDigitValues - 1);
+      } else {
+        const uint32_t row = moved ? s.perm[pad16(first + i)] : first + i;
+        d = (s.val[c][pad(row)] >> shift) & (kDigitValues - 1);
+        item[i] = row | (d << 16);
+      }
+      const uint32_t at = d * kSortThreads;
+      const uint32_t n = column[at];
+      column[at] = static_cast<uint16_t>(n + 1);
+      before[i / 8] |= n << (4 * (i % 8));
+    }
+    __syncthreads();
+    scan_counts(s.count, s.warp_total);
+#pragma unroll
+    for (int i = 0; i < kSortItems; ++i) {
+      const uint32_t at = (K == 1 ? (item[i] >> shift) & (kDigitValues - 1)
+                                  : item[i] >> 16) * kSortThreads;
+      const int place = column[at] +
+                        ((before[i / 8] >> (4 * (i % 8))) & 15u);
+      if constexpr (K == 1) {
+        s.val[0][pad(place)] = item[i];
+      } else {
+        s.perm[pad16(place)] = static_cast<uint16_t>(item[i]);
+      }
+    }
+#pragma unroll
+    for (int d = 0; d < kDigitValues; ++d) {
+      column[d * kSortThreads] = 0;
+    }
+    __syncthreads();
+    moved = true;
+  }
+
+  // 3. Each operand written once, unbiased, 16 bytes a thread: output row i
+  //    is row perm[i] of the block (K = 1, or no pass ran: row i).
+#pragma unroll
+  for (int c = 0; c < K; ++c) {
+    int4* dst = reinterpret_cast<int4*>(ops.out[c] + base);
+#pragma unroll
+    for (int m = 0; m < kSortVecs; ++m) {
+      const int q = m * kSortThreads + threadIdx.x;
+      uint32_t x[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = 4 * q + e;
+        const int row = K == 1 || !moved ? i : s.perm[pad16(i)];
+        x[e] = s.val[c][pad(row)] ^ kBias;
+      }
+      dst[q] = make_int4(static_cast<int>(x[0]), static_cast<int>(x[1]),
+                         static_cast<int>(x[2]), static_cast<int>(x[3]));
     }
   }
 }
@@ -285,18 +509,16 @@ Operands make_operands(const int32_t* const* in, int32_t* const* out, int k) {
 }
 
 template <int K>
-cudaError_t launch_sort_blocks(const Operands& ops, int64_t n_pad,
-                               int64_t n_in, int64_t n_out,
+cudaError_t launch_sort_blocks(const Operands& ops, int64_t n,
                                cudaStream_t stream) {
-  const int smem = K * kBlk * static_cast<int>(sizeof(int32_t));
+  const int smem = static_cast<int>(sizeof(BlockShared<K>));
   cudaError_t err = cudaFuncSetAttribute(
       sort_blocks_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) {
     return err;
   }
-  const unsigned int grid = static_cast<unsigned int>(n_pad / kBlk);
-  sort_blocks_kernel<K><<<grid, kSortThreads, smem, stream>>>(ops, n_in,
-                                                               n_out);
+  const unsigned int grid = static_cast<unsigned int>(n / kBlk);
+  sort_blocks_kernel<K><<<grid, kSortThreads, smem, stream>>>(ops);
   return cudaGetLastError();
 }
 
@@ -334,38 +556,38 @@ int phj_bitonic_block_rows() { return kBlk; }
 // Most operands a call takes; the wrapper checks it.
 int phj_bitonic_max_operands() { return kMaxOperands; }
 
-// Phase A over n_pad rows (a multiple of kBlk) of k operands: in0..in3 hold
-// n_in rows each (rows past n_in read as INT32_MAX), out0..out3 receive the
-// first n_out rows of the block-sorted result.  Operands past k are ignored.
-// Launches on `stream` and does not synchronise.  Returns cudaGetLastError().
-int phj_sort_blocks(int k, int64_t n_pad, int64_t n_in, const int32_t* in0,
-                    const int32_t* in1, const int32_t* in2,
-                    const int32_t* in3, int64_t n_out, int32_t* out0,
+// Phase A over n rows (a multiple of kBlk) of k operands: each kBlk-row
+// block of in0..in3 sorted into out0..out3, which must not alias the inputs
+// and must start on a 16-byte boundary (the inputs need not).  Operands past
+// k are ignored.  Launches on `stream` and does not synchronise.  Returns
+// cudaGetLastError().
+int phj_sort_blocks(int k, int64_t n, const int32_t* in0, const int32_t* in1,
+                    const int32_t* in2, const int32_t* in3, int32_t* out0,
                     int32_t* out1, int32_t* out2, int32_t* out3,
                     cudaStream_t stream) {
-  if (n_pad <= 0) {
+  if (n <= 0) {
     return static_cast<int>(cudaSuccess);
   }
-  if (n_pad % kBlk != 0 || n_pad / kBlk > 0x7fffffffLL || k < 1 ||
-      k > kMaxOperands) {
+  if (n % kBlk != 0 || n / kBlk > 0x7fffffffLL || k < 1 || k > kMaxOperands) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int32_t* in[kMaxOperands] = {in0, in1, in2, in3};
   int32_t* out[kMaxOperands] = {out0, out1, out2, out3};
+  for (int c = 0; c < k; ++c) {
+    if (reinterpret_cast<uintptr_t>(out[c]) % 16 != 0) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
   const Operands ops = make_operands(in, out, k);
   switch (k) {
     case 1:
-      return static_cast<int>(
-          launch_sort_blocks<1>(ops, n_pad, n_in, n_out, stream));
+      return static_cast<int>(launch_sort_blocks<1>(ops, n, stream));
     case 2:
-      return static_cast<int>(
-          launch_sort_blocks<2>(ops, n_pad, n_in, n_out, stream));
+      return static_cast<int>(launch_sort_blocks<2>(ops, n, stream));
     case 3:
-      return static_cast<int>(
-          launch_sort_blocks<3>(ops, n_pad, n_in, n_out, stream));
+      return static_cast<int>(launch_sort_blocks<3>(ops, n, stream));
     default:
-      return static_cast<int>(
-          launch_sort_blocks<4>(ops, n_pad, n_in, n_out, stream));
+      return static_cast<int>(launch_sort_blocks<4>(ops, n, stream));
   }
 }
 

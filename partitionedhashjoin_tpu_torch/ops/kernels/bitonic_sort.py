@@ -19,8 +19,10 @@ exactly one correct output:
   pairwise merge pass, sorted runs of ``run_len`` (a positive multiple of
   ``BLK``) become sorted runs of ``2 * run_len``; a lone tail run is copied
   through and a truncated last run merges as it is.  These two launch the
-  bitonic block sort and merge-path kernels of ``csrc/bitonic_sort.cu``, the
-  counterparts of JAX's phase functions; the full sort no longer uses them.
+  kernels of ``csrc/bitonic_sort.cu``, the counterparts of JAX's phase
+  functions: K6a is a block-local LSD radix sort in shared memory (one pass
+  per digit that varies within the block), not JAX's bitonic network, and
+  K6b a merge path.  The full sort no longer uses them.
 
 On CUDA tensors they launch the hand-written kernels (at most
 ``MAX_OPERANDS`` operands; a wider tuple raises ``ValueError``) or raise; on
@@ -74,10 +76,8 @@ _SIGNATURES = {
     "phj_sort_blocks": (
         (
             ctypes.c_int,  # k
-            ctypes.c_int64,  # n_pad
-            ctypes.c_int64,  # n_in
+            ctypes.c_int64,  # n
             *_PTRS,  # in0..in3
-            ctypes.c_int64,  # n_out
             *_PTRS,  # out0..out3
             ctypes.c_void_p,  # cudaStream_t
         ),
@@ -313,11 +313,9 @@ def _ptrs(tensors) -> list:
     return [t.data_ptr() for t in tensors] + [None] * (MAX_OPERANDS - len(tensors))
 
 
-def _sort_blocks(lib, ins, n_pad, n_in, outs, n_out, stream) -> None:
+def _sort_blocks(lib, ins, n, outs, stream) -> None:
     global LAUNCHES_BLOCKS
-    err = lib.phj_sort_blocks(
-        len(ins), n_pad, n_in, *_ptrs(ins), n_out, *_ptrs(outs), stream
-    )
+    err = lib.phj_sort_blocks(len(ins), n, *_ptrs(ins), *_ptrs(outs), stream)
     if err != 0:
         raise RuntimeError(f"phj_sort_blocks launch failed: CUDA error {err}")
     LAUNCHES_BLOCKS += 1
@@ -353,7 +351,7 @@ def sort_blocks_tuple(*operands: torch.Tensor) -> List[torch.Tensor]:
     lib = load_library()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        _sort_blocks(lib, operands, n, n, outs, n, stream)
+        _sort_blocks(lib, operands, n, outs, stream)
     return outs
 
 

@@ -136,6 +136,60 @@ def test_sort_blocks_matches_jax():
                                   np.sort(x.reshape(4, BLK), axis=1))
 
 
+def _edge_blocks(k, seed):
+    """One BLK-row block of k operands per case, each case with its own set
+    of varying digits: a block sort that shared one digit plan across
+    blocks, or skipped a digit that varies, would miss one of them."""
+    r = _rng(seed)
+
+    def full():
+        return r.integers(I32_MIN, I32_MAX, BLK, dtype=np.int64,
+                          endpoint=True).astype(np.int32)
+
+    def const(v):
+        return np.full(BLK, v, np.int32)
+
+    def top_byte():
+        low = np.int64(0x00ABCDEF)
+        return ((r.integers(0, 256, BLK) << 24) | low).astype(np.uint32).view(np.int32)
+
+    ends = np.asarray([I32_MIN, -1, 0, I32_MAX], np.int32)
+    hot = r.random(BLK) < 0.9
+    narrow = [r.integers(-2, 2, BLK).astype(np.int32) for _ in range(k - 1)]
+    return {
+        "one_tuple": [const(5 - c) for c in range(k)],
+        "last_byte_0": [const(-c) for c in range(k - 1)]
+        + [(0x12345600 | r.integers(0, 256, BLK)).astype(np.int32)],
+        "sign_byte": [top_byte() for _ in range(k)],
+        "int32_ends": [r.choice(ends, BLK) for _ in range(k)],
+        "keys_1_to_10M": narrow + [r.integers(1, 10_000_001, BLK).astype(np.int32)],
+        "narrow_leading": [r.integers(-3, 3, BLK).astype(np.int32)]
+        + [full() for _ in range(k - 1)],
+        "hot_90": [np.where(hot, 7, full()).astype(np.int32) for _ in range(k)],
+        "all_max": [const(I32_MAX) for _ in range(k)],
+    }
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 4])
+def test_sort_blocks_edge_blocks(k):
+    """The edge blocks side by side in one call: at k = 1 equal to JAX's
+    block sort (at the 4-block shape it already compiles), at every k equal
+    to a per-block np.lexsort."""
+    cases = _edge_blocks(k, seed=70 + k)
+    cols = [np.concatenate([c[i] for c in cases.values()]) for i in range(k)]
+    got = [g.numpy() for g in bs.sort_blocks_tuple(*map(torch.from_numpy, cols))]
+    for b, name in enumerate(cases):
+        seg = slice(b * BLK, (b + 1) * BLK)
+        for g, w in zip(got, _lexsorted([c[seg] for c in cols])):
+            np.testing.assert_array_equal(g[seg], w, err_msg=name)
+    if k == 1:
+        want = np.concatenate([
+            np.asarray(jax_bs.sort_blocks_i32(jnp.asarray(cols[0][s:s + 4 * BLK]),
+                                              interpret=True))
+            for s in range(0, cols[0].size, 4 * BLK)])
+        np.testing.assert_array_equal(got[0], want)
+
+
 def _runs(n, run, values):
     """``values`` (n of them) with each ``run``-row segment sorted."""
     x = values.astype(np.int32).copy()

@@ -637,6 +637,45 @@ def _radix_edge_columns(cuda, k, n, seed):
             for name, cols in cases.items()}
 
 
+def _block_edge_columns(cuda, k, seed):
+    """K6a's edge blocks side by side, one BLK-row block each, every block
+    with its own set of varying digits (a digit plan shared across blocks
+    would fail): one tuple; only byte 0 of the last operand varies; only
+    the top byte varies; INT32_MIN, -1, 0 and INT32_MAX; keys in [1, 10M]; a
+    narrow leading operand with full-domain trailing ones; 90% of rows one
+    tuple; every row INT32_MAX."""
+    blk = bs.BLK
+    rng = np.random.default_rng(seed)
+
+    def full():
+        return rng.integers(I32_MIN, I32_MAX, blk, dtype=np.int64,
+                            endpoint=True).astype(np.int32)
+
+    def const(v):
+        return np.full(blk, v, np.int32)
+
+    def top_byte():
+        low = np.int64(0x00ABCDEF)
+        return ((rng.integers(0, 256, blk) << 24) | low).astype(np.uint32).view(np.int32)
+
+    ends = np.asarray([I32_MIN, -1, 0, I32_MAX], np.int32)
+    hot = rng.random(blk) < 0.9
+    narrow = [rng.integers(-2, 2, blk).astype(np.int32) for _ in range(k - 1)]
+    blocks = [
+        [const(5 - c) for c in range(k)],
+        [const(-c) for c in range(k - 1)]
+        + [(0x12345600 | rng.integers(0, 256, blk)).astype(np.int32)],
+        [top_byte() for _ in range(k)],
+        [rng.choice(ends, blk) for _ in range(k)],
+        narrow + [rng.integers(1, 10_000_001, blk).astype(np.int32)],
+        [rng.integers(-3, 3, blk).astype(np.int32)] + [full() for _ in range(k - 1)],
+        [np.where(hot, 7, full()).astype(np.int32) for _ in range(k)],
+        [const(I32_MAX) for _ in range(k)],
+    ]
+    return [torch.from_numpy(np.concatenate([b[c] for b in blocks])).to(cuda)
+            for c in range(k)]
+
+
 @pytest.mark.parametrize("k", [1, 2, 3, 4])
 def test_tuple_sort_kernels_match_plain(cuda, k):
     blk = bs.BLK
@@ -660,6 +699,15 @@ def test_tuple_sort_kernels_match_plain(cuda, k):
     cols = [c[: 7 * blk].contiguous() for c in cols]
     sb = bs.sort_blocks_tuple(*cols)
     _equal_lists(sb, bs.sort_blocks_plain(*cols))
+    # K6a's edge blocks in one call, then as views off a 16-byte boundary
+    # (its 16-byte loads give way to scalar loads); one launch each
+    edges = _block_edge_columns(cuda, k, seed=80 + k)
+    before = bs.LAUNCHES_BLOCKS
+    _equal_lists(bs.sort_blocks_tuple(*edges), bs.sort_blocks_plain(*edges))
+    shifted = [torch.cat([c[:1], c])[1:] for c in edges]
+    assert all(c.data_ptr() % 16 for c in shifted)
+    _equal_lists(bs.sort_blocks_tuple(*shifted), bs.sort_blocks_plain(*shifted))
+    assert bs.LAUNCHES_BLOCKS - before == 2
     for run in (blk, 2 * blk, 3 * blk, 8 * blk):
         src = [c.contiguous() for c in bs._segment_sort_plain(cols, run)]
         _equal_lists(bs.merge_pass_tuple(*src, run_len=run),
