@@ -43,7 +43,11 @@ and raises on the first failure:
              phase counterparts, phase A K6a (the block-local radix sort:
              also eight edge blocks side by side, each with its own varying
              digits, and their views off a 16-byte boundary) and merge pass
-             K6b; K7 (the
+             K6b; K6 on an int64 key (``sort_i64``, bit for bit against
+             ``torch.sort``: keys over [1, 10M], Zipf keys, the full int64
+             domain with INT64_MIN/MAX, one value, tile edges, a view off a
+             16-byte boundary; its sweeps and skipped digits counted), timed
+             at 210M Zipf keys over [1, 10M] and 200M full-domain keys; K7 (the
              seeded hash, bitwise) and
              K8 (the Zipf sampler: its uniforms bit for bit, at most 1e-4 of
              its keys off by at most 2, also with 1 round; with 0 rounds
@@ -59,7 +63,9 @@ and raises on the first failure:
              per pair of runs for K6b, each also checked equal to them).
 4. library — at 10M ⋈ 200M: ``sort_merge_count`` and ``anti_count`` through
              K2, ``two_run_count_i64`` and an int64 ``PreparedBuild`` through
-             K3, each exact.
+             K3, each exact.  From here on every path runs under the
+             sorter switch's default, "auto": K6 sorts its int32 and int64
+             keys on the card; phase 6 alone runs under "xla".
 5. main    — ``cli.main`` at the reference workload (10M sequential build
              ⋈ 200M Zipf(1.05) probe drawn by the alias sampler, the CLI's
              rule up to 2^24 primary rows, with its warmup run) for the default
@@ -81,8 +87,8 @@ and raises on the first failure:
              uniforms); and
              ``filter_sort_aggregate_staged`` with ``(p & 1) == 0`` against
              ``filter_sort_aggregate``.  K4 and K5 must launch.
-7. sorter  — ``merge_join.set_sort_impl("pallas")`` (restored to "xla"
-             after): ``cli.main`` for no-partitioning, radix-partitioning,
+7. sorter  — ``merge_join.set_sort_impl("pallas")`` (set back to the
+             default after): ``cli.main`` for no-partitioning, radix-partitioning,
              sort-merge and sort-merge int64 (each 200,000,000 and the
              radix sort plus K1 or K3 launched), ``two_run_materialize``
              (equal to the "xla" run on keys, pay_a and the pay_b sum) and
@@ -127,7 +133,7 @@ and raises on the first failure:
              on the same sort;
              (e) zero divisors and INT32_MIN // -1 through ``_compile_expr``
              on 1M card rows equal the CPU port bit for bit; (f) (b) under
-             "pallas" (K6) equals the "xla" run.
+             "xla" (the library sort) equals (b)'s run under the default (K6).
 13. hash   — the hash-table layer at 10M ⋈ 200M on phase 12's relations
              (no new keys drawn): (a) ``NoPartitioningHashJoiner`` in mode
              "chained" and (b) ``RadixHashJoiner`` chained with 256
@@ -226,7 +232,7 @@ and raises on the first failure:
              K1, K4, K5), ``bench_scaling`` (S = 1, 2, 4, 8 at 1.25M ⋈ 25M
              per shard, so weak scaling at S = 8 is 10M ⋈ 200M; K1, K7), ``bench_overlap`` at 10M ⋈ 200M (chunks 1,
              2, 4, 8 on 8 shards; K1, K7) and ``bench_sorter_ab`` (both
-             counts 200,000,000, the sorter back on "xla"; K1, K6); each one
+             counts 200,000,000, the sorter back on its default; K1, K6); each one
              JSON line with its JAX script's keys plus the card's name, its
              stderr and wall time logged; K1, K3, K4, K5, K6 and K7 must
              each launch.  ``python -m ...scripts.sweep --partitions 32
@@ -1337,6 +1343,90 @@ def parity_k6(torch, device):
     }
 
 
+def parity_k6_i64(torch, device):
+    """K6 on an int64 key (``sort_i64``) against the library sort, bit for
+    bit: keys over [1, 10M] (3 passes), Zipf(1.05) keys over [1, 10M], the
+    full int64 domain with INT64_MIN and INT64_MAX (8 passes), one value
+    (0 passes), tile edges and a view off a 16-byte boundary; each sort
+    launches one upsweep and a sweep per digit of its plan and counts the
+    rest as skipped.  Then times at 210M Zipf keys over [1, 10M] and 200M
+    full-domain keys beside ``torch.sort(x).values``."""
+    from partitionedhashjoin_tpu_torch.ops import generators
+    from partitionedhashjoin_tpu_torch.ops.kernels import bitonic_sort as bs
+
+    par = Parity(torch, "K6 int64")
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 64)
+    tile = bs.RADIX_TILE_I64
+
+    def cases(n):
+        full = torch.randint(I64_MIN, I64_MAX, (n,), generator=gen,
+                             dtype=torch.int64, device=device)
+        full[:4] = torch.tensor([I64_MIN, I64_MAX, -1, 0], device=device)[:n]
+        return {
+            f"keys in [1, {N_PRIMARY:,}]": torch.randint(
+                1, N_PRIMARY + 1, (n,), generator=gen, dtype=torch.int64,
+                device=device),
+            "Zipf keys": generators.zipf_keys(
+                n, SKEW, N_PRIMARY, generator=gen, device=device).to(torch.int64),
+            "full domain": full,
+            "one value": torch.full((n,), -(2**40) + 7, dtype=torch.int64,
+                                    device=device),
+        }
+
+    def check_sort(name, x):
+        n = x.shape[0]
+        passes = len(bs.radix_plan(bs.radix_histograms_plain(x)).passes) if n else 0
+        before = (bs.LAUNCHES_UPSWEEP, bs.LAUNCHES_SORT, bs.SWEEPS_SKIPPED)
+        par.check_tensors(name, lambda: [bs.sort_i64(x)],
+                          lambda: [torch.sort(x).values])
+        grew = (bs.LAUNCHES_UPSWEEP - before[0], bs.LAUNCHES_SORT - before[1],
+                bs.SWEEPS_SKIPPED - before[2])
+        want = (1, passes, 8 - passes) if n else (0, 0, 0)
+        if grew != want:
+            raise AssertionError(f"[parity K6 int64] {name}: (upsweeps, sweeps, "
+                                 f"skipped) {grew}, want {want}")
+        return passes
+
+    for n in (0, 1, 100, tile - 1, tile + 1, 5 * tile + 17, (1 << 22) + 13,
+              1_000_003):
+        for name, x in cases(n).items():
+            check_sort(f"sort_i64 {name}, n={n}", x)
+    x = cases(1_000_004)["full domain"]
+    check_sort("sort_i64 full domain, a view off 16 bytes", x[1:])
+    del x
+    torch.cuda.empty_cache()
+
+    stats = {}
+    for name, n, make in (
+        (f"Zipf keys over [1, {N_PRIMARY:,}]", N_PRIMARY + N_SECONDARY,
+         lambda n: generators.zipf_keys(n, SKEW, N_PRIMARY, generator=gen,
+                                        device=device).to(torch.int64)),
+        ("full-domain keys", N_SECONDARY,
+         lambda n: torch.randint(I64_MIN, I64_MAX, (n,), generator=gen,
+                                 dtype=torch.int64, device=device)),
+    ):
+        x = make(n)
+        passes = check_sort(f"sort_i64 {name}, n={n}", x)
+        sort_ms, lib_ms = _time_pair(torch, lambda: bs.sort_i64(x),
+                                     lambda: torch.sort(x).values, rounds=2, reps=3)
+        bound = _bound_ms(n * 8 * 2)
+        log(f"[time K6 int64] sort_i64 {name}, {n:,} rows: kernel "
+            f"{sort_ms:.4f} ms, library (torch.sort(x).values) {lib_ms:.4f} ms, "
+            f"bound {bound:.4f} ms ({sort_ms / bound:.1f}x); {passes} passes, "
+            f"{8 - passes} skipped; K6's own traffic (upsweep read + {passes} "
+            f"passes of read and write) at peak "
+            f"{_bound_ms(n * 8 * (1 + 2 * passes)):.4f} ms")
+        stats.setdefault("ms", sort_ms)
+        stats.setdefault("library_ms", lib_ms)
+        stats.setdefault("bound_ms", bound)
+        del x
+        torch.cuda.empty_cache()
+    stats["plain_ms"] = stats["library_ms"]  # the plain version is torch.sort
+    stats["max_abs_err"] = par.max_err
+    return stats
+
+
 def time_block_phases(torch, bs, x, pay):
     """K6a over ``x`` (k = 1) and ``(x, pay)`` (k = 2, payloads in
     [0, 2^31)), and one K6b pass (runs of one block) over x's sorted blocks,
@@ -1732,7 +1822,7 @@ def _reset_counts():
     mp, mc, mpay, kc, bs, kg = _counters()
     mp.LAUNCHES = mp.LAUNCHES_I64 = mc.LAUNCHES = mpay.LAUNCHES = 0
     kc.LAUNCHES = bs.LAUNCHES_BLOCKS = bs.LAUNCHES_MERGE = 0
-    bs.LAUNCHES_UPSWEEP = bs.LAUNCHES_SORT = 0
+    bs.LAUNCHES_UPSWEEP = bs.LAUNCHES_SORT = bs.SWEEPS_SKIPPED = 0
     kg.LAUNCHES_HASH = kg.LAUNCHES_ZIPF = kg.LAUNCHES_UNIFORMS = 0
 
 
@@ -1745,6 +1835,25 @@ def _read_counts():
             "k7": kg.LAUNCHES_HASH, "k8": kg.LAUNCHES_ZIPF}
 
 
+def _k6_sweeps():
+    """K6's sweeps since the last reset: (launched, skipped by its plans)."""
+    bs = _counters()[4]
+    return bs.LAUNCHES_SORT, bs.SWEEPS_SKIPPED
+
+
+@contextlib.contextmanager
+def _sorter(impl):
+    """The sorter switch on ``impl``, set back to what it was after."""
+    from partitionedhashjoin_tpu_torch.ops import merge_join
+
+    prior = merge_join.get_sort_impl()
+    merge_join.set_sort_impl(impl)
+    try:
+        yield
+    finally:
+        merge_join.set_sort_impl(prior)
+
+
 def phase_library(torch, device, launches):
     """Library entry points at 10M ⋈ 200M; adds each path's launches."""
     from partitionedhashjoin_tpu_torch.ops import merge_join, sort_merge
@@ -1755,13 +1864,15 @@ def phase_library(torch, device, launches):
         got = int(fn())
         wall_ms = (time.perf_counter() - t0) * 1e3
         counts = _read_counts()
+        sweeps = _k6_sweeps()
         if got != want or counts[kernel] == 0:
             raise AssertionError(
                 f"[library] {name}: {got} (want {want}), launches {counts}"
             )
         launches[kernel] += counts[kernel]
         log(f"[library] {name}: {got} ok, {kernel} launches "
-            f"{counts[kernel]}, {wall_ms:.3f} ms host clock")
+            f"{counts[kernel]}, K6 launches {counts['k6']} (sweeps launched / "
+            f"skipped {sweeps[0]} / {sweeps[1]}), {wall_ms:.3f} ms host clock")
 
     a, b = _reference_data(torch, device, torch.int32)
     run("sort_merge_count int32", lambda: sort_merge.sort_merge_count(a, b),
@@ -1824,6 +1935,7 @@ def phase_main(torch, launches, runs=MAIN_RUNS, tag="main", kernels=()):
             rc = cli.main(argv)
         wall_s = time.perf_counter() - t0
         run_counts = _read_counts()
+        sweeps = _k6_sweeps()
         logger.removeFilter(counts)
         peak = torch.cuda.max_memory_allocated()
         doc = json.loads(out.getvalue())
@@ -1842,6 +1954,7 @@ def phase_main(torch, launches, runs=MAIN_RUNS, tag="main", kernels=()):
         log(f"[{tag}] {name}: result {json.dumps(doc, sort_keys=True)}")
         log(
             f"[{tag}] {name}: count {counts.counts[0]}, launches {run_counts}, "
+            f"K6 sweeps launched / skipped {sweeps[0]} / {sweeps[1]}, "
             f"phases partition {res['partition']} / build {res['build']} / "
             f"probe {res['probe']} ms, cli.main wall {wall_s:.3f} s "
             f"(generation + warmup + timed run), peak allocated {peak} B"
@@ -1920,11 +2033,13 @@ def _run_path(torch, tag, launches, name, fn, kernels):
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
     counts = _read_counts()
+    sweeps = _k6_sweeps()
     for k in kernels:
         _check(name, counts[k] > 0, f"{k} was never launched ({counts})")
         launches[k] += counts[k]
     log(f"[{tag}] {name}: {wall_ms:.3f} ms host clock, launches "
-        f"{ {k: v for k, v in counts.items() if v} }")
+        f"{ {k: v for k, v in counts.items() if v} }, K6 sweeps launched / "
+        f"skipped {sweeps[0]} / {sweeps[1]}")
     return out
 
 
@@ -2053,9 +2168,9 @@ def phase_sorter(torch, device, launches, xla_groups, xla_hot):
     run = functools.partial(_run_path, torch, "sorter", launches)
 
     a_keys, a_pay, b_keys, b_pay = _query_relations(torch, device)
-    want = merge_join.two_run_materialize(a_keys, a_pay, b_keys, b_pay)
-    merge_join.set_sort_impl("pallas")
-    try:
+    with _sorter("xla"):
+        want = merge_join.two_run_materialize(a_keys, a_pay, b_keys, b_pay)
+    with _sorter("pallas"):
         phase_main(torch, launches, SORTER_RUNS, "sorter", ("k6",))
         got = run("two_run_materialize (all match)",
                   lambda: merge_join.two_run_materialize(a_keys, a_pay, b_keys, b_pay),
@@ -2086,8 +2201,6 @@ def phase_sorter(torch, device, launches, xla_groups, xla_hot):
             log(f"[sorter] pipeline {plan} plan: {groups:,} groups, == the "
                 "library sort's plans and the oracle: ok")
             del g, hot
-    finally:
-        merge_join.set_sort_impl("xla")
 
 
 def phase_generate(torch, device, launches):
@@ -2182,7 +2295,7 @@ def phase_multi_key(torch, launches, a, b, card_line):
     native host join count of the unsplit keys, under both sorter
     settings."""
     from partitionedhashjoin_tpu_torch.data import host_loader
-    from partitionedhashjoin_tpu_torch.ops import merge_join, multi_key
+    from partitionedhashjoin_tpu_torch.ops import multi_key
 
     t0 = time.perf_counter()
     want = host_loader.host_join_count(a.cpu().numpy(), b.cpu().numpy())
@@ -2195,8 +2308,7 @@ def phase_multi_key(torch, launches, a, b, card_line):
     }
     run = functools.partial(_run_path, torch, "multi-key", launches)
     for impl in ("xla", "pallas"):
-        merge_join.set_sort_impl(impl)
-        try:
+        with _sorter(impl):
             for k, split in splits.items():
                 kernels = {2: ("k3",), 3: ()}[k]
                 if impl == "pallas" and k == 2:
@@ -2212,8 +2324,6 @@ def phase_multi_key(torch, launches, a, b, card_line):
                     f"{_shape()}: {int(got):,} == host_join_count; "
                     f"{dev_ms:.4f} ms (CUDA events, warm)")
                 del cols_a, cols_b
-        finally:
-            merge_join.set_sort_impl("xla")
     # the k >= 3 path spreads each run's start prefix with a cumsum and two
     # gathers, where the JAX function takes a cummax
     n = N_PRIMARY + N_SECONDARY
@@ -2357,7 +2467,7 @@ def phase_sql(torch, device, launches, card_line):
 
     from partitionedhashjoin_tpu_torch import bench_pipeline
     from partitionedhashjoin_tpu_torch.data.table import make_table
-    from partitionedhashjoin_tpu_torch.ops import merge_join, sort_merge
+    from partitionedhashjoin_tpu_torch.ops import sort_merge
     from partitionedhashjoin_tpu_torch.sql import _compile_expr, execute_sql, explain_sql
     from partitionedhashjoin_tpu_torch.sql import parse_sql
 
@@ -2469,18 +2579,16 @@ def phase_sql(torch, device, launches, card_line):
         f"INT32_MIN // -1 over {1 << 20:,} card rows: bit-equal to the CPU port")
     del k, p
 
-    # (f) (b) under the sorter switch's "pallas": K6, equal to the "xla" run
-    merge_join.set_sort_impl("pallas")
-    try:
+    # (f) (b) under the sorter switch's "xla": the library sort, equal to
+    # (b)'s run under the default (K6 on the card)
+    with _sorter("xla"):
         f_ms = _host_ms(torch, lambda: execute_sql(sql_b, db, **kw))
-        rf = run("(f) " + sql_b + " under 'pallas'", lambda: execute_sql(sql_b, db, **kw),
-                 ("k6", "k4", "k5"))
-    finally:
-        merge_join.set_sort_impl("xla")
+        rf = run("(f) " + sql_b + " under 'xla'", lambda: execute_sql(sql_b, db, **kw),
+                 ("k4", "k5"))
     _check("sql (f)", all(np.array_equal(rf.columns[c], rb.columns[c]) for c in rb.columns),
-           "differs from the 'xla' run")
+           "differs from the default's run")
     log(f"[time sql] {card_line}: (f) {f_ms:.3f} ms host clock (warm) under "
-        "'pallas'; == the 'xla' run")
+        "'xla'; == the default's run (K6)")
     return a_keys, a_pay, b_keys, b_pay
 
 
@@ -3437,7 +3545,7 @@ def phase_scripts(torch, launches, card_line):
                and f"count={N_SECONDARY} " in line[0], f"{impl}: {line}")
     from partitionedhashjoin_tpu_torch.ops import merge_join
 
-    _check("scripts bench_sorter_ab", merge_join.get_sort_impl() == "xla",
+    _check("scripts bench_sorter_ab", merge_join.get_sort_impl() == "auto",
            merge_join.get_sort_impl())
 
     for k in ("k1", "k3", "k4", "k5", "k6", "k7"):
@@ -3461,13 +3569,15 @@ def main() -> int:
     }
     stats["sort_blocks"], stats["merge_pass"], stats["tuple_sort"] = parity_k6(
         torch, device)
+    stats["key_sort_i64"] = parity_k6_i64(torch, device)
     stats["hash_keys"] = parity_k7(torch, device)
     stats["zipf_keys_pallas"] = parity_k8(torch, device, card)
     launches = dict.fromkeys(("k1", "k2", "k3", "k4", "k5", "k6a", "k6b",
                               "k6", "k7", "k8"), 0)
     phase_library(torch, device, launches)
     phase_main(torch, launches)
-    xla_groups, xla_hot = phase_query(torch, device, launches)
+    with _sorter("xla"):  # phase 7 holds K6 to these
+        xla_groups, xla_hot = phase_query(torch, device, launches)
     phase_sorter(torch, device, launches, xla_groups, xla_hot)
     del xla_groups, xla_hot
     phase_generate(torch, device, launches)
@@ -3493,6 +3603,7 @@ def main() -> int:
         ("sort_blocks", "k6a", "bitonic_sort.cu", "bitonic_sort.py:162"),
         ("merge_pass", "k6b", "bitonic_sort.cu", "bitonic_sort.py:375"),
         ("tuple_sort", "k6", "radix_sort.cu", "bitonic_sort.py:524"),
+        ("key_sort_i64", "k6", "radix_sort.cu", "bitonic_sort.py:524"),
         ("hash_keys", "k7", "generate.cu", "generate.py:46"),
         ("zipf_keys_pallas", "k8", "generate.cu", "generate.py:103"),
     )

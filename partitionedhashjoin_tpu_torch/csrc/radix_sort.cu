@@ -1,4 +1,5 @@
-// Full tuple sort for Hopper (sm_90a): a one-sweep LSD radix sort.
+// Full tuple sort for Hopper (sm_90a): a one-sweep LSD radix sort, of int32
+// tuples and of int64 keys.
 //
 // Replaces partitionedhashjoin_tpu/ops/pallas/bitonic_sort.py::sort_i32_tuple
 // (K6: phase A _sort_blocks, then ceil(log2(blocks)) _merge_pass_rows
@@ -16,6 +17,15 @@
 // Digits are 8 bits, sorted least significant first: operand k-1's byte 0
 // first, operand 0's byte 3 last, up to 4 k passes.
 //
+// An int64 key (keys only, no other operand) is one 64-bit unsigned key,
+// biased by ^ (1 << 63) and read as 8 bytes.  Its histograms come in the rows
+// of a 2-operand tuple, the hi word as operand 0 and the lo word (which
+// carries no bias: it is unsigned within the key) as operand 1, so the host
+// plans it exactly as it plans a (hi, lo) tuple; each pass loads and stores
+// the 8-byte key itself, with no planes split off and joined back.  Keys in
+// [1, 10M] vary in bytes 0-2 only and sort in 3 passes, where the library's
+// pairs sort runs 8 over (key, int64 index).
+//
 // What bounds it on this card: bytes.  The compulsory traffic is each
 // operand read once and written once, 2 x 4 k bytes per row; the ranking is
 // a few integer operations per row and pass.  The merge-sort design before
@@ -32,10 +42,12 @@
 //   histogram into the exclusive digit offsets of its pass.  The host reads
 //   the histograms back once per sort (the one synchronisation), and a digit
 //   whose histogram has a single non-empty bucket is the same in every row:
-//   its pass is skipped, exactly and at no extra cost (keys in [1, 10M] skip
-//   their top byte; an all-zero flag or the hi plane of small int64 keys
+//   its pass is skipped, exactly and at no extra cost (int32 keys in
+//   [1, 10M] skip their top byte, int64 ones five bytes; an all-zero flag
 //   skips all four).  The plan (digit order, skipped digits, buffer parity)
-//   is the host function radix_plan in ops/kernels/bitonic_sort.py.
+//   is the host function radix_plan in ops/kernels/bitonic_sort.py.  The
+//   int64 key's upsweep reads 128 rows a warp round as two 16-byte loads a
+//   lane and builds 8 histograms.
 // - sweep_kernel, one launch per digit that varies: each CTA of 512 threads
 //   claims the next tile of kTile = 8,192 rows through an atomic counter
 //   (so a tile only waits on tiles claimed before it: the look-back always
@@ -56,6 +68,14 @@
 //   the caller's two sets (the last pass writes the output); the status
 //   words and the tile counter are zeroed by a cudaMemsetAsync before every
 //   pass.
+//   The 8-byte key's sweep is the same kernel (Key = int64_t), with 8 rows
+//   a thread: a tile of kTile64 = 4,096 rows, 32 KB of staging and ~55 KB
+//   of shared memory a CTA, two CTAs an SM.  16 rows a thread (8,192-row
+//   tiles, 64 KB of staging) needs 64 registers and spills 88 bytes under
+//   the two-CTA bound; on an H100 80GB HBM3 at 700 W it sorted 210M Zipf
+//   keys over [1, 10M] (3 passes) in 7.597 ms and 200M full-domain keys (8
+//   passes) in 16.378 ms, against 7.266 and 15.709 ms at 8 rows a thread,
+//   which spills nothing (CUDA events, median of 7, one call).
 // All row offsets are 64-bit.  Any n is accepted, with no padding.
 //
 // C interface for ctypes: each entry returns cudaGetLastError() after its
@@ -74,6 +94,7 @@ constexpr int kMaxOperands = 4;
 constexpr int kRadix = 256;
 constexpr int kDigits = 4;  // 8-bit digits of an int32 operand
 constexpr uint32_t kBias = 0x80000000u;
+constexpr uint64_t kBias64 = 0x8000000000000000ull;
 constexpr unsigned int kFull = 0xffffffffu;
 
 constexpr int kUpThreads = 256;
@@ -82,9 +103,18 @@ constexpr int kUpRowsPerWarp = 128;  // one int4 per lane
 
 constexpr int kSweepThreads = 512;
 constexpr int kSweepWarps = kSweepThreads / 32;
-constexpr int kItems = 16;             // rows per thread
-constexpr int kWarpRows = 32 * kItems;  // 512
-constexpr int kTile = kSweepThreads * kItems;  // 8192 rows per tile
+constexpr int kItems32 = 16;  // rows per thread, 4-byte operands
+constexpr int kTile = kSweepThreads * kItems32;  // 8192 rows per tile
+constexpr int kItems64 = 8;  // rows per thread, the 8-byte key
+constexpr int kTile64 = kSweepThreads * kItems64;  // 4096 rows per tile
+
+// A sweep tile's shape for keys of type Key (int32_t or int64_t).
+template <typename Key>
+struct Tiling {
+  static constexpr int kItems = sizeof(Key) == 4 ? kItems32 : kItems64;
+  static constexpr int kWarpRows = 32 * kItems;
+  static constexpr int kTile = kSweepThreads * kItems;
+};
 
 struct Operands {
   const int32_t* in[kMaxOperands];
@@ -93,6 +123,11 @@ struct Operands {
 
 __device__ __forceinline__ unsigned int digit_of(int32_t v, int shift) {
   return ((static_cast<uint32_t>(v) ^ kBias) >> shift) & (kRadix - 1);
+}
+
+__device__ __forceinline__ unsigned int digit_of(int64_t v, int shift) {
+  return static_cast<unsigned int>(
+      ((static_cast<uint64_t>(v) ^ kBias64) >> shift) & (kRadix - 1));
 }
 
 __device__ __forceinline__ bool aligned16(const void* p) {
@@ -167,6 +202,74 @@ __global__ void __launch_bounds__(kUpThreads)
   }
 }
 
+// The 8-byte key's upsweep: ONE read of the column builds its 8 digit
+// histograms.  Byte b of the key biased by ^ (1 << 63) goes to row b + 4
+// for b < 4 and to row b - 4 above: the rows of a 2-operand tuple whose
+// operand 0 is the hi word (biased by ^ 0x80000000) and operand 1 the lo
+// word (unbiased: it is unsigned within the key), so that the host's plan
+// reads them as it reads a tuple's.  Each warp reads 128 rows a round as two
+// 16-byte loads a lane, each load of the warp 512 consecutive bytes.
+__global__ void __launch_bounds__(kUpThreads)
+    upsweep_kernel(const int64_t* __restrict__ keys, int64_t n,
+                   unsigned long long* __restrict__ hist) {
+  __shared__ unsigned int s_hist[2 * kDigits][kRadix];
+  for (int i = threadIdx.x; i < 2 * kDigits * kRadix; i += kUpThreads) {
+    (&s_hist[0][0])[i] = 0;
+  }
+  __syncthreads();
+  const int lane = threadIdx.x & 31;
+  const int64_t warp =
+      (static_cast<int64_t>(blockIdx.x) * kUpThreads + threadIdx.x) >> 5;
+  const int64_t warps = (static_cast<int64_t>(gridDim.x) * kUpThreads) >> 5;
+  const bool vec = aligned16(keys);
+  // the bound is the same for every lane, so the warp votes below are safe
+  for (int64_t base = warp * kUpRowsPerWarp; base < n;
+       base += warps * kUpRowsPerWarp) {
+    int64_t v[4];
+    bool ok[4];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int64_t row = base + 64 * h + 2 * lane;
+      if (row + 2 <= n && vec) {
+        const longlong2 q =
+            __ldg(reinterpret_cast<const longlong2*>(keys + row));
+        v[2 * h] = q.x;
+        v[2 * h + 1] = q.y;
+        ok[2 * h] = ok[2 * h + 1] = true;
+      } else {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          ok[2 * h + e] = row + e < n;
+          v[2 * h + e] = ok[2 * h + e] ? keys[row + e] : 0;
+        }
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+#pragma unroll
+      for (int b = 0; b < 2 * kDigits; ++b) {
+        const unsigned int d = ok[e] ? digit_of(v[e], 8 * b) : kRadix;
+        const unsigned int d0 = __shfl_sync(kFull, d, 0);
+        unsigned int* h = s_hist[b < kDigits ? b + kDigits : b - kDigits];
+        if (__all_sync(kFull, d == d0)) {
+          if (lane == 0 && d0 < kRadix) {
+            atomicAdd(h + d0, 32u);
+          }
+        } else if (d < kRadix) {
+          atomicAdd(h + d, 1u);
+        }
+      }
+    }
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < 2 * kDigits * kRadix; i += kUpThreads) {
+    const unsigned int c = (&s_hist[0][0])[i];
+    if (c) {
+      atomicAdd(hist + i, static_cast<unsigned long long>(c));
+    }
+  }
+}
+
 // One block per histogram: offsets[row][d] = sum of hist[row][0 .. d-1].
 __global__ void __launch_bounds__(kRadix)
     offsets_kernel(const unsigned long long* __restrict__ hist,
@@ -197,27 +300,30 @@ __global__ void __launch_bounds__(kRadix)
 
 // ---------------------------------------------------------------- sweep
 
+template <typename Key, int K>
 struct SweepShared {
-  int32_t val[kTile];                       // staging, 32 KB
+  static constexpr int kRows = Tiling<Key>::kTile;
+  Key val[kRows];  // staging in digit order
   uint32_t warp_hist[kSweepWarps][kRadix];  // per-warp digit counts, 16 KB
-  uint16_t place[kTile];  // each input row's place in digit order, 16 KB
-  uint8_t digit[kTile];   // the digit of each place, 8 KB
+  // each input row's place in digit order, kept only where other operands
+  // follow the key
+  uint16_t place[K > 1 ? kRows : 1];
+  uint8_t digit[kRows];   // the digit of each place
   long long adj[kRadix];  // global position of a digit's run - its place
   uint32_t tile_prefix[kRadix];  // places before each digit in the tile
   uint32_t scan[kRadix / 32];
   long long tile;
 };
 
-// The thread's kItems rows of a tile, warp-striped: item i is tile row
+// The thread's Items rows of a tile, warp-striped: item i is tile row
 // warp_first + 32 i + lane (0 past the tile's rows).  Every load is issued
 // before the first value is used.
-__device__ __forceinline__ void load_striped(const int32_t* src,
-                                             int64_t tile_begin,
+template <typename T, int Items>
+__device__ __forceinline__ void load_striped(const T* src, int64_t tile_begin,
                                              int warp_first, int lane,
-                                             int tile_rows,
-                                             int32_t (&v)[kItems]) {
+                                             int tile_rows, T (&v)[Items]) {
 #pragma unroll
-  for (int i = 0; i < kItems; ++i) {
+  for (int i = 0; i < Items; ++i) {
     const int r = warp_first + 32 * i + lane;
     v[i] = r < tile_rows ? __ldg(src + tile_begin + r) : 0;
   }
@@ -237,10 +343,11 @@ __device__ __forceinline__ unsigned int peers_of(unsigned int d) {
 }
 
 // The staged tile written out: place j goes to its digit's run.
-__device__ __forceinline__ void write_tile(const SweepShared& s, int32_t* dst,
-                                           int tile_rows) {
+template <typename Key, int K>
+__device__ __forceinline__ void write_tile(const SweepShared<Key, K>& s,
+                                           Key* dst, int tile_rows) {
 #pragma unroll
-  for (int m = 0; m < kItems; ++m) {
+  for (int m = 0; m < Tiling<Key>::kItems; ++m) {
     const int j = m * kSweepThreads + threadIdx.x;
     if (j < tile_rows) {
       dst[s.adj[s.digit[j]] + j] = s.val[j];
@@ -248,15 +355,20 @@ __device__ __forceinline__ void write_tile(const SweepShared& s, int32_t* dst,
   }
 }
 
-template <int K>
+// One pass by the digit at `shift` of keys of type Key: operand key_op of K
+// int32 operands (Key = int32_t), or the 8-byte key alone (Key = int64_t,
+// K = 1; `ops` is not read).
+template <typename Key, int K>
 __global__ void __launch_bounds__(kSweepThreads, 2)
-    sweep_kernel(Operands ops, const int32_t* __restrict__ keys,
-                 int32_t* __restrict__ keys_out, int key_op, int shift,
+    sweep_kernel(Operands ops, const Key* __restrict__ keys,
+                 Key* __restrict__ keys_out, int key_op, int shift,
                  int64_t n,
                  const unsigned long long* __restrict__ digit_base,
                  unsigned long long* status, unsigned int* counter) {
+  constexpr int kRows = Tiling<Key>::kTile;
+  constexpr int kRowItems = Tiling<Key>::kItems;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  SweepShared& s = *reinterpret_cast<SweepShared*>(smem_raw);
+  SweepShared<Key, K>& s = *reinterpret_cast<SweepShared<Key, K>*>(smem_raw);
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   if (threadIdx.x == 0) {
@@ -267,24 +379,24 @@ __global__ void __launch_bounds__(kSweepThreads, 2)
   }
   __syncthreads();
   const long long tile = s.tile;
-  const int64_t tile_begin = tile * kTile;
+  const int64_t tile_begin = tile * kRows;
   const int tile_rows =
-      static_cast<int>(min(static_cast<int64_t>(kTile), n - tile_begin));
-  const int warp_first = warp * kWarpRows;
+      static_cast<int>(min(static_cast<int64_t>(kRows), n - tile_begin));
+  const int warp_first = warp * Tiling<Key>::kWarpRows;
 
   // 1. The warp's key rows, warp-striped: item i of a lane is row
   //    warp_first + 32 i + lane, so each ranking round holds 32 consecutive
   //    rows in lane order, and each warp load is one coalesced 128-byte
-  //    line.
-  int32_t key[kItems];
+  //    line (two for 8-byte keys).
+  Key key[kRowItems];
   load_striped(keys, tile_begin, warp_first, lane, tile_rows, key);
 
   // 2. Stable rank of each row among the warp's earlier rows of its digit.
   uint32_t* hist = s.warp_hist[warp];
   const unsigned int lanes_before = (1u << lane) - 1u;
-  uint32_t rank[kItems];
+  uint32_t rank[kRowItems];
 #pragma unroll
-  for (int i = 0; i < kItems; ++i) {
+  for (int i = 0; i < kRowItems; ++i) {
     const bool ok = warp_first + 32 * i + lane < tile_rows;
     const unsigned int d = ok ? digit_of(key[i], shift) : kRadix;
     const unsigned int peers = peers_of(d);  // invalid rows: d == kRadix
@@ -340,12 +452,12 @@ __global__ void __launch_bounds__(kSweepThreads, 2)
   // 4. Each row's place in the digit-ordered tile; the key operand is
   //    staged there at once.
 #pragma unroll
-  for (int i = 0; i < kItems; ++i) {
+  for (int i = 0; i < kRowItems; ++i) {
     const int r = warp_first + 32 * i + lane;
     if (r < tile_rows) {
       const unsigned int d = digit_of(key[i], shift);
       const unsigned int place = s.tile_prefix[d] + hist[d] + rank[i];
-      if (K > 1) {
+      if constexpr (K > 1) {
         s.place[r] = static_cast<uint16_t>(place);
       }
       s.digit[place] = static_cast<uint8_t>(d);
@@ -370,23 +482,25 @@ __global__ void __launch_bounds__(kSweepThreads, 2)
   //    threads at consecutive addresses of each digit's run: the key
   //    operand first, then each other one after its own loads.
   write_tile(s, keys_out, tile_rows);
+  if constexpr (K > 1) {
 #pragma unroll
-  for (int c = 0; c < K; ++c) {
-    if (c == key_op) {
-      continue;
-    }
-    __syncthreads();
-    int32_t v[kItems];
-    load_striped(ops.in[c], tile_begin, warp_first, lane, tile_rows, v);
-#pragma unroll
-    for (int i = 0; i < kItems; ++i) {
-      const int r = warp_first + 32 * i + lane;
-      if (r < tile_rows) {
-        s.val[s.place[r]] = v[i];
+    for (int c = 0; c < K; ++c) {
+      if (c == key_op) {
+        continue;
       }
+      __syncthreads();
+      Key v[kRowItems];
+      load_striped(ops.in[c], tile_begin, warp_first, lane, tile_rows, v);
+#pragma unroll
+      for (int i = 0; i < kRowItems; ++i) {
+        const int r = warp_first + 32 * i + lane;
+        if (r < tile_rows) {
+          s.val[s.place[r]] = v[i];
+        }
+      }
+      __syncthreads();
+      write_tile(s, ops.out[c], tile_rows);
     }
-    __syncthreads();
-    write_tile(s, ops.out[c], tile_rows);
   }
 }
 
@@ -438,28 +552,62 @@ cudaError_t launch_histograms(const Operands& ops, int64_t n,
   return cudaGetLastError();
 }
 
-template <int K>
-cudaError_t launch_pass(const Operands& ops, int64_t n, int key_op, int shift,
+cudaError_t launch_histograms_i64(const int64_t* keys, int64_t n,
+                                  unsigned long long* hist,
+                                  unsigned long long* offsets,
+                                  cudaStream_t stream) {
+  const int rows = 2 * kDigits;
+  cudaError_t err = cudaMemsetAsync(
+      hist, 0, static_cast<size_t>(rows) * kRadix * sizeof(*hist), stream);
+  if (err != cudaSuccess) {
+    return err;
+  }
+  const int64_t per_block = static_cast<int64_t>(kUpThreads / 32) * kUpRowsPerWarp;
+  const int64_t needed = (n + per_block - 1) / per_block;
+  const int64_t most = static_cast<int64_t>(sm_count()) * kUpBlocksPerSm;
+  const unsigned int grid =
+      static_cast<unsigned int>(needed < most ? needed : most);
+  upsweep_kernel<<<grid, kUpThreads, 0, stream>>>(keys, n, hist);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) {
+    return err;
+  }
+  offsets_kernel<<<rows, kRadix, 0, stream>>>(hist, offsets);
+  return cudaGetLastError();
+}
+
+template <typename Key, int K>
+cudaError_t launch_pass(const Operands& ops, const Key* keys, Key* keys_out,
+                        int64_t n, int key_op, int shift,
                         const unsigned long long* digit_base,
                         unsigned long long* status, cudaStream_t stream) {
-  const int64_t tiles = (n + kTile - 1) / kTile;
+  constexpr int kRows = Tiling<Key>::kTile;
+  const int64_t tiles = (n + kRows - 1) / kRows;
   cudaError_t err = cudaMemsetAsync(
       status, 0, static_cast<size_t>(tiles * kRadix + 1) * sizeof(*status),
       stream);
   if (err != cudaSuccess) {
     return err;
   }
-  const int smem = static_cast<int>(sizeof(SweepShared));
-  err = cudaFuncSetAttribute(sweep_kernel<K>,
+  const int smem = static_cast<int>(sizeof(SweepShared<Key, K>));
+  err = cudaFuncSetAttribute(sweep_kernel<Key, K>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) {
     return err;
   }
   auto* counter = reinterpret_cast<unsigned int*>(status + tiles * kRadix);
-  sweep_kernel<K><<<static_cast<unsigned int>(tiles), kSweepThreads, smem,
-                    stream>>>(ops, ops.in[key_op], ops.out[key_op], key_op,
-                              shift, n, digit_base, status, counter);
+  sweep_kernel<Key, K><<<static_cast<unsigned int>(tiles), kSweepThreads,
+                         smem, stream>>>(ops, keys, keys_out, key_op, shift, n,
+                                         digit_base, status, counter);
   return cudaGetLastError();
+}
+
+template <int K>
+cudaError_t launch_pass(const Operands& ops, int64_t n, int key_op, int shift,
+                        const unsigned long long* digit_base,
+                        unsigned long long* status, cudaStream_t stream) {
+  return launch_pass<int32_t, K>(ops, ops.in[key_op], ops.out[key_op], n,
+                                 key_op, shift, digit_base, status, stream);
 }
 
 }  // namespace
@@ -539,6 +687,48 @@ int phj_radix_pass(int k, int64_t n, int key_op, int shift,
       return static_cast<int>(
           launch_pass<4>(ops, n, key_op, shift, digit_base, status, stream));
   }
+}
+
+// Rows per sweep tile of the 8-byte key; the wrapper sizes the status
+// buffer from it.
+int phj_radix_tile_rows_i64() { return kTile64; }
+
+// The 8-byte key's upsweep: hist and offsets are device buffers of 8 x 256
+// uint64; row 4 + b of hist receives the histogram of byte b (0 = least
+// significant) of the key biased by ^ (1 << 63) over its n rows for b < 4,
+// row b - 4 for the others (the layout of a (hi, lo) tuple), the same row of
+// offsets its exclusive prefix over the digits.  One memset and two launches
+// on `stream`, no synchronisation.  Returns cudaGetLastError().
+int phj_radix_histograms_i64(int64_t n, const int64_t* keys,
+                             unsigned long long* hist,
+                             unsigned long long* offsets, cudaStream_t stream) {
+  if (n < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (n == 0) {
+    return static_cast<int>(cudaSuccess);
+  }
+  return static_cast<int>(launch_histograms_i64(keys, n, hist, offsets, stream));
+}
+
+// One sweep pass of the 8-byte key: the n keys of `in` stably reordered by
+// byte shift / 8 of the biased key into `out` (which must not alias `in`).
+// digit_base is that digit's row of the upsweep's offsets (256 uint64);
+// status is a device buffer of ceil(n / kTile64) x 256 + 1 uint64, zeroed
+// here.  One memset and one launch on `stream`, no synchronisation.
+// Returns cudaGetLastError().
+int phj_radix_pass_i64(int64_t n, int shift, const int64_t* in, int64_t* out,
+                       const unsigned long long* digit_base,
+                       unsigned long long* status, cudaStream_t stream) {
+  if (n < 0 || shift < 0 || shift > 56 || shift % 8 != 0 ||
+      (n + kTile64 - 1) / kTile64 > 0x7fffffffLL) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (n == 0) {
+    return static_cast<int>(cudaSuccess);
+  }
+  return static_cast<int>(launch_pass<int64_t, 1>(
+      Operands{}, in, out, n, 0, shift, digit_base, status, stream));
 }
 
 }  // extern "C"

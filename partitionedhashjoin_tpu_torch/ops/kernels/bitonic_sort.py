@@ -1,10 +1,11 @@
-"""Tuple sort of int32 rows: the port of the TPU kernel K6.
+"""Tuple sort of int32 rows, and sort of int64 keys: the port of the TPU
+kernel K6.
 
 Counterpart of ``partitionedhashjoin_tpu/ops/pallas/bitonic_sort.py`` (the
-module keeps its name so that a reader finds it).  Every function sorts
-int32 row TUPLES ascending in full lexicographic order (by operand 0, ties by
-operand 1, and so on).  Ties are bit-identical tuples, so the sort has
-exactly one correct output:
+module keeps its name so that a reader finds it).  Every function but
+``sort_i64`` sorts int32 row TUPLES ascending in full lexicographic order (by
+operand 0, ties by operand 1, and so on).  Ties are bit-identical tuples, so
+the sort has exactly one correct output:
 
 - ``sort_i32(x)`` / ``sort_i32_tuple(*operands)``: any length.  On the card
   this is NOT the TPU's bitonic block sort and merge passes but a one-sweep
@@ -13,6 +14,11 @@ exactly one correct output:
   every row (``radix_plan``).  It computes the same unique answer and moves
   each operand once per pass, where the merge sort moved it once per phase
   (16 times at 200M rows) and lost to ``torch.sort``.
+- ``sort_i64(x)``: an int64 key, keys only, any length, on the same radix
+  sort: the key biased by ``^ (1 << 63)`` is read as 8 bytes, whose
+  histograms come in the rows of a (hi, lo) tuple, so the same plan skips
+  every byte that does not vary.  It has no JAX counterpart (the JAX
+  package sorts int64 keys as (hi, lo) int32 planes).
 - ``sort_blocks_i32(x)`` / ``sort_blocks_tuple`` (phase A, K6a): each
   ``BLK``-row block sorted on its own; length a multiple of ``BLK``.
 - ``merge_pass_i32(x, run_len)`` / ``merge_pass_tuple`` (phase B, K6b): one
@@ -27,8 +33,9 @@ exactly one correct output:
 On CUDA tensors they launch the hand-written kernels (at most
 ``MAX_OPERANDS`` operands; a wider tuple raises ``ValueError``) or raise; on
 CPU tensors they run the plain PyTorch versions (``*_plain``: cascades of
-stable ``torch.sort`` calls from the last operand to the first), which tests
-and ``chip_smoke.py`` also hold the kernels against.  The JAX package's TPU
+stable ``torch.sort`` calls from the last operand to the first; for
+``sort_i64``, ``torch.sort(x).values``), which tests and ``chip_smoke.py``
+also hold the kernels against.  The JAX package's TPU
 tuning arguments (``block_rows``, ``phase_a``, ``interpret``) have no
 counterpart here.
 """
@@ -43,6 +50,7 @@ import torch
 from partitionedhashjoin_tpu_torch.ops.kernels import _build
 
 INT32_MAX = 2**31 - 1
+INT64_MIN = -(2**63)
 
 #: Rows per phase-A block and per merge tile; equals kBlk in
 #: csrc/bitonic_sort.cu (checked when the library loads).
@@ -55,11 +63,17 @@ MAX_OPERANDS = 4
 #: launches a split search and a merge on one stream and adds one);
 #: ``LAUNCHES_UPSWEEP`` for the radix sort's histograms (a memset, the
 #: upsweep and the offsets scan: one per full sort) and ``LAUNCHES_SORT``
-#: for its sweep passes (a memset and a sweep: one per digit that varies).
+#: for its sweep passes (a memset and a sweep: one per digit that varies),
+#: int32 tuples and int64 keys alike.
 LAUNCHES_BLOCKS = 0
 LAUNCHES_MERGE = 0
 LAUNCHES_UPSWEEP = 0
 LAUNCHES_SORT = 0
+#: Sweep passes that the radix sort's plans skipped since the last reset
+#: (set to 0 to reset): digits found the same in every row, of int32 tuples
+#: and int64 keys alike.  With ``LAUNCHES_SORT`` it makes up every digit of
+#: every sort on the card.
+SWEEPS_SKIPPED = 0
 
 #: 8-bit digits per int32 operand and buckets per digit; equal to kDigits
 #: and kRadix in csrc/radix_sort.cu.
@@ -68,6 +82,9 @@ RADIX = 256
 #: Rows per sweep tile; equals kTile in csrc/radix_sort.cu (checked when the
 #: library loads).
 RADIX_TILE = 8192
+#: Rows per sweep tile of an int64 key; equals kTile64 in csrc/radix_sort.cu
+#: (checked when the library loads).
+RADIX_TILE_I64 = 4096
 
 _PTRS = [ctypes.c_void_p] * MAX_OPERANDS
 _SIGNATURES = {
@@ -127,6 +144,29 @@ _RADIX_SIGNATURES = {
         ),
         ctypes.c_int,
     ),
+    "phj_radix_tile_rows_i64": ((), ctypes.c_int),
+    "phj_radix_histograms_i64": (
+        (
+            ctypes.c_int64,  # n
+            ctypes.c_void_p,  # keys
+            ctypes.c_void_p,  # hist (8 x 256 uint64)
+            ctypes.c_void_p,  # offsets (8 x 256 uint64)
+            ctypes.c_void_p,  # cudaStream_t
+        ),
+        ctypes.c_int,
+    ),
+    "phj_radix_pass_i64": (
+        (
+            ctypes.c_int64,  # n
+            ctypes.c_int,  # shift
+            ctypes.c_void_p,  # in
+            ctypes.c_void_p,  # out
+            ctypes.c_void_p,  # digit offsets (256 uint64)
+            ctypes.c_void_p,  # status (tiles x 256 + 1 uint64)
+            ctypes.c_void_p,  # cudaStream_t
+        ),
+        ctypes.c_int,
+    ),
 }
 
 
@@ -134,10 +174,12 @@ def load_radix_library() -> ctypes.CDLL:
     """Build (at first use) and load the radix sort's library."""
     lib = _build.load("radix_sort", _RADIX_SIGNATURES)
     ops, tile = lib.phj_radix_max_operands(), lib.phj_radix_tile_rows()
-    if (ops, tile) != (MAX_OPERANDS, RADIX_TILE):
+    tile64 = lib.phj_radix_tile_rows_i64()
+    if (ops, tile, tile64) != (MAX_OPERANDS, RADIX_TILE, RADIX_TILE_I64):
         raise RuntimeError(
-            f"radix_sort.cu sorts at most {ops} operands in {tile}-row tiles, "
-            f"the wrapper expects {MAX_OPERANDS} and {RADIX_TILE}"
+            f"radix_sort.cu sorts at most {ops} operands in {tile}-row tiles "
+            f"and int64 keys in {tile64}-row tiles, the wrapper expects "
+            f"{MAX_OPERANDS}, {RADIX_TILE} and {RADIX_TILE_I64}"
         )
     return lib
 
@@ -233,9 +275,11 @@ def radix_plan(hist) -> RadixPlan:
     """The plan of a full sort from its digit histograms (``4 k x 256``
     counts; row ``4 c + b`` counts byte ``b`` of operand ``c`` biased by
     ``^ 0x80000000``, as the upsweep or ``radix_histograms_plain`` give
-    them).  A digit with a single non-empty bucket is the same in every row,
-    so its pass is skipped: a stable sort by it would move nothing.  The
-    buffers alternate so that the last pass writes the output."""
+    them; an int64 key's 8 rows are those of its (hi, lo) tuple, so pass
+    ``(c, b)`` sorts by the digit at ``i64_shift(c, b)``).  A digit with a
+    single non-empty bucket is the same in every row, so its pass is
+    skipped: a stable sort by it would move nothing.  The buffers alternate
+    so that the last pass writes the output."""
     hist = torch.as_tensor(hist)
     if hist.dim() != 2 or hist.shape[1] != RADIX or hist.shape[0] % DIGITS:
         raise ValueError(f"hist must be (4 k, {RADIX}), got {tuple(hist.shape)}")
@@ -249,6 +293,13 @@ def radix_plan(hist) -> RadixPlan:
     return RadixPlan(passes, targets)
 
 
+def i64_shift(c: int, b: int) -> int:
+    """The bit shift of the int64 key's digit in histogram row ``4 c + b``,
+    which pass ``(c, b)`` of its plan sorts by: byte ``b`` of the hi word
+    (``c = 0``) or of the lo word (``c = 1``)."""
+    return 8 * (b + DIGITS * (1 - c))
+
+
 def digits_plain(x: torch.Tensor, byte: int) -> torch.Tensor:
     """Byte ``byte`` (0 = least significant) of int32 ``x`` biased by
     ``^ 0x80000000``, as int64: the digit the radix sort extracts."""
@@ -257,7 +308,15 @@ def digits_plain(x: torch.Tensor, byte: int) -> torch.Tensor:
 
 def radix_histograms_plain(*operands: torch.Tensor) -> torch.Tensor:
     """The plain version of the upsweep: ``(4 k, 256)`` int64 counts of each
-    byte of each biased operand.  Works on any device."""
+    byte of each biased int32 operand, or for one int64 key the ``(8, 256)``
+    counts of its bytes biased by ``^ (1 << 63)``, row ``4 c + b`` the byte
+    at ``i64_shift(c, b)``.  Works on any device."""
+    if len(operands) == 1 and operands[0].dtype == torch.int64:
+        x = _check_i64(operands[0]) ^ INT64_MIN
+        return torch.stack([
+            torch.bincount((x >> i64_shift(c, b)) & (RADIX - 1), minlength=RADIX)
+            for c in range(2) for b in range(DIGITS)
+        ])
     _check(operands)
     return torch.stack([
         torch.bincount(digits_plain(o, b), minlength=RADIX)
@@ -295,6 +354,15 @@ def _check(operands, blocks: bool = False, run_len=None) -> None:
         raise ValueError(
             f"run_len must be a positive multiple of BLK={BLK}, got {run_len}"
         )
+
+
+def _check_i64(x: torch.Tensor) -> torch.Tensor:
+    if x.dtype != torch.int64 or x.dim() != 1:
+        raise TypeError(f"keys must be a 1-D int64 tensor, got {x.dtype} of "
+                        f"shape {tuple(x.shape)}")
+    if not x.is_contiguous():
+        raise ValueError("keys must be contiguous")
+    return x
 
 
 def _cuda_device(operands) -> torch.device:
@@ -375,6 +443,33 @@ def merge_pass_tuple(*operands: torch.Tensor, run_len: int) -> List[torch.Tensor
     return outs
 
 
+def _radix_sort(hist, rows, n, src, dst, launch_pass) -> None:
+    """The sweeps of one full sort, after its upsweep: reads the histograms
+    back (the one synchronisation), plans, and runs ``launch_pass(c, b,
+    src, dst, digit_offsets, status)`` for each pass of the plan,
+    ping-ponging between ``dst`` and one scratch set made like it (the last
+    pass writes ``dst``; a plan of no passes copies ``src`` there).  Counts
+    the sweeps launched and skipped."""
+    global LAUNCHES_SORT, SWEEPS_SKIPPED
+    plan = radix_plan(hist[0].cpu())
+    SWEEPS_SKIPPED += hist.shape[1] - len(plan.passes)
+    if not plan.passes:
+        for o, x in zip(dst, src):
+            o.copy_(x)
+        return
+    bufs = {"out": dst}
+    if len(plan.passes) > 1:
+        bufs["tmp"] = _empty_like(dst)
+    status = torch.empty((-(-n // rows) * RADIX + 1,), dtype=torch.int64,
+                         device=dst[0].device)
+    for (c, b), target in zip(plan.passes, plan.targets):
+        out = bufs[target]
+        launch_pass(c, b, src, out, hist[1, DIGITS * c + b].data_ptr(),
+                    status.data_ptr())
+        LAUNCHES_SORT += 1
+        src = out
+
+
 def sort_i32_tuple(*operands: torch.Tensor) -> List[torch.Tensor]:
     """Ascending sort of int32 row tuples in full lexicographic order; any
     length.  Returns the reordered operands as a list.  A CUDA input runs
@@ -382,7 +477,7 @@ def sort_i32_tuple(*operands: torch.Tensor) -> List[torch.Tensor]:
     (the one synchronisation), then a sweep pass per digit of
     ``radix_plan``, ping-ponging between the outputs and one scratch set.
     When no digit varies the outputs are copies of the inputs."""
-    global LAUNCHES_UPSWEEP, LAUNCHES_SORT
+    global LAUNCHES_UPSWEEP
     _check(operands)
     if operands[0].device.type == "cpu":
         return sort_i32_tuple_plain(*operands)
@@ -401,28 +496,54 @@ def sort_i32_tuple(*operands: torch.Tensor) -> List[torch.Tensor]:
         if err != 0:
             raise RuntimeError(f"phj_radix_histograms failed: CUDA error {err}")
         LAUNCHES_UPSWEEP += 1
-        plan = radix_plan(hist[0].cpu())
-        if not plan.passes:
-            for o, x in zip(outs, operands):
-                o.copy_(x)
-            return outs
-        bufs = {"out": outs}
-        if len(plan.passes) > 1:
-            bufs["tmp"] = _empty_like(operands)
-        tiles = -(-n // RADIX_TILE)
-        status = torch.empty((tiles * RADIX + 1,), dtype=torch.int64,
-                             device=device)
-        src = operands
-        for (c, b), target in zip(plan.passes, plan.targets):
-            dst = bufs[target]
+
+        def launch_pass(c, b, src, dst, digit_base, status):
             err = lib.phj_radix_pass(k, n, c, 8 * b, *_ptrs(src), *_ptrs(dst),
-                                     hist[1, DIGITS * c + b].data_ptr(),
-                                     status.data_ptr(), stream)
+                                     digit_base, status, stream)
             if err != 0:
                 raise RuntimeError(f"phj_radix_pass failed: CUDA error {err}")
-            LAUNCHES_SORT += 1
-            src = dst
+
+        _radix_sort(hist, RADIX_TILE, n, operands, outs, launch_pass)
     return outs
+
+
+def sort_i64(x: torch.Tensor) -> torch.Tensor:
+    """Ascending sort of an int64 tensor, keys only; any length.  A CPU
+    input takes the plain version, ``torch.sort(x).values``.  A CUDA input
+    runs the radix sort or raises, as ``sort_i32_tuple`` does: the key
+    biased by ``^ (1 << 63)`` is read as 8 bytes, whose histograms come in
+    the rows of a (hi, lo) tuple (``i64_shift``), so ``radix_plan``
+    skips every byte that is the same in every row (keys in [1, 10M] sort
+    in 3 passes)."""
+    global LAUNCHES_UPSWEEP
+    _check_i64(x)
+    if x.device.type == "cpu":
+        return torch.sort(x).values
+    device = _cuda_device([x])
+    n = x.shape[0]
+    out = torch.empty_like(x)
+    if n == 0:
+        return out
+    lib = load_radix_library()
+    hist = torch.empty((2, 2 * DIGITS, RADIX), dtype=torch.int64, device=device)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = lib.phj_radix_histograms_i64(n, x.data_ptr(), hist[0].data_ptr(),
+                                           hist[1].data_ptr(), stream)
+        if err != 0:
+            raise RuntimeError(
+                f"phj_radix_histograms_i64 failed: CUDA error {err}")
+        LAUNCHES_UPSWEEP += 1
+
+        def launch_pass(c, b, src, dst, digit_base, status):
+            err = lib.phj_radix_pass_i64(n, i64_shift(c, b), src[0].data_ptr(),
+                                         dst[0].data_ptr(), digit_base, status,
+                                         stream)
+            if err != 0:
+                raise RuntimeError(f"phj_radix_pass_i64 failed: CUDA error {err}")
+
+        _radix_sort(hist, RADIX_TILE_I64, n, [x], [out], launch_pass)
+    return out
 
 
 def sort_i32(x: torch.Tensor) -> torch.Tensor:

@@ -5,7 +5,8 @@ Counterpart of ``partitionedhashjoin_tpu/ops/merge_join.py``:
 
     order:  one unstable 1-key sort per relation, chosen by the sorter
             switch below: the library ``torch.sort`` (the JAX package's
-            ``jax.lax.sort``) or the tuple sort K6
+            ``jax.lax.sort``) or K6, the radix sort, for int32 and int64
+            keys
     probe:  ``ops/kernels/merge_probe.py`` — K1 for int32 keys, K3 for
             int64 keys: the CUDA kernel on the card, its plain PyTorch
             version on the CPU
@@ -13,18 +14,21 @@ Counterpart of ``partitionedhashjoin_tpu/ops/merge_join.py``:
 The sorter switch (``set_sort_impl`` / ``PHJ_SORT_IMPL``) is engine-wide,
 as in the JAX package, and keeps its values:
 
-    "xla"     the library sort, ``torch.sort`` (the default)
+    "xla"     the library sort, ``torch.sort``
     "pallas"  K6, ``ops/kernels/bitonic_sort`` (the port of the JAX
               package's Pallas sorter): its CUDA kernels on a CUDA tensor,
               its plain version on a CPU tensor
-    "auto"    K6 on a CUDA tensor, the library sort on a CPU tensor
+    "auto"    K6 on a CUDA tensor, the library sort on a CPU tensor (the
+              default; the JAX package's stays "xla")
 
-It reaches five call sites: ``key_sort`` (int32 keys; so
-``two_run_count``, ``PreparedBuild`` and, through them, the
-no-partitioning, sort-merge and radix joiners), ``two_run_materialize``'s
-two (key, payload) sorts, ``two_run_count_i64``'s (hi, lo) plane sorts and
-GROUP BY pass 1 (``ops/aggregate.py``).  An int64 ``PreparedBuild`` keeps
-the library sort, as in the JAX package.
+It reaches five call sites: ``key_sort`` (int32 keys through ``sort_i32``,
+int64 keys through ``sort_i64``; so ``two_run_count``,
+``two_run_count_i64``, ``PreparedBuild`` of either width and, through them,
+the no-partitioning, sort-merge and radix joiners), ``two_run_materialize``'s
+two (key, payload) sorts and GROUP BY pass 1 (``ops/aggregate.py``).  K6
+sorts an int64 key natively, 8-bit digits of the biased key, skipping every
+digit that is the same in every row; the JAX package keeps the library sort
+for an int64 ``PreparedBuild``.
 
 Validity masks are supported exactly, by the JAX package's protocol:
 invalid rows are rewritten to INT32_MAX before the sort, the probe searches
@@ -60,13 +64,13 @@ from partitionedhashjoin_tpu_torch.ops.kernels import compact as kcompact
 from partitionedhashjoin_tpu_torch.ops.kernels import merge_payload, merge_probe
 
 _I32_MAX = merge_probe.INT32_MAX
-_I32_MIN = -(2**31)
 _WIDE = (torch.int64, torch.uint64)
 _SORT_IMPLS = ("xla", "pallas", "auto")
 
 # Module-level because it is an engine-wide tuning fact, not a per-call
 # choice (as in the JAX package).
-_SORT_IMPL = "xla"
+_DEFAULT_SORT_IMPL = "auto"
+_SORT_IMPL = _DEFAULT_SORT_IMPL
 
 
 def set_sort_impl(impl: str) -> None:
@@ -90,10 +94,8 @@ def resolve_sort_impl(impl: str, device) -> str:
 
 def set_sort_impl_from_env() -> str:
     """Apply the ``PHJ_SORT_IMPL`` environment variable (the benches' knob;
-    unset means "xla"); returns the active impl."""
-    impl = os.environ.get("PHJ_SORT_IMPL", "xla")
-    if impl != "xla":
-        set_sort_impl(impl)
+    unset means the default, "auto"); returns the active impl."""
+    set_sort_impl(os.environ.get("PHJ_SORT_IMPL", _DEFAULT_SORT_IMPL))
     return _SORT_IMPL
 
 
@@ -120,22 +122,15 @@ def _as_i64(name: str, keys: torch.Tensor) -> torch.Tensor:
 
 
 def key_sort(keys: torch.Tensor) -> torch.Tensor:
-    """Ascending 1-key sort: int32 keys through the sorter switch, other
-    dtypes through the library sort (unstable either way)."""
-    if keys.dtype == torch.int32 and _use_k6(keys):
-        return bitonic_sort.sort_i32(keys.contiguous())
+    """Ascending 1-key sort: int32 and int64 keys through the sorter switch
+    (K6's ``sort_i32`` / ``sort_i64`` where it resolves to K6), other dtypes
+    through the library sort (unstable either way)."""
+    if _use_k6(keys):
+        if keys.dtype == torch.int32:
+            return bitonic_sort.sort_i32(keys.contiguous())
+        if keys.dtype == torch.int64:
+            return bitonic_sort.sort_i64(keys.contiguous())
     return torch.sort(keys, stable=False).values
-
-
-def _plane_sort(keys: torch.Tensor) -> torch.Tensor:
-    """int64 keys sorted by K6 as (hi, lo ^ 0x80000000) int32 planes: the
-    lexicographic plane order is the int64 order (the bias makes the signed
-    compare of the low word unsigned), as in the JAX package's
-    ``_split_planes``."""
-    hi = (keys >> 32).to(torch.int32)
-    lo = keys.to(torch.int32) ^ _I32_MIN  # wraps to the low word
-    hi, lo = bitonic_sort.sort_i32_tuple(hi, lo)
-    return (hi.to(torch.int64) << 32) | ((lo ^ _I32_MIN).to(torch.int64) & 0xFFFFFFFF)
 
 
 def two_run_count(
@@ -165,15 +160,15 @@ def two_run_count_i64(
     build_keys: torch.Tensor, probe_keys: torch.Tensor
 ) -> torch.Tensor:
     """Get-semantics match count for int64 keys (the reference's Tuple::id
-    width, src/Common/Table.hpp:20-25): one unstable sort per relation (the
-    library sort, or under "pallas" K6 over (hi, lo) int32 planes), then K3
-    over the full int64 domain.  No validity masks."""
+    width, src/Common/Table.hpp:20-25): one unstable sort per relation
+    (``key_sort``: K6's native int64 key or the library sort), then K3 over
+    the full int64 domain.  No validity masks."""
     build_keys = _as_i64("build_keys", build_keys)
     probe_keys = _as_i64("probe_keys", probe_keys)
     if build_keys.shape[0] == 0 or probe_keys.shape[0] == 0:
         return torch.zeros((), dtype=torch.int64, device=build_keys.device)
-    sort = _plane_sort if _use_k6(build_keys) else key_sort
-    return merge_probe.ranged_merge_count_i64(sort(build_keys), sort(probe_keys))
+    return merge_probe.ranged_merge_count_i64(key_sort(build_keys),
+                                              key_sort(probe_keys))
 
 
 def sorted_runs_count(a_sorted: torch.Tensor, b_sorted: torch.Tensor) -> torch.Tensor:
@@ -229,8 +224,9 @@ class PreparedBuild:
 
     int32 keys also hold the INT32_MAX flag ``max_in_a`` and take validity
     masks.  int64 keys keep only the sorted run (``max_in_a`` is None), are
-    probed by K3 and raise ``TypeError`` on validity masks, as in the JAX
-    package.
+    sorted by ``key_sort`` (K6 under the sorter switch, where the JAX
+    package keeps the library sort), probed by K3 and raise ``TypeError`` on
+    validity masks, as in the JAX package.
     """
 
     def __init__(

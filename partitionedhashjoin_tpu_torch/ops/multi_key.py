@@ -9,8 +9,8 @@ This module generalizes the count joins to k int32 key columns:
 * ``k == 2`` rides the int64 path, K3: each (c1, c2) maps one-to-one to the
   int64 ``(c1 << 32) | (uint32(c2) ^ 0x80000000)``, whose order is the
   lexicographic order of the pair, and ``merge_join.two_run_count_i64``
-  counts it (its sorts follow the sorter switch: the library sort, or K6
-  over (hi, lo) int32 planes under "pallas").  The JAX package feeds the two
+  counts it (its sorts follow the sorter switch: the library sort, or K6's
+  native int64 key).  The JAX package feeds the two
   columns to its plane kernel as the (hi, lo) planes; the map is the same
   pairing, spelled as one int64.
 * ``k >= 3`` takes the generalized sort-merge path: the concatenated

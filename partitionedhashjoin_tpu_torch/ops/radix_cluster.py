@@ -6,8 +6,8 @@ RadixHashJoiner`` and of the reference's src/RadixCluster/HashJoin.hpp:
 
 - ``"vmem"`` (and ``"auto"``, which is "vmem" on every device): range-radix
   clustering.  Partition phase: one sort per relation
-  (``merge_join.key_sort``: int32 keys through the sorter switch, the
-  library sort or K6; int64 keys through the library sort).  Sorting by key
+  (``merge_join.key_sort``: int32 and int64 keys through the sorter
+  switch, K6 on the card by default, else the library sort).  Sorting by key
   IS range-radix clustering: every partition is a contiguous key range,
   laid out contiguously, which is what the reference's scatter produces per
   hash partition (:394-412).  ``number_of_partitions`` is advisory, as in
@@ -176,8 +176,7 @@ class RadixHashJoiner:
         dtype = _key_dtype(table_a.keys, table_b.keys)
 
         timer.set_partitioning_phase_begin()
-        # int32 keys through the sorter switch; int64 keys keep the library
-        # sort, as in the JAX package
+        # int32 and int64 keys through the sorter switch (K6 on the card)
         a_sorted = merge_join.key_sort(table_a.keys.to(dtype))
         b_sorted = merge_join.key_sort(table_b.keys.to(dtype))
         sync(a_sorted.device)

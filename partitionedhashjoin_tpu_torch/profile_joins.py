@@ -25,8 +25,9 @@ the idle share, 1 - device time / host time.  A JSON line with the same
 numbers follows each path.  Without a CUDA device it exits non-zero.
 
 The sorter switch follows ``PHJ_SORT_IMPL`` (``merge_join.set_sort_impl_from_env``),
-so ``PHJ_SORT_IMPL=pallas python -m partitionedhashjoin_tpu_torch.profile_joins``
-breaks the paths down with K6 in place of the library sort.
+so ``PHJ_SORT_IMPL=xla python -m partitionedhashjoin_tpu_torch.profile_joins``
+breaks the paths down with the library sort in place of K6, the default on
+the card.
 """
 
 from __future__ import annotations

@@ -5,7 +5,7 @@ count kernel (K1), one process; the only variable is
 ``merge_join.set_sort_impl``: "xla" (``torch.sort``) against "pallas" (K6,
 the port's radix sort).  For each, ``two_run_count`` runs once (its time
 printed as the first call), then best of 3; the counts must agree.  The
-sorter is reset to "xla" at the end, also on failure.  Output goes to
+sorter is set back to what it was at the end, also on failure.  Output goes to
 stderr only, as in the JAX script.
 
 Env: PHJ_AB_PRIMARY (10M), PHJ_AB_SECONDARY (200M), PHJ_AB_SKEW (1.05),
@@ -55,6 +55,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     log(f"generated in {time.perf_counter() - t0:.3f}s")
 
     results = {}
+    prior = merge_join.get_sort_impl()
     try:
         for impl in impls:
             merge_join.set_sort_impl(impl)
@@ -66,7 +67,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             log(f"{impl:7s}: {best * 1e3:9.3f} ms  ({n_b / best:.6e} rows/s)"
                 f"  count={c}  [first call {first_s:.3f}s]")
     finally:
-        merge_join.set_sort_impl("xla")
+        merge_join.set_sort_impl(prior)
     if len(results) == 2:
         counts = {v[1] for v in results.values()}
         if len(counts) != 1:

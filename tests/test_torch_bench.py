@@ -57,7 +57,7 @@ def test_main_prints_one_json_line(monkeypatch, capsys):
     doc = json.loads(lines[0])
     assert set(doc) == BENCH_KEYS | {"device"}
     assert doc["device"] == "cpu" and doc["unit"] == "rows/s"
-    assert doc["generation_path"] == "rejection" and doc["sort_impl"] == "xla"
+    assert doc["generation_path"] == "rejection" and doc["sort_impl"] == "auto"
     algo = doc["metric"].split("_")[4]
     assert algo in ("sort-merge", "radix")
     assert doc["metric"] == f"join_rows_per_s_{algo}_5000x70000_skew1.05"

@@ -360,3 +360,81 @@ def test_radix_histograms_plain_counts_biased_bytes():
     assert hist[0, 0x04] == 1 and hist[0, 0xFF] == 2 and hist[0, 0x00] == 2
     with pytest.raises(ValueError):
         bs.radix_plan(torch.zeros((5, 256)))
+
+
+# ---------------------------------------------------------------- int64 keys
+
+I64_MIN = np.iinfo(np.int64).min
+I64_MAX = np.iinfo(np.int64).max
+
+
+def _i64_cases():
+    """(name, keys, passes): keys in [1, 10M] vary in bytes 0-2 of the lo
+    word only; full-domain keys with INT64_MIN and INT64_MAX in every byte;
+    a constant column in none."""
+    r = _rng(64)
+    full = r.integers(I64_MIN, I64_MAX, 3 * BLK + 11, dtype=np.int64, endpoint=True)
+    full[:6] = [I64_MIN, I64_MAX, -1, 0, 1, 2**32]
+    return {
+        "keys_1_to_10M": (r.integers(1, 10_000_001, 2 * BLK + 5).astype(np.int64),
+                          ((1, 0), (1, 1), (1, 2))),
+        "full_domain": (full, tuple(bs.digit_order(2))),
+        "constant": (np.full(BLK + 3, -(2**40) + 7, np.int64), ()),
+    }
+
+
+@pytest.mark.parametrize("case", sorted(_i64_cases()))
+def test_int64_plan_passes(case):
+    """The int64 key's histograms are a (hi, lo) tuple's rows: the plan
+    takes exactly the bytes that vary, lo word first, and stable sorts by
+    those digits in its order give the int64 order."""
+    keys, passes = _i64_cases()[case]
+    x = torch.from_numpy(keys)
+    hist = bs.radix_histograms_plain(x)
+    assert hist.shape == (8, 256) and int(hist.sum()) == 8 * keys.size
+    plan = bs.radix_plan(hist)
+    assert plan.passes == passes
+    for c, b in plan.passes:
+        digit = ((x ^ bs.INT64_MIN) >> bs.i64_shift(c, b)) & 255
+        x = x[torch.sort(digit, stable=True).indices]
+    np.testing.assert_array_equal(x.numpy(), np.sort(keys))
+
+
+def test_int64_histograms_count_biased_bytes():
+    x = torch.tensor([I64_MIN, -1, 0, I64_MAX, 0x0102030405060708], dtype=torch.int64)
+    hist = bs.radix_histograms_plain(x)
+    # rows 0-3: bytes 4-7 (the hi word, biased); rows 4-7: bytes 0-3 (the lo
+    # word, unbiased): INT64_MIN -> 0x00.., -1 -> 0x7f ff.., 0 -> 0x80 00..,
+    # INT64_MAX -> 0xff.., 0x0102.. -> 0x8102030405060708
+    assert hist[3].nonzero().flatten().tolist() == [0x00, 0x7F, 0x80, 0x81, 0xFF]
+    assert hist[0, 0x04] == 1 and hist[4, 0x08] == 1 and hist[7, 0x05] == 1
+    assert hist[4, 0xFF] == 2 and hist[4, 0x00] == 2
+
+
+@pytest.mark.parametrize("n", [0, 1, BLK - 1, BLK + 1, 50_021])
+def test_sort_i64_on_cpu_is_the_library_sort(n):
+    x = torch.from_numpy(_rng(n).integers(I64_MIN, I64_MAX, n, dtype=np.int64,
+                                          endpoint=True))
+    got = bs.sort_i64(x)
+    assert got.dtype == torch.int64
+    assert torch.equal(got, torch.sort(x).values)
+    with pytest.raises(TypeError):
+        bs.sort_i64(x.to(torch.int32))
+    if n > 1:
+        with pytest.raises(ValueError):
+            bs.sort_i64(x[::2])
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+def test_key_sort_under_the_default_is_the_library_sort_on_cpu(dtype):
+    """The default "auto" keeps the library sort on a CPU tensor, for both
+    key widths."""
+    from partitionedhashjoin_tpu_torch.ops import merge_join as mj
+
+    assert mj.get_sort_impl() == "auto"
+    info = torch.iinfo(dtype)
+    x = torch.from_numpy(_rng(9).integers(info.min, info.max, 30_001,
+                                          endpoint=True)).to(dtype)
+    x[:2] = torch.tensor([info.min, info.max], dtype=dtype)
+    got = mj.key_sort(x)
+    assert got.dtype == dtype and torch.equal(got, torch.sort(x).values)

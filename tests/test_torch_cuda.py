@@ -7,6 +7,8 @@ it runs with tests/conftest.py (which imports jax) switched off:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -16,7 +18,13 @@ from partitionedhashjoin_tpu_torch.config import (
     RadixClusteringConfiguration,
 )
 from partitionedhashjoin_tpu_torch.data.table import make_table, table_from_numpy
-from partitionedhashjoin_tpu_torch.ops import aggregate, hashing, merge_join, sort_merge
+from partitionedhashjoin_tpu_torch.ops import (
+    aggregate,
+    generators,
+    hashing,
+    merge_join,
+    sort_merge,
+)
 from partitionedhashjoin_tpu_torch.ops.kernels import bitonic_sort as bs
 from partitionedhashjoin_tpu_torch.ops.kernels import compact as kc
 from partitionedhashjoin_tpu_torch.ops.kernels import generate as gen
@@ -42,6 +50,17 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
     return torch.device("cuda", 0)
+
+
+@contextlib.contextmanager
+def _sorter(impl):
+    """The sorter switch on ``impl``, set back to what it was after."""
+    prior = merge_join.get_sort_impl()
+    merge_join.set_sort_impl(impl)
+    try:
+        yield
+    finally:
+        merge_join.set_sort_impl(prior)
 
 
 def _cases():
@@ -398,15 +417,19 @@ def test_payload_wrapper_rejects_bad_inputs(cuda):
 
 
 def test_two_run_materialize_on_card_matches_cpu(cuda):
+    """The card under the default sorter against the CPU under the sorter
+    it resolves to on the card (K6's plain version: the probe rows come out
+    in (key, payload) order)."""
     rng = np.random.default_rng(47)
     a = rng.permutation(np.arange(0, 40000, 2)).astype(np.int32)
     b = rng.integers(0, 40000, 300000).astype(np.int32)
     a_pay = rng.integers(0, 1000, a.size).astype(np.int32)
     b_pay = rng.integers(0, 1000, b.size).astype(np.int32)
     for payload_sorted in (False, True):
-        cpu = merge_join.two_run_materialize(
-            *map(torch.from_numpy, (a, a_pay, b, b_pay)),
-            probe_payload_sorted=payload_sorted)
+        with _sorter(merge_join.resolve_sort_impl(merge_join.get_sort_impl(), cuda)):
+            cpu = merge_join.two_run_materialize(
+                *map(torch.from_numpy, (a, a_pay, b, b_pay)),
+                probe_payload_sorted=payload_sorted)
         before, before_k5 = mpay.LAUNCHES, kc.LAUNCHES
         gpu = merge_join.two_run_materialize(
             *(torch.from_numpy(x).to(cuda) for x in (a, a_pay, b, b_pay)),
@@ -726,9 +749,113 @@ def test_tuple_sort_rejects_bad_inputs_on_card(cuda):
         bs.sort_blocks_i32(x[:-1])
 
 
+def _i64_columns(cuda, n, seed):
+    """int64 keys: Zipf(1.05) over [1, 10M] (3 varying bytes), the full
+    domain with INT64_MIN, INT64_MAX and negatives (8), one value (0)."""
+    gen_ = torch.Generator(device=cuda)
+    gen_.manual_seed(seed)
+    zipf = generators.zipf_keys(n, 1.05, 10_000_000, generator=gen_,
+                                device=cuda).to(torch.int64)
+    full = torch.randint(I64_MIN, I64_MAX, (n,), generator=gen_, device=cuda,
+                         dtype=torch.int64)
+    full[:4] = torch.tensor([I64_MIN, I64_MAX, -1, 0], device=cuda)[:n]
+    return {"zipf_1_to_10M": zipf, "full_domain": full,
+            "all_equal": torch.full((n,), -(2**40) + 7, dtype=torch.int64,
+                                    device=cuda)}
+
+
+def _i64_sort_checked(x):
+    """sort_i64 bit-identical to torch.sort; one upsweep, a sweep per digit
+    of its plan, and the other digits counted as skipped."""
+    want = torch.sort(x).values
+    n = x.shape[0]
+    passes = len(bs.radix_plan(bs.radix_histograms_plain(x)).passes) if n else 0
+    before = (_launches(), bs.SWEEPS_SKIPPED)
+    got = bs.sort_i64(x)
+    torch.cuda.synchronize()
+    assert got.device.type == "cuda" and got.dtype == torch.int64
+    assert torch.equal(got, want)
+    grew = tuple(a - b for a, b in zip(_launches(), before[0]))
+    assert grew == ((1 if n else 0), passes, 0, 0)
+    assert bs.SWEEPS_SKIPPED - before[1] == ((8 - passes) if n else 0)
+    return passes
+
+
+@pytest.mark.parametrize("n", [0, 1, bs.RADIX_TILE_I64 - 1,
+                               bs.RADIX_TILE_I64 + 1, (1 << 22) + 13])
+def test_sort_i64_kernels_match_library(cuda, n):
+    for name, x in _i64_columns(cuda, n, seed=n + 3).items():
+        passes = _i64_sort_checked(x)
+        if n > 1 << 20:
+            assert passes == {"zipf_1_to_10M": 3, "full_domain": 8,
+                              "all_equal": 0}[name], name
+    if n > 1:  # a view off a 16-byte boundary: the upsweep's scalar loads
+        x = _i64_columns(cuda, n + 1, seed=n)["full_domain"]
+        view = x[1:]
+        assert view.data_ptr() % 16
+        _i64_sort_checked(view)
+
+
+def test_sort_i64_rejects_bad_inputs_on_card(cuda):
+    x = torch.arange(100, dtype=torch.int64, device=cuda)
+    with pytest.raises(TypeError):
+        bs.sort_i64(x.to(torch.int32))
+    with pytest.raises(ValueError):
+        bs.sort_i64(x[::2])
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+def test_key_sort_runs_k6_under_the_default(cuda, dtype, monkeypatch):
+    """Under the default sorter a card's int32 or int64 keys are sorted by
+    K6 alone: the plan's sweeps launch, the rest are counted as skipped,
+    and the library sort is never called."""
+    assert merge_join.get_sort_impl() == "auto"
+    gen_ = torch.Generator(device=cuda)
+    gen_.manual_seed(11)
+    keys = generators.zipf_keys(300_007, 1.05, 10_000_000, generator=gen_,
+                                device=cuda).to(dtype)
+    want = torch.sort(keys).values
+    plan = bs.radix_plan(bs.radix_histograms_plain(keys))
+    digits = bs.radix_histograms_plain(keys).shape[0]
+
+    def refused(*args, **kwargs):
+        raise AssertionError("the library sort was called")
+
+    monkeypatch.setattr(torch, "sort", refused)
+    before = (_launches(), bs.SWEEPS_SKIPPED)
+    got = merge_join.key_sort(keys)
+    grew = tuple(a - b for a, b in zip(_launches(), before[0]))
+    monkeypatch.undo()
+    assert torch.equal(got, want)
+    assert grew == (1, len(plan.passes), 0, 0)
+    assert bs.SWEEPS_SKIPPED - before[1] == digits - len(plan.passes)
+    assert len(plan.passes) == 3  # keys in [1, 10M]: bytes 0-2
+
+
+def test_two_run_count_i64_on_card_matches_cpu(cuda):
+    """The int64 count on K6's native key and K3 equals its plain version,
+    over keys that differ only above bit 31 and over Zipf keys."""
+    rng = np.random.default_rng(71)
+    a = (rng.integers(0, 30000, 20000).astype(np.int64) << 33) - 5
+    b = (rng.integers(-1000, 31000, 90000).astype(np.int64) << 33) - 5
+    a[:2], b[:3] = I64_MIN, [I64_MIN, I64_MAX, I64_MAX]
+    z = _i64_columns(cuda, 1_000_003, seed=5)["zipf_1_to_10M"]
+    for build, probe in ((a, b), (np.arange(1, 2_000_001, 3, dtype=np.int64),
+                                  z.cpu().numpy())):
+        want = int(merge_join.two_run_count_i64(torch.from_numpy(build),
+                                                torch.from_numpy(probe)))
+        assert want == int(np.isin(probe, build).sum())
+        before = (bs.LAUNCHES_UPSWEEP, mp.LAUNCHES_I64)
+        got = merge_join.two_run_count_i64(torch.from_numpy(build).to(cuda),
+                                           torch.from_numpy(probe).to(cuda))
+        assert got.device.type == "cuda" and int(got) == want
+        assert (bs.LAUNCHES_UPSWEEP - before[0], mp.LAUNCHES_I64 - before[1]) == (2, 1)
+
+
 def test_sorter_switch_launches_k6_on_card(cuda):
     """Under "pallas" every call site launches K6 on the card and gives
-    the library sort's results; "auto" resolves to K6 on the card."""
+    the library sort's results; "auto", the default, resolves to K6 on the
+    card, and "xla" launches none."""
     rng = np.random.default_rng(61)
     a = rng.integers(0, 20000, 15000).astype(np.int32)
     b = rng.integers(-100, 21000, 90000).astype(np.int32)
@@ -751,14 +878,14 @@ def test_sorter_switch_launches_k6_on_card(cuda):
             aggregate.sort_aggregate(table, with_distinct=True),
         ]
 
-    want = run_all()
+    with _sorter("xla"):
+        before = _launches()
+        want = run_all()
+        assert _launches() == before  # "xla" forces the library sort
     for impl in ("pallas", "auto"):
-        merge_join.set_sort_impl(impl)
-        try:
+        with _sorter(impl):
             before = _launches()
             got = run_all()
-        finally:
-            merge_join.set_sort_impl("xla")
         grew = tuple(a - b for a, b in zip(_launches(), before))
         # two sorts each for the counts, radix and materialize, one for the
         # prepared build's probe plus its build, one GROUP BY pass 1: each
@@ -861,14 +988,11 @@ def test_multi_key_on_card_matches_cpu(cuda, k, sort_impl):
     dev_a, dev_b = [c.to(cuda) for c in cpu_a], [c.to(cuda) for c in cpu_b]
     want = (int(multi_key.multi_key_count(cpu_a, cpu_b)),
             int(multi_key.multi_key_count_all(cpu_a, cpu_b)))
-    merge_join.set_sort_impl(sort_impl)
-    try:
+    with _sorter(sort_impl):
         before = (mp.LAUNCHES_I64, bs.LAUNCHES_SORT)
         got = multi_key.multi_key_count(dev_a, dev_b)
         grew = (mp.LAUNCHES_I64 - before[0], bs.LAUNCHES_SORT - before[1])
         got_all = multi_key.multi_key_count_all(dev_a, dev_b)
-    finally:
-        merge_join.set_sort_impl("xla")
     assert got.device.type == got_all.device.type == "cuda"
     assert (int(got), int(got_all)) == want
     if k == 2:
@@ -983,11 +1107,8 @@ def test_sql_on_card_matches_cpu(cuda, sql, sort_impl):
     from partitionedhashjoin_tpu_torch.sql import execute_sql
 
     want = execute_sql(sql, _sql_tables("cpu"))
-    merge_join.set_sort_impl(sort_impl)
-    try:
+    with _sorter(sort_impl):
         got = execute_sql(sql, _sql_tables(cuda))
-    finally:
-        merge_join.set_sort_impl("xla")
     assert got.row_count == want.row_count and list(got.columns) == list(want.columns)
     for name, w in want.columns.items():
         assert got.columns[name].dtype == w.dtype

@@ -123,7 +123,7 @@ def small(monkeypatch):
                    ("PHJ_AB_PRIMARY", N_A), ("PHJ_AB_SECONDARY", N_B)):
         monkeypatch.setenv(var, str(n))
     yield
-    merge_join.set_sort_impl("xla")
+    merge_join.set_sort_impl("auto")
 
 
 def _zipf(n, card, seed):
@@ -300,7 +300,7 @@ def test_bench_sorter_ab_stderr_only(small, capsys):
         line = [x for x in err.splitlines() if x.startswith(f"{impl:7s}:")]
         assert len(line) == 1 and f"count={want}  [first call" in line[0]
     assert "speedup pallas vs xla: " in err
-    assert merge_join.get_sort_impl() == "xla"
+    assert merge_join.get_sort_impl() == "auto"
 
 
 def test_bench_sorter_ab_resets_the_sorter_on_failure(small, monkeypatch):
@@ -314,7 +314,7 @@ def test_bench_sorter_ab_resets_the_sorter_on_failure(small, monkeypatch):
     monkeypatch.setattr(merge_join, "two_run_count", failing)
     with pytest.raises(RuntimeError, match="sorter failed"):
         bench_sorter_ab.main(CPU)
-    assert merge_join.get_sort_impl() == "xla"
+    assert merge_join.get_sort_impl() == "auto"
 
 
 def test_bench_scaling_line(capsys):

@@ -38,18 +38,19 @@ FIELDS = ("keys", "count", "sum", "min", "max")
 
 def test_sort_impl_switch_plumbing(monkeypatch):
     """The counterpart of tests/test_merge_probe.py's plumbing test: env
-    knob, "auto" resolution, rejection of unknown impls."""
-    assert mj.get_sort_impl() == "xla"
+    knob, "auto" resolution, rejection of unknown impls.  The port's default
+    is "auto" (K6 on the card); "xla" still forces the library sort."""
+    assert mj.get_sort_impl() == "auto"
     monkeypatch.setenv("PHJ_SORT_IMPL", "pallas")
     try:
         assert mj.set_sort_impl_from_env() == "pallas"
         assert mj.get_sort_impl() == "pallas"
     finally:
-        mj.set_sort_impl("xla")
+        mj.set_sort_impl("auto")
     monkeypatch.setenv("PHJ_SORT_IMPL", "xla")
     assert mj.set_sort_impl_from_env() == "xla"
     monkeypatch.delenv("PHJ_SORT_IMPL")
-    assert mj.set_sort_impl_from_env() == "xla"
+    assert mj.set_sort_impl_from_env() == "auto"
     # auto: K6 on a CUDA tensor, the library sort on a CPU tensor
     assert mj.resolve_sort_impl("auto", torch.device("cpu")) == "xla"
     assert mj.resolve_sort_impl("auto", torch.device("cuda", 0)) == "pallas"
@@ -60,7 +61,7 @@ def test_sort_impl_switch_plumbing(monkeypatch):
     monkeypatch.setenv("PHJ_SORT_IMPL", "typo")
     with pytest.raises(ValueError):
         mj.set_sort_impl_from_env()
-    assert mj.get_sort_impl() == "xla"
+    assert mj.get_sort_impl() == "auto"
 
 
 class _Spy:
@@ -88,11 +89,12 @@ def spy(monkeypatch):
 
 @pytest.fixture
 def pallas(spy):
+    prior = mj.get_sort_impl()
     mj.set_sort_impl("pallas")
     try:
         yield spy
     finally:
-        mj.set_sort_impl("xla")
+        mj.set_sort_impl(prior)
 
 
 def _keys(seed, dtype=np.int32):
@@ -127,25 +129,34 @@ def test_two_run_count_and_prepared_build_under_pallas(pallas):
     assert torch.equal(pb.a_sorted, torch.sort(torch.from_numpy(a)).values)
 
 
-def test_int64_keys_under_pallas(pallas):
-    """Sort-merge int64 sorts (hi, lo) planes with K6; an int64
-    PreparedBuild keeps the library sort, as in the JAX package."""
+def test_int64_keys_under_pallas(pallas, monkeypatch):
+    """Sort-merge int64 and an int64 PreparedBuild sort their keys with
+    K6's native int64 key (``sort_i64``; the JAX package keeps the library
+    sort for the prepared build); no int32 tuple sort runs."""
     a, b = _keys(3, np.int64)
     with jax.enable_x64(True):
         want = int(jax_mj.two_run_count_i64(jnp.asarray(a), jnp.asarray(b),
                                             interpret=True))
+    i64_calls = []
+    real = bitonic_sort.sort_i64
+
+    def spy_i64(x):
+        i64_calls.append(x.dtype)
+        return real(x)
+
+    monkeypatch.setattr(bitonic_sort, "sort_i64", spy_i64)
     ta, tb = torch.from_numpy(a), torch.from_numpy(b)
     assert int(SortMergeJoiner.count(ta, tb)) == want == int(np.isin(b, a).sum())
-    assert pallas.take() == [2, 2]
+    assert pallas.take() == [] and i64_calls == [torch.int64] * 2
     assert int(mj.PreparedBuild(ta).count(tb)) == want
-    assert pallas.take() == []
-    # the plane sort is the int64 order over the whole domain
+    assert pallas.take() == [] and i64_calls == [torch.int64] * 4
+    # the int64 sort is the int64 order over the whole domain
     edges = np.asarray([0, -1, 1, 2**31 - 1, 2**31, 2**32 - 1, 2**32, -(2**31),
                         -(2**31) - 1, np.iinfo(np.int64).max,
                         np.iinfo(np.int64).min], np.int64)
     keys = np.concatenate([edges, np.random.default_rng(4).integers(
         np.iinfo(np.int64).min, np.iinfo(np.int64).max, 5000, dtype=np.int64)])
-    np.testing.assert_array_equal(mj._plane_sort(torch.from_numpy(keys)).numpy(),
+    np.testing.assert_array_equal(mj.key_sort(torch.from_numpy(keys)).numpy(),
                                   np.sort(keys))
 
 
@@ -168,7 +179,7 @@ def test_auto_and_xla_keep_the_library_sort_on_cpu(spy):
         try:
             assert int(mj.two_run_count(torch.from_numpy(a), torch.from_numpy(b))) == want
         finally:
-            mj.set_sort_impl("xla")
+            mj.set_sort_impl("auto")
     assert spy.take() == []
 
 
@@ -304,7 +315,7 @@ def test_query_plans_under_pallas_match_xla(spy):
     try:
         got = [bench_pipeline.run_query(*rel, 4096, ordered) for ordered in (True, False)]
     finally:
-        mj.set_sort_impl("xla")
+        mj.set_sort_impl("auto")
     assert spy.take() == [2, 2, 2, 2, 2]
     for (g, hot, count), (wg, whot, wcount) in zip(got, want):
         assert int(count) == int(wcount) == 40000
