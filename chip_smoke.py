@@ -1541,6 +1541,50 @@ def parity_k7(torch, device):
             "bound_ms": bound, "library_ms": None}
 
 
+def parity_k7_i64(torch, device):
+    """K7 on int64 keys against ``hashing.hash64_pair`` of their words,
+    bitwise: the full int64 domain with INT64_MIN, INT64_MAX and keys that
+    differ only above bit 31, aligned, off 16 bytes, odd lengths and empty.
+    Timed over the 210M keys of one upstream join (10M build + 200M Zipf
+    probe keys, int64), whose bound is 12 bytes a key."""
+    from partitionedhashjoin_tpu_torch.ops import hashing
+    from partitionedhashjoin_tpu_torch.ops.kernels import generate as kg
+
+    par = Parity(torch, "K7 int64")
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 764)
+    keys = torch.randint(I64_MIN, I64_MAX, (1_000_003,), generator=gen,
+                         dtype=torch.int64, device=device)
+    keys[:6] = torch.tensor([I64_MIN, -1, 0, I64_MAX, 2**32 + 5, 5], device=device)
+
+    def plain(x, seed):
+        return hashing.hash64_pair(*hashing.split64(x), seed)
+
+    for seed in (0, 42, 0x9E3779B9, 2**32 - 1):
+        for name, view in (("aligned", keys), ("off 16 bytes", keys[1:]),
+                           ("odd", keys[:-2]), ("tiny", keys[:3]),
+                           ("empty", keys[:0])):
+            par.check_tensors(f"hash_keys int64 seed={seed} {name}",
+                              lambda: [kg.hash_keys(view, seed).view(torch.int32)],
+                              lambda: [plain(view, seed).view(torch.int32)])
+    a, b = _reference_data(torch, device, torch.int64)
+    x = torch.cat([a, b])
+    del a, b
+    par.check_tensors(f"hash_keys int64 {x.numel():,} keys",
+                      lambda: [kg.hash_keys(x, SEED).view(torch.int32)],
+                      lambda: [plain(x, SEED).view(torch.int32)])
+    kernel_ms, plain_ms = _time_pair(torch, lambda: kg.hash_keys(x, SEED),
+                                     lambda: plain(x, SEED), rounds=2, reps=3)
+    bound = _bound_ms(x.numel() * 12)
+    log(f"[time K7 int64] hash_keys, {x.numel():,} int64 keys: kernel "
+        f"{kernel_ms:.4f} ms ({bound / kernel_ms:.1%} of the bound {bound:.4f} "
+        f"ms), plain {plain_ms:.4f} ms")
+    del x
+    torch.cuda.empty_cache()
+    return {"max_abs_err": par.max_err, "ms": kernel_ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "library_ms": None}
+
+
 def _sass_mixes(sass, function, loop):
     """SASS instructions of one round of the Zipf sampler, by opcode, in the
     function of ``cuobjdump -sass`` output ``sass`` whose mangled name
@@ -1823,7 +1867,8 @@ def _reset_counts():
     mp.LAUNCHES = mp.LAUNCHES_I64 = mc.LAUNCHES = mpay.LAUNCHES = 0
     kc.LAUNCHES = bs.LAUNCHES_BLOCKS = bs.LAUNCHES_MERGE = 0
     bs.LAUNCHES_UPSWEEP = bs.LAUNCHES_SORT = bs.SWEEPS_SKIPPED = 0
-    kg.LAUNCHES_HASH = kg.LAUNCHES_ZIPF = kg.LAUNCHES_UNIFORMS = 0
+    kg.LAUNCHES_HASH = kg.LAUNCHES_HASH64 = kg.LAUNCHES_ZIPF = 0
+    kg.LAUNCHES_UNIFORMS = 0
 
 
 def _read_counts():
@@ -1832,7 +1877,8 @@ def _read_counts():
             "k4": mpay.LAUNCHES, "k5": kc.LAUNCHES,
             "k6a": bs.LAUNCHES_BLOCKS, "k6b": bs.LAUNCHES_MERGE,
             "k6": bs.LAUNCHES_UPSWEEP + bs.LAUNCHES_SORT,
-            "k7": kg.LAUNCHES_HASH, "k8": kg.LAUNCHES_ZIPF}
+            "k7": kg.LAUNCHES_HASH, "k7i64": kg.LAUNCHES_HASH64,
+            "k8": kg.LAUNCHES_ZIPF}
 
 
 def _k6_sweeps():
@@ -2623,7 +2669,7 @@ def _hash_step(torch, launches, card_line, name, fn, kernels):
     log(f"[time hash] {card_line}: {name}: host {times[0][0]:.3f} ms, device "
         f"{times[0][1]:.4f} ms (CUDA events); warm host {times[1][0]:.3f} ms, device "
         f"{times[1][1]:.4f} ms; peak allocated {peak} B; launches k5 {counts['k5']}, "
-        f"k7 {counts['k7']}")
+        f"k7 {counts['k7']}, k7 int64 {counts['k7i64']}")
     return first
 
 
@@ -2699,6 +2745,7 @@ def phase_hash(torch, device, launches, card_line, rel):
         log(f"[time hash] {card_line}: {name}: {count:,} ok; phases partition "
             f"{part:.3f} / build {build:.3f} / probe {probe:.3f} ms (host clock, "
             "each closed by a barrier, warm)")
+    _phase_hash_i64(torch, step, card_line, a_keys, b_keys)
     _phase_hash_bench(torch, launches, card_line)
 
     # (c) run_materialize: every probe row, in probe order
@@ -2751,6 +2798,41 @@ def phase_hash(torch, device, launches, card_line, rel):
     log(f"[hash] (e) build_hash_table over {N_PRIMARY:,} keys (max_probe "
         f"{int(table.max_probe)}), probe_exists / probe_get / probe_count_all over "
         f"{N_SECONDARY:,} keys: all found, rows hold the probed keys, multiplicity 1: ok")
+
+
+def _phase_hash_i64(torch, step, card_line, a_keys, b_keys):
+    """Phase 13 (a2): the chained no-partitioning join on int64 keys at
+    10M ⋈ 200M: the pipeline's keys widened, every odd probe row moved by
+    2^32 so that it matches only if the table tells the high word apart.
+    Its count against ``torch.isin`` (the plain reference), its phase times
+    and its K7 launches: int64 only."""
+    from partitionedhashjoin_tpu_torch.config import NoPartitioningConfiguration
+    from partitionedhashjoin_tpu_torch.data.table import make_table
+    from partitionedhashjoin_tpu_torch.ops.no_partitioning import (
+        NoPartitioningHashJoiner,
+    )
+
+    name = "(a2) no-partitioning chained, int64 keys"
+    a64 = a_keys.to(torch.int64)
+    b64 = b_keys.to(torch.int64)
+    b64[1::2] += 2**32
+    want = int(torch.isin(b64, a64).sum())
+    _check(name, want == N_SECONDARY - N_SECONDARY // 2, f"reference {want}")
+    table_a, table_b = make_table(a64, a64), make_table(b64, b64)
+
+    def make():
+        return NoPartitioningHashJoiner(NoPartitioningConfiguration(mode="chained"),
+                                        seed=SEED)
+
+    count = step(name, lambda: make().run(table_a, table_b), ("k7i64",))
+    _check(name, count == want, f"count {count}, reference {want}")
+    count, part, build, probe = _timed_join(make, table_a, table_b)
+    _check(name, count == want, f"count {count}, reference {want}")
+    log(f"[time hash] {card_line}: {name}: {count:,} == torch.isin ok; phases "
+        f"partition {part:.3f} / build {build:.3f} / probe {probe:.3f} ms (host "
+        "clock, each closed by a barrier, warm)")
+    del table_a, table_b, a64, b64
+    torch.cuda.empty_cache()
 
 
 def _phase_hash_bench(torch, launches, card_line):
@@ -3571,9 +3653,10 @@ def main() -> int:
         torch, device)
     stats["key_sort_i64"] = parity_k6_i64(torch, device)
     stats["hash_keys"] = parity_k7(torch, device)
+    stats["hash_keys_i64"] = parity_k7_i64(torch, device)
     stats["zipf_keys_pallas"] = parity_k8(torch, device, card)
     launches = dict.fromkeys(("k1", "k2", "k3", "k4", "k5", "k6a", "k6b",
-                              "k6", "k7", "k8"), 0)
+                              "k6", "k7", "k7i64", "k8"), 0)
     phase_library(torch, device, launches)
     phase_main(torch, launches)
     with _sorter("xla"):  # phase 7 holds K6 to these
@@ -3605,6 +3688,7 @@ def main() -> int:
         ("tuple_sort", "k6", "radix_sort.cu", "bitonic_sort.py:524"),
         ("key_sort_i64", "k6", "radix_sort.cu", "bitonic_sort.py:524"),
         ("hash_keys", "k7", "generate.cu", "generate.py:46"),
+        ("hash_keys_i64", "k7i64", "generate.cu", "generate.py:46"),
         ("zipf_keys_pallas", "k8", "generate.cu", "generate.py:103"),
     )
     kernels = []

@@ -7,6 +7,14 @@
 //   operations).  The design: a grid-stride loop over 16-byte vectors (int4
 //   in, uint4 out) when both pointers allow it, and a scalar loop for the
 //   rest.
+// - hash64_vec_kernel (K7 on int64 keys; no TPU counterpart: the JAX
+//   package hashes 32-bit keys only): ops/hashing.hash64_pair of the key's
+//   (lo, hi) words, out = fmix32(fmix32(lo ^ seed) ^ hi ^ 0x9E3779B9), as
+//   uint32.  What bounds it: bytes (8 read and 4 written per key).  The
+//   design is hash_vec_kernel's: a grid-stride loop over 16-byte vectors
+//   (longlong2 in, two keys, uint2 out), so that a warp reads 512 and
+//   writes 256 contiguous bytes, and a scalar loop, hash64_kernel, for
+//   the rest.
 // - zipf_kernel (K8, zipf_keys_pallas / _zipf_kernel): n Zipf(alpha) keys
 //   over [1, cardinality] by the reference's rejection sampler
 //   (src/DataGenerator/Zipf.cpp:14-56, as ops/generators.zipf_candidates):
@@ -81,6 +89,12 @@ __device__ __forceinline__ uint32_t hash32(int32_t key, uint32_t seed) {
   return fmix32(fmix32(static_cast<uint32_t>(key) ^ seed) + kGolden);
 }
 
+__device__ __forceinline__ uint32_t hash64(int64_t key, uint32_t seed) {
+  const uint64_t k = static_cast<uint64_t>(key);
+  return fmix32(fmix32(static_cast<uint32_t>(k) ^ seed) ^
+                static_cast<uint32_t>(k >> 32) ^ kGolden);
+}
+
 __global__ void __launch_bounds__(kThreads)
     hash_vec_kernel(const int4* __restrict__ keys, int64_t n4, uint32_t seed,
                     uint4* __restrict__ out) {
@@ -100,6 +114,27 @@ __global__ void __launch_bounds__(kThreads)
   for (int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
        i < n; i += stride) {
     out[i] = hash32(keys[i], seed);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+    hash64_vec_kernel(const longlong2* __restrict__ keys, int64_t n2,
+                      uint32_t seed, uint2* __restrict__ out) {
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+       i < n2; i += stride) {
+    const longlong2 k = keys[i];
+    out[i] = make_uint2(hash64(k.x, seed), hash64(k.y, seed));
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+    hash64_kernel(const int64_t* __restrict__ keys, int64_t n, uint32_t seed,
+                  uint32_t* __restrict__ out) {
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+       i < n; i += stride) {
+    out[i] = hash64(keys[i], seed);
   }
 }
 
@@ -322,6 +357,42 @@ int phj_hash_keys(const int32_t* keys, int64_t n, uint32_t seed,
   }
   if (done < n) {
     hash_kernel<<<grid_for(n - done, sms), kThreads, 0, stream>>>(
+        keys + done, n - done, seed, out + done);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// out[i] = hash64_pair(lo, hi, seed) of keys[i] for i < n (device
+// pointers): the vector kernel over pairs of keys when the keys are 16-byte
+// and out 8-byte aligned, the scalar kernel for the rest.  Launches on
+// `stream` and does not synchronise.  Returns cudaGetLastError().
+int phj_hash64_keys(const int64_t* keys, int64_t n, uint32_t seed,
+                    uint32_t* out, cudaStream_t stream) {
+  if (n <= 0) {
+    return static_cast<int>(cudaSuccess);
+  }
+  int sms = 0;
+  const cudaError_t sm_err = sm_count(&sms);
+  if (sm_err != cudaSuccess) {
+    return static_cast<int>(sm_err);
+  }
+  int64_t done = 0;
+  if ((reinterpret_cast<uintptr_t>(keys) & 15u) == 0 &&
+      (reinterpret_cast<uintptr_t>(out) & 7u) == 0) {
+    const int64_t n2 = n / 2;
+    if (n2 > 0) {
+      hash64_vec_kernel<<<grid_for(n2, sms), kThreads, 0, stream>>>(
+          reinterpret_cast<const longlong2*>(keys), n2, seed,
+          reinterpret_cast<uint2*>(out));
+      const cudaError_t err = cudaGetLastError();
+      if (err != cudaSuccess) {
+        return static_cast<int>(err);
+      }
+    }
+    done = n2 * 2;
+  }
+  if (done < n) {
+    hash64_kernel<<<grid_for(n - done, sms), kThreads, 0, stream>>>(
         keys + done, n - done, seed, out + done);
   }
   return static_cast<int>(cudaGetLastError());

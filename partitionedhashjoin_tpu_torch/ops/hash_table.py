@@ -18,6 +18,8 @@ the same names and the same results bit for bit:
 - **Chained** (``build_chained``, ``probe_chained_*``): one stable sort by
   bucket; rows sorted by bucket are the chains, ``offsets`` delimit them, and
   a probe compares a window of ``PROBE_WINDOW`` chain entries per pass.
+  It takes int32 and int64 keys (``_chained_keys``); the other tables take
+  int32 keys only (``_as_i32_keys``).
 - **Dedup** (``build_dedup_hash_table``): the claim loop where a row that
   finds its own key in a slot resolves to that slot's owner, so chains grow
   with distinct-key collisions only.  A key's representative is always its
@@ -26,9 +28,16 @@ the same names and the same results bit for bit:
 Every JAX ``while_loop`` is a Python loop here that reads its condition back
 once per round, and each round runs only on the rows still active: rows do
 not interact once they leave a loop, so every output is the one the
-lockstep loop over all rows gives.  Every int32 hash goes through the hash
+lockstep loop over all rows gives.  Every hash goes through the hash
 kernel K7 (``ops/kernels/generate.hash_keys``) on a CUDA tensor and through
-its plain version, ``hashing.hash32``, on a CPU tensor.
+its plain version on a CPU tensor: ``hashing.hash32`` of an int32 key,
+``hashing.hash64_pair`` of an int64 key's two words.
+
+int64 keys are the port's own: the JAX package's hash layer is 32-bit, so
+an int64 chained table has no JAX counterpart.  An int64 table's entries
+keep their 8 bytes and every compare runs at int64; a probe of the other
+width compares at int64 too, and takes its bucket from the table's hash
+(``_probe_keys``).
 
 Not ported: ``dispatch_chunks`` (the TPU watchdog's probe windows).
 ``probe_chained_count`` still takes ``num_chunks`` and counts the same.
@@ -70,14 +79,27 @@ def _as_i32_keys(keys) -> torch.Tensor:
     return keys.to(torch.int32)
 
 
+def _chained_keys(keys) -> torch.Tensor:
+    """Keys of the chained table: int64 stays int64 (uint64 is viewed as
+    int64), other integer keys are int32 as in ``_as_i32_keys``; floats and
+    bools raise ``TypeError``."""
+    keys = torch.as_tensor(keys)
+    if keys.dtype in (torch.int64, torch.uint64):
+        return keys.view(torch.int64)
+    if keys.is_floating_point() or keys.is_complex() or keys.dtype == torch.bool:
+        raise TypeError(f"chained-table keys must be integers, got {keys.dtype}")
+    return keys.to(torch.int32)
+
+
 def hash_bits(keys: torch.Tensor, seed: int) -> torch.Tensor:
-    """``hashing.hash32(keys, seed)`` as int32 bit patterns: K7 on a CUDA
-    tensor (raising if it cannot launch), its plain version on a CPU one."""
+    """``hashing.hash32(keys, seed)`` of int32 keys, ``hashing.hash64_pair``
+    of int64 keys' words, as int32 bit patterns: K7 on a CUDA tensor (raising
+    if it cannot launch), its plain version on a CPU one."""
     return kgenerate.hash_keys(keys.contiguous(), seed).view(torch.int32)
 
 
 def _bucket_of(keys: torch.Tensor, seed: int, mask: int) -> torch.Tensor:
-    """int32 bucket ``hash32(key) & mask`` (``mask`` < 2^31)."""
+    """int32 bucket ``hash_bits(key) & mask`` (``mask`` < 2^31)."""
     return hash_bits(keys, seed) & mask
 
 
@@ -285,8 +307,9 @@ def probe_count_all(table: HashTable, keys: torch.Tensor) -> torch.Tensor:
 class ChainedHashTable:
     """Bucket-chained table: entries sorted by bucket, and bucket offsets.
 
-    ``entry_keys`` / ``entry_rows`` (int32[n]) are the build keys and their
-    row indices grouped by bucket; bucket b holds entries
+    ``entry_keys`` (int32[n] or int64[n], the build keys' width) and
+    ``entry_rows`` (int32[n]) are the build keys and their row indices
+    grouped by bucket; bucket b holds entries
     ``[offsets[b], offsets[b + 1])``; ``max_chain`` (0-dim int32) is the
     longest chain.
     """
@@ -332,7 +355,7 @@ def build_chained_from_buckets(
     so each chain keeps build-row order.  The radix join computes its
     partition-segmented bucket ids itself; plain tables use
     ``build_chained``."""
-    keys = _as_i32_keys(keys)
+    keys = _chained_keys(keys)
     _, order = torch.sort(bucket, stable=True)
     counts = torch.bincount(bucket, minlength=num_buckets)[:num_buckets]
     offsets = torch.cat([counts.new_zeros((1,)), torch.cumsum(counts, 0)])
@@ -347,21 +370,40 @@ def build_chained_from_buckets(
 
 def build_chained(keys: torch.Tensor, seed, num_buckets: int) -> ChainedHashTable:
     """One-sort bucket-chained build (``num_buckets`` a power of two)."""
-    keys = _as_i32_keys(keys)
+    keys = _chained_keys(keys)
     bucket = _bucket_of(keys, _seed(seed), num_buckets - 1)
     return build_chained_from_buckets(bucket, keys, seed, num_buckets)
 
 
+def _probe_keys(table: ChainedHashTable, keys):
+    """``(keys, hashed)`` of a probe: ``keys`` to compare with the entries
+    and ``hashed`` for the table's hash.  Keys of the table's width serve as
+    both.  An int32 probe of an int64 table is widened.  An int64 probe of
+    an int32 table is compared at int64 (``_window``'s ``==`` promotes the
+    int32 entries) and hashed by its low word, as ``hash32`` of an int32
+    key: a key outside int32's range shares a bucket with its low word and
+    equals no entry there."""
+    keys = _chained_keys(keys)
+    if keys.dtype == table.entry_keys.dtype:
+        return keys, keys
+    if keys.dtype == torch.int32:
+        keys = keys.to(torch.int64)
+        return keys, keys
+    return keys, keys.to(torch.int32)
+
+
 def _padded_entries(table: ChainedHashTable) -> torch.Tensor:
-    """``entry_keys`` and ``PROBE_WINDOW`` zeros after them, so a window
-    that runs past the last chain reads in range (the span masks it)."""
+    """``entry_keys`` and ``PROBE_WINDOW`` zeros after them, in their
+    dtype, so a window that runs past the last chain reads in range (the
+    span masks it)."""
     k = table.entry_keys
     return torch.cat([k, k.new_zeros((PROBE_WINDOW,))])
 
 
 def _window(padded, keys, pos, span):
     """One window pass: mask w tells whether chain entry ``pos + w`` exists
-    (``w < span``, the entries left in the chain) and holds the row's key."""
+    (``w < span``, the entries left in the chain) and holds the row's key,
+    compared at the wider of the two key widths."""
     return [(padded[w:].index_select(0, pos) == keys) & (span > w)
             for w in range(PROBE_WINDOW)]
 
@@ -398,9 +440,9 @@ def _scan_chains(table: ChainedHashTable, padded, keys, pos, end, need_rows):
     return found, first_row
 
 
-def _chain_bounds(table: ChainedHashTable, keys, bucket):
+def _chain_bounds(table: ChainedHashTable, hashed, bucket):
     if bucket is None:
-        bucket = _bucket_of(keys, table.seed, table.num_buckets - 1)
+        bucket = _bucket_of(hashed, table.seed, table.num_buckets - 1)
     start = table.offsets.index_select(0, bucket)
     end = table.offsets.index_select(0, bucket + 1)
     return start, end
@@ -412,8 +454,8 @@ def _probe_chained_block(table: ChainedHashTable, keys, bucket=None,
     ``bucket`` overrides the hash-derived bucket (the radix join's
     partition-segmented bucket map); ``need_rows=False`` skips the row
     gathers."""
-    keys = _as_i32_keys(keys)
-    start, end = _chain_bounds(table, keys, bucket)
+    keys, hashed = _probe_keys(table, keys)
+    start, end = _chain_bounds(table, hashed, bucket)
     return _scan_chains(table, _padded_entries(table), keys, start, end,
                         need_rows)
 
@@ -426,10 +468,10 @@ def _probe_chained_count_chunk(table: ChainedHashTable, keys, bucket=None,
     If more rows are active, the full window loop over all rows counts
     instead; the count is exact either way.  Rows with index < ``skip`` are
     not counted (the overlapping last window of a chunked probe)."""
-    keys = _as_i32_keys(keys)
+    keys, hashed = _probe_keys(table, keys)
     n = keys.shape[0]
     padded = _padded_entries(table)
-    start, end = _chain_bounds(table, keys, bucket)
+    start, end = _chain_bounds(table, hashed, bucket)
     counted = (None if skip is None
                else torch.arange(n, device=keys.device) >= int(skip))
     found1 = _any(_window(padded, keys, start, end - start))
@@ -457,7 +499,7 @@ def probe_chained_count(table: ChainedHashTable, keys: torch.Tensor,
     probe into calls of ``ceil(n / num_chunks)`` rows each, which bounds the
     temporaries; the last window ends at n and skips the rows the previous
     one counted, so the count is the same for any ``num_chunks``."""
-    keys = _as_i32_keys(keys)
+    keys = _chained_keys(keys)
     n = keys.shape[0]
     num_chunks = min(num_chunks, max(1, n))
     if num_chunks <= 1:
@@ -480,10 +522,10 @@ def probe_chained_get(table: ChainedHashTable, keys: torch.Tensor):
 def probe_chained_count_all(table: ChainedHashTable, keys: torch.Tensor) -> torch.Tensor:
     """int32[n]: build multiplicity per probe key (``GetAll`` cardinality,
     SeparateChaining.hpp:256-265): windows scan each chain to its end."""
-    keys = _as_i32_keys(keys)
+    keys, hashed = _probe_keys(table, keys)
     counts = torch.zeros(keys.shape, dtype=torch.int32, device=keys.device)
     padded = _padded_entries(table)
-    pos, end = _chain_bounds(table, keys, None)
+    pos, end = _chain_bounds(table, hashed, None)
     live = torch.nonzero(pos < end).squeeze(1)
     keys, pos, end = keys[live], pos[live], end[live]
     while live.numel():

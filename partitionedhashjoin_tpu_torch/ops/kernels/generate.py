@@ -3,10 +3,13 @@ kernels K7 and K8.
 
 Counterparts of ``partitionedhashjoin_tpu/ops/pallas/generate.py``:
 
-- ``hash_keys(keys, seed)`` (K7): ``ops/hashing.hash32`` of int32 keys as
+- ``hash_keys(keys, seed)`` (K7): ``ops/hashing.hash32`` of int32 keys, or
+  ``hashing.hash64_pair`` of the (lo, hi) words of int64 keys, as
   ``torch.uint32``, bit for bit.  On a CUDA tensor it launches the CUDA
-  kernel in ``csrc/generate.cu``; on a CPU tensor it runs ``hashing.hash32``,
-  its plain version.
+  kernel in ``csrc/generate.cu`` (``hash_vec_kernel`` on int32 keys,
+  ``hash64_vec_kernel`` on int64 keys); on a CPU tensor it runs the plain
+  version.  The int64 form has no TPU counterpart: the JAX package hashes
+  32-bit keys only.
 - ``zipf_keys_pallas(seed, n, alpha, cardinality, rounds=16, *, device)``
   (K8): n Zipf(alpha) keys over [1, cardinality] (int32) by up to
   ``rounds`` rounds of the rejection sampler ``generators.zipf_candidates``
@@ -41,23 +44,28 @@ _PHILOX_W0 = 0x9E3779B9
 _PHILOX_W1 = 0xBB67AE85
 
 #: Kernel calls since the last reset (set to 0 to reset): ``LAUNCHES_HASH``
-#: for K7, ``LAUNCHES_ZIPF`` for K8, ``LAUNCHES_UNIFORMS`` for the kernel
-#: that exposes K8's uniforms.
+#: for K7 on int32 keys, ``LAUNCHES_HASH64`` for K7 on int64 keys,
+#: ``LAUNCHES_ZIPF`` for K8, ``LAUNCHES_UNIFORMS`` for the kernel that
+#: exposes K8's uniforms.
 LAUNCHES_HASH = 0
+LAUNCHES_HASH64 = 0
 LAUNCHES_ZIPF = 0
 LAUNCHES_UNIFORMS = 0
 
-_SIGNATURES = {
-    "phj_hash_keys": (
-        (
-            ctypes.c_void_p,  # keys
-            ctypes.c_int64,  # n
-            ctypes.c_uint32,  # seed
-            ctypes.c_void_p,  # out (uint32)
-            ctypes.c_void_p,  # cudaStream_t
-        ),
-        ctypes.c_int,
+_HASH_SIGNATURE = (
+    (
+        ctypes.c_void_p,  # keys
+        ctypes.c_int64,  # n
+        ctypes.c_uint32,  # seed
+        ctypes.c_void_p,  # out (uint32)
+        ctypes.c_void_p,  # cudaStream_t
     ),
+    ctypes.c_int,
+)
+
+_SIGNATURES = {
+    "phj_hash_keys": _HASH_SIGNATURE,
+    "phj_hash64_keys": _HASH_SIGNATURE,
     "phj_zipf_keys": (
         (
             ctypes.c_uint64,  # seed
@@ -104,20 +112,24 @@ def _check_launch(name: str, err: int) -> None:
 
 
 def hash_keys(keys: torch.Tensor, seed) -> torch.Tensor:
-    """Seeded uint32 hash of int32 keys (= ``hashing.hash32``).  A CUDA
-    input launches the CUDA kernel or raises; a CPU input runs
-    ``hashing.hash32``."""
-    global LAUNCHES_HASH
-    if keys.dtype != torch.int32 or keys.dim() != 1:
+    """Seeded uint32 hash of int32 keys (= ``hashing.hash32``) or of int64
+    keys (= ``hashing.hash64_pair(*hashing.split64(keys), seed)``).  A CUDA
+    input launches the CUDA kernel or raises; a CPU input runs the plain
+    version."""
+    global LAUNCHES_HASH, LAUNCHES_HASH64
+    if keys.dtype not in (torch.int32, torch.int64) or keys.dim() != 1:
         raise TypeError(
-            f"keys must be a 1-D int32 tensor, got {keys.dtype} of shape "
-            f"{tuple(keys.shape)}"
+            f"keys must be a 1-D int32 or int64 tensor, got {keys.dtype} of "
+            f"shape {tuple(keys.shape)}"
         )
     if not keys.is_contiguous():
         raise ValueError("keys must be contiguous")
     seed = int(seed) & _MASK
+    wide = keys.dtype == torch.int64
     device = keys.device
     if device.type == "cpu":
+        if wide:
+            return hashing.hash64_pair(*hashing.split64(keys), seed)
         return hashing.hash32(keys, seed)
     if device.type != "cuda":
         raise ValueError(f"unsupported device {device}")
@@ -125,12 +137,16 @@ def hash_keys(keys: torch.Tensor, seed) -> torch.Tensor:
     out = torch.empty((n,), dtype=torch.uint32, device=device)
     if n == 0:
         return out
+    name = "phj_hash64_keys" if wide else "phj_hash_keys"
     lib = load_library()
     with torch.cuda.device(device):
-        err = lib.phj_hash_keys(keys.data_ptr(), n, seed, out.data_ptr(),
-                                _stream(device))
-    _check_launch("phj_hash_keys", err)
-    LAUNCHES_HASH += 1
+        err = getattr(lib, name)(keys.data_ptr(), n, seed, out.data_ptr(),
+                                 _stream(device))
+    _check_launch(name, err)
+    if wide:
+        LAUNCHES_HASH64 += 1
+    else:
+        LAUNCHES_HASH += 1
     return out
 
 

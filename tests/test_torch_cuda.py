@@ -918,6 +918,25 @@ def test_hash_kernel_matches_plain(cuda, seed):
         assert gen.LAUNCHES_HASH == before + (1 if view.numel() else 0)
 
 
+@pytest.mark.parametrize("seed", [0, 42, 2**32 - 1])
+def test_hash64_kernel_matches_plain(cuda, seed):
+    """K7 on int64 keys equals ``hash64_pair`` of their words bit for bit,
+    aligned or not, at even and odd lengths (its vector holds two keys)."""
+    rng = np.random.default_rng(71)
+    keys = torch.from_numpy(rng.integers(I64_MIN, I64_MAX, 1_000_003,
+                                         dtype=np.int64)).to(cuda)
+    keys[:6] = torch.tensor([I64_MIN, -1, 0, I64_MAX, 2**32, -(2**32)])
+    for view in (keys, keys[1:], keys[:-1], keys[:3], keys[:1], keys[:0]):
+        before, before32 = gen.LAUNCHES_HASH64, gen.LAUNCHES_HASH
+        got = gen.hash_keys(view, seed)
+        want = hashing.hash64_pair(*hashing.split64(view.cpu()), seed)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.uint32 and got.device.type == "cuda"
+        assert torch.equal(got.cpu().to(torch.int64), want.to(torch.int64))
+        assert gen.LAUNCHES_HASH64 == before + (1 if view.numel() else 0)
+        assert gen.LAUNCHES_HASH == before32
+
+
 @pytest.mark.parametrize("card", [500, 10_000_000, 100_000_000])
 def test_zipf_kernel_matches_plain(cuda, card):
     """Uniforms bit for bit; keys may differ only where powf and torch.pow
@@ -1207,6 +1226,57 @@ def test_hash_tables_on_card_match_cpu(cuda):
         assert torch.equal(g.cpu(), w)
     torch.cuda.synchronize()
     assert gen.LAUNCHES_HASH > before
+
+
+def test_int64_chained_table_on_card_matches_cpu(cuda):
+    """The int64 chained table and its probes on the card equal the CPU
+    port bit for bit, every hash through K7's int64 kernel; keys that differ
+    only above bit 31 are told apart."""
+    from partitionedhashjoin_tpu_torch.ops import hash_table as ht
+
+    a32, b32 = _hash_relations(2)
+    a = a32.to(torch.int64) + (torch.arange(a32.numel()) % 3 - 1) * 2**32
+    b = b32.to(torch.int64)
+    b[1::2] += 2**32
+    ac, bc = a.to(cuda), b.to(cuda)
+    before, before32 = gen.LAUNCHES_HASH64, gen.LAUNCHES_HASH
+    nb = ht.chained_num_buckets(a.numel())
+    c_cpu, c_gpu = ht.build_chained(a, 9, nb), ht.build_chained(ac, 9, nb)
+    _same_fields(c_gpu, c_cpu, ("entry_keys", "entry_rows", "offsets", "max_chain"))
+    want = int(torch.isin(b, a).sum())
+    assert 0 < want < b.numel()
+    for chunks in (1, 3):
+        assert int(ht.probe_chained_count(c_gpu, bc, chunks)) == want
+    assert torch.equal(ht.probe_chained_count_all(c_gpu, bc).cpu(),
+                       ht.probe_chained_count_all(c_cpu, b))
+    for g, w in zip(ht.probe_chained_get(c_gpu, bc), ht.probe_chained_get(c_cpu, b)):
+        assert torch.equal(g.cpu(), w)
+    joiner = NoPartitioningHashJoiner(NoPartitioningConfiguration(mode="chained"), seed=5)
+    pay = torch.arange(a.numel(), dtype=torch.int64) * 7
+    ta, tb = make_table(ac, pay.to(cuda)), make_table(bc, bc ^ 0x5A17)
+    got = joiner.run_materialize(ta, tb)
+    ref = joiner.run_materialize(make_table(a, pay), make_table(b, b ^ 0x5A17))
+    for f in ("keys", "payloads_a", "payloads_b", "count"):
+        assert torch.equal(getattr(got, f).cpu(), getattr(ref, f)), f
+    torch.cuda.synchronize()
+    assert gen.LAUNCHES_HASH64 > before and gen.LAUNCHES_HASH == before32
+
+
+def test_int64_chained_join_at_full_size(cuda):
+    """The chained no-partitioning join at 10M ⋈ 200M int64 keys spread over
+    the whole int64 range, an eighth of the probe rows missing by their
+    high word alone: the exact count, every hash through K7's int64 kernel."""
+    n_a, n_b = 10_000_000, 200_000_000
+    g = torch.Generator(device=cuda).manual_seed(2026)
+    a = torch.randint(I64_MIN, I64_MAX, (n_a,), generator=g, device=cuda)
+    b = a[torch.randint(0, n_a, (n_b,), generator=g, device=cuda)]
+    b[::8] ^= 1 << 45
+    want = int(torch.isin(b, a).sum())
+    assert n_b * 7 // 8 <= want < n_b
+    before, before32 = gen.LAUNCHES_HASH64, gen.LAUNCHES_HASH
+    joiner = NoPartitioningHashJoiner(NoPartitioningConfiguration(mode="chained"), seed=11)
+    assert joiner.run(make_table(a, a), make_table(b, b)) == want
+    assert gen.LAUNCHES_HASH64 == before + 2 and gen.LAUNCHES_HASH == before32
 
 
 def test_tail_and_fallback_on_card_match_cpu(cuda):

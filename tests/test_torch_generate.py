@@ -112,8 +112,13 @@ def test_hash_keys_matches_jax_kernel(n):
 
 
 def test_hash_keys_rejects_bad_inputs():
+    wide = torch.arange(4, dtype=torch.int64)  # int64 keys hash by their two words
+    assert torch.equal(gen.hash_keys(wide, 1),
+                       hashing.hash64_pair(*hashing.split64(wide), 1))
     with pytest.raises(TypeError):
-        gen.hash_keys(torch.arange(4, dtype=torch.int64), 1)
+        gen.hash_keys(torch.arange(4, dtype=torch.float32), 1)
+    with pytest.raises(TypeError):
+        gen.hash_keys(torch.arange(4, dtype=torch.int16), 1)
     with pytest.raises(ValueError):
         gen.hash_keys(torch.arange(8, dtype=torch.int32)[::2], 1)
 
