@@ -61,6 +61,14 @@ and raises on the first failure:
              ``torch.sort(..., dim=1)`` over one row per block for K6a, at
              k = 1 and over the packed int64 (key, payload) at k = 2, and
              per pair of runs for K6b, each also checked equal to them).
+             Last the chained-probe count kernel (no TPU counterpart) at
+             every key-width pair against its plain version and
+             ``torch.isin`` (misses, keys that differ only above bit 31, a
+             chain of 4,096 entries, ``skip``, views off a 16-byte
+             boundary), timed alone (median of 7, CUDA events) at 10M ⋈ 200M
+             int64 Zipf(1.05) keys and 128M ⋈ 128M uniform unique int32 keys
+             beside its bound, the window scan it replaced, its plain version
+             and the chain entries a row walks.
 4. library — at 10M ⋈ 200M: ``sort_merge_count`` and ``anti_count`` through
              K2, ``two_run_count_i64`` and an int64 ``PreparedBuild`` through
              K3, each exact.  From here on every path runs under the
@@ -149,8 +157,9 @@ and raises on the first failure:
              ``probe_count_all`` over the 200M probe keys: all found, each
              row found holds its key, multiplicity 1.  Each step prints its
              host ms, its device ms between CUDA events, its peak allocated
-             bytes and its K5/K7 launches; every hash runs on K7, (c)'s
-             compaction on K5.
+             bytes and its K5/K7 launches and chained-probe launches
+             (``LAUNCHES_CHAINED_COUNT``: one a count join in (a), (a2) and
+             (b)); every hash runs on K7, (c)'s compaction on K5.
 
 14. shuffle — the mesh and the distributed shuffle join at 10M ⋈ 200M on the
              CLI's relations, every shard on the one card: (a) ``cli.main
@@ -282,6 +291,9 @@ N_PRIMARY = 10_000_000
 N_SECONDARY = 200_000_000
 SKEW = 1.05
 SEED = 20260816
+#: Rows of each side of the uniform join the chained-probe kernel is also
+#: timed on (Balkesen et al.'s workload B, 128M ⋈ 128M unique int32 keys).
+N_UNIFORM = 128_000_000
 #: The H100 SXM's device-memory rate (NVIDIA data sheet), for the bounds.
 HBM_BYTES_PER_S = 3.35e12
 #: K8's operations bound: lanes per clock per SM of each pipe on compute
@@ -1585,6 +1597,154 @@ def parity_k7_i64(torch, device):
             "bound_ms": bound, "library_ms": None}
 
 
+# ---------------------------------------------------------------- chained probe
+
+
+def _median_ms(torch, fn, runs):
+    """Median ms of ``runs`` calls of ``fn``, each between two CUDA events,
+    after one warm call."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return sorted(times)[len(times) // 2]
+
+
+def _chain_reads(torch, table, keys, hashes, mask, chunk=25_000_000):
+    """Mean chain entries a probe row walks up to its first match (its whole
+    chain where it finds none), and the 16-byte chunks of ``entry_keys``
+    the kernel reads for them, from the chains written out ``chunk`` rows
+    at a time, as ``chained_count_plain`` does."""
+    per = 16 // table.entry_keys.element_size()
+    lead = table.entry_keys.data_ptr() % 16 // table.entry_keys.element_size()
+    entries = chunks = 0
+    for lo in range(0, keys.numel(), chunk):
+        k, h = keys[lo:lo + chunk], hashes[lo:lo + chunk]
+        bucket = (h.view(torch.int32).to(torch.int64) & 0xFFFFFFFF) & mask
+        start = table.offsets[bucket].to(torch.int64)
+        length = table.offsets[bucket + 1].to(torch.int64) - start
+        owner = torch.repeat_interleave(torch.arange(k.numel(), device=k.device), length)
+        at = torch.arange(owner.numel(), device=k.device) - (torch.cumsum(length, 0)
+                                                             - length)[owner]
+        hit = table.entry_keys[start[owner] + at].to(torch.int64) == k[owner].to(torch.int64)
+        first = torch.full((k.numel(),), 2**62, dtype=torch.int64, device=k.device)
+        first.scatter_reduce_(0, owner[hit], at[hit], "amin")
+        walked = torch.where(first < length, first + 1, length)
+        entries += int(walked.sum())
+        last = start + walked - 1  # the last entry read, where walked > 0
+        chunks += int(torch.where(walked > 0, (last + lead) // per - (start + lead) // per + 1,
+                                  0).sum())
+        del owner, at, hit, first
+    return entries / max(1, keys.numel()), chunks / max(1, keys.numel())
+
+
+def _time_chained(torch, kcp, ht, name, a, b):
+    """The chained-probe kernel alone on one join's table and probe keys:
+    median ms of 7 runs (CUDA events) against its bound (the probe keys and
+    hashes streamed once at the card's memory rate), the window scan it
+    replaced (median of 3) and the plain version (one run after a warm
+    one), with the random loads a row makes.  The counts must agree."""
+    table = ht.build_chained(a, SEED, ht.chained_num_buckets(a.numel()))
+    hashes = ht.hash_bits(b, SEED)
+    mask = table.num_buckets - 1
+
+    def kernel():
+        return kcp.chained_count(b, hashes, mask, table.offsets, table.entry_keys)
+
+    def plain():
+        return kcp.chained_count_plain(b, hashes, mask, table.offsets, table.entry_keys)
+
+    want = int(torch.isin(b, a).sum())
+    got, windowed, plain_count = (int(kernel()), int(ht._windowed_count(table, b)),
+                                  int(plain()))
+    _check(f"chained count {name}", got == windowed == plain_count == want,
+           f"kernel {got}, window scan {windowed}, plain {plain_count}, isin {want}")
+    kernel_ms = _median_ms(torch, kernel, 7)
+    windowed_ms = _median_ms(torch, lambda: ht._windowed_count(table, b), 3)
+    plain_ms = _median_ms(torch, plain, 1)
+    entries, chunks = _chain_reads(torch, table, b, hashes, mask)
+    bound = _bound_ms(b.numel() * (b.element_size() + 4))
+    log(f"[time chained] {name}: chained_count {kernel_ms:.4f} ms (median of 7; "
+        f"{bound / kernel_ms:.1%} of the bound {bound:.4f} ms, {b.element_size() + 4} "
+        f"streamed bytes a row); window scan {windowed_ms:.4f} ms; plain "
+        f"{plain_ms:.4f} ms; random loads a row: 1 offsets pair + {chunks:.4f} "
+        f"16-byte chunks of entries ({entries:.4f} entries walked); max chain "
+        f"{int(table.max_chain)}; count {got:,} ok")
+    del table, hashes
+    torch.cuda.empty_cache()
+    return kernel_ms, plain_ms, bound
+
+
+def parity_chained(torch, device):
+    """The chained-probe count kernel (no TPU counterpart) against its plain
+    version on the card at every key-width pair, with misses, keys that
+    differ only above bit 31, a chain of 4,096 entries, ``skip`` and views
+    off a 16-byte boundary; then timed at 10M ⋈ 200M int64 Zipf(1.05) keys
+    and at 128M ⋈ 128M uniform unique int32 keys."""
+    from partitionedhashjoin_tpu_torch.ops import hash_table as ht
+    from partitionedhashjoin_tpu_torch.ops.kernels import chained_probe as kcp
+
+    par = Parity(torch, "chained probe")
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 22)
+    lo = torch.randint(I32_MIN, I32_MAX, (1_000_003,), generator=gen,
+                       dtype=torch.int64, device=device)
+    lo[:3] = torch.tensor([I32_MIN, I32_MAX, 0], device=device)
+    for kd, ed in ((torch.int32, torch.int32), (torch.int32, torch.int64),
+                   (torch.int64, torch.int32), (torch.int64, torch.int64)):
+        build = (torch.cat([lo[:600_000], lo[:200_000] + 2**32])
+                 if ed == torch.int64 else lo[:600_000]).to(ed)
+        probe = lo[300_000:]  # half hit, half miss
+        chain_probe = torch.cat([lo[:10_000], lo[300_000:340_000]])  # 4,096 hit
+        if kd == torch.int64:
+            probe = torch.cat([probe, lo[:100_000] + 2**32, lo[:100_000] ^ (1 << 62)])
+            chain_probe = torch.cat([chain_probe, lo[:2_000] + 2**32])
+        for tname, table, keys in (
+                ("hashed", ht.build_chained(build, SEED,
+                                            ht.chained_num_buckets(build.numel())),
+                 probe.to(kd)),
+                ("one chain", ht.build_chained_from_buckets(
+                    torch.zeros(4096, dtype=torch.int32, device=device), build[:4096],
+                    SEED, 2), chain_probe.to(kd))):
+            chain = tname == "one chain"
+            for vname, view in (("aligned", keys), ("off 16 bytes", keys[1:]),
+                                ("odd", keys[:-3]), ("tiny", keys[:5])):
+                if chain:
+                    hashes, mask = torch.zeros_like(view, dtype=torch.int32), 0xFFFFFFFF
+                else:
+                    hashes = ht.hash_bits(ht._probe_keys(table, view)[1], table.seed)
+                    mask = table.num_buckets - 1
+                for skip in (0, 7):
+                    args = (view, hashes, mask, table.offsets, table.entry_keys, skip)
+                    par.check(f"{kd} probe, {ed} {tname} table, {vname}, skip {skip}",
+                              lambda: kcp.chained_count(*args),
+                              lambda: kcp.chained_count_plain(*args),
+                              torch.isin(view[skip:].to(torch.int64),
+                                         build[:4096 if chain else None]
+                                         .to(torch.int64)).sum())
+    del lo
+    a, b = _reference_data(torch, device, torch.int64)
+    kernel_ms, plain_ms, bound = _time_chained(
+        torch, kcp, ht, f"{N_PRIMARY:,} x {N_SECONDARY:,} int64 Zipf({SKEW})", a, b)
+    del a, b
+    torch.cuda.empty_cache()
+    n = N_UNIFORM
+    gen.manual_seed(SEED + 128)
+    a = (torch.randperm(n, generator=gen, device=device) + 1).to(torch.int32)
+    b = (torch.randperm(n, generator=gen, device=device) + 1).to(torch.int32)
+    _time_chained(torch, kcp, ht, f"{n:,} x {n:,} uniform unique int32", a, b)
+    del a, b
+    torch.cuda.empty_cache()
+    return {"max_abs_err": par.max_err, "ms": kernel_ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "library_ms": None}
+
+
 def _sass_mixes(sass, function, loop):
     """SASS instructions of one round of the Zipf sampler, by opcode, in the
     function of ``cuobjdump -sass`` output ``sass`` whose mangled name
@@ -1853,32 +2013,33 @@ def parity_k8(torch, device, card_line):
 
 def _counters():
     from partitionedhashjoin_tpu_torch.ops.kernels import bitonic_sort as bs
+    from partitionedhashjoin_tpu_torch.ops.kernels import chained_probe as kcp
     from partitionedhashjoin_tpu_torch.ops.kernels import compact as kc
     from partitionedhashjoin_tpu_torch.ops.kernels import generate as kg
     from partitionedhashjoin_tpu_torch.ops.kernels import merge_count as mc
     from partitionedhashjoin_tpu_torch.ops.kernels import merge_payload as mpay
     from partitionedhashjoin_tpu_torch.ops.kernels import merge_probe as mp
 
-    return mp, mc, mpay, kc, bs, kg
+    return mp, mc, mpay, kc, bs, kg, kcp
 
 
 def _reset_counts():
-    mp, mc, mpay, kc, bs, kg = _counters()
+    mp, mc, mpay, kc, bs, kg, kcp = _counters()
     mp.LAUNCHES = mp.LAUNCHES_I64 = mc.LAUNCHES = mpay.LAUNCHES = 0
     kc.LAUNCHES = bs.LAUNCHES_BLOCKS = bs.LAUNCHES_MERGE = 0
     bs.LAUNCHES_UPSWEEP = bs.LAUNCHES_SORT = bs.SWEEPS_SKIPPED = 0
     kg.LAUNCHES_HASH = kg.LAUNCHES_HASH64 = kg.LAUNCHES_ZIPF = 0
-    kg.LAUNCHES_UNIFORMS = 0
+    kg.LAUNCHES_UNIFORMS = kcp.LAUNCHES_CHAINED_COUNT = 0
 
 
 def _read_counts():
-    mp, mc, mpay, kc, bs, kg = _counters()
+    mp, mc, mpay, kc, bs, kg, kcp = _counters()
     return {"k1": mp.LAUNCHES, "k3": mp.LAUNCHES_I64, "k2": mc.LAUNCHES,
             "k4": mpay.LAUNCHES, "k5": kc.LAUNCHES,
             "k6a": bs.LAUNCHES_BLOCKS, "k6b": bs.LAUNCHES_MERGE,
             "k6": bs.LAUNCHES_UPSWEEP + bs.LAUNCHES_SORT,
             "k7": kg.LAUNCHES_HASH, "k7i64": kg.LAUNCHES_HASH64,
-            "k8": kg.LAUNCHES_ZIPF}
+            "k8": kg.LAUNCHES_ZIPF, "chained": kcp.LAUNCHES_CHAINED_COUNT}
 
 
 def _k6_sweeps():
@@ -2669,7 +2830,8 @@ def _hash_step(torch, launches, card_line, name, fn, kernels):
     log(f"[time hash] {card_line}: {name}: host {times[0][0]:.3f} ms, device "
         f"{times[0][1]:.4f} ms (CUDA events); warm host {times[1][0]:.3f} ms, device "
         f"{times[1][1]:.4f} ms; peak allocated {peak} B; launches k5 {counts['k5']}, "
-        f"k7 {counts['k7']}, k7 int64 {counts['k7i64']}")
+        f"k7 {counts['k7']}, k7 int64 {counts['k7i64']}, chained count "
+        f"{counts['chained']} (LAUNCHES_CHAINED_COUNT)")
     return first
 
 
@@ -2738,7 +2900,7 @@ def phase_hash(torch, device, launches, card_line, rel):
             seed=SEED)),
     )
     for name, make in joins:
-        count = step(name, lambda: make().run(table_a, table_b), ("k7",))
+        count = step(name, lambda: make().run(table_a, table_b), ("k7", "chained"))
         _check(name, count == N_SECONDARY, f"count {count}")
         count, part, build, probe = _timed_join(make, table_a, table_b)
         _check(name, count == N_SECONDARY, f"count {count}")
@@ -2824,7 +2986,7 @@ def _phase_hash_i64(torch, step, card_line, a_keys, b_keys):
         return NoPartitioningHashJoiner(NoPartitioningConfiguration(mode="chained"),
                                         seed=SEED)
 
-    count = step(name, lambda: make().run(table_a, table_b), ("k7i64",))
+    count = step(name, lambda: make().run(table_a, table_b), ("k7i64", "chained"))
     _check(name, count == want, f"count {count}, reference {want}")
     count, part, build, probe = _timed_join(make, table_a, table_b)
     _check(name, count == want, f"count {count}, reference {want}")
@@ -3654,9 +3816,10 @@ def main() -> int:
     stats["key_sort_i64"] = parity_k6_i64(torch, device)
     stats["hash_keys"] = parity_k7(torch, device)
     stats["hash_keys_i64"] = parity_k7_i64(torch, device)
+    stats["chained_count"] = parity_chained(torch, device)
     stats["zipf_keys_pallas"] = parity_k8(torch, device, card)
     launches = dict.fromkeys(("k1", "k2", "k3", "k4", "k5", "k6a", "k6b",
-                              "k6", "k7", "k7i64", "k8"), 0)
+                              "k6", "k7", "k7i64", "k8", "chained"), 0)
     phase_library(torch, device, launches)
     phase_main(torch, launches)
     with _sorter("xla"):  # phase 7 holds K6 to these
@@ -3689,6 +3852,7 @@ def main() -> int:
         ("key_sort_i64", "k6", "radix_sort.cu", "bitonic_sort.py:524"),
         ("hash_keys", "k7", "generate.cu", "generate.py:46"),
         ("hash_keys_i64", "k7i64", "generate.cu", "generate.py:46"),
+        ("chained_count", "chained", "chained_probe.cu", None),
         ("zipf_keys_pallas", "k8", "generate.cu", "generate.py:103"),
     )
     kernels = []
@@ -3698,7 +3862,7 @@ def main() -> int:
             "name": name,
             "route": "cuda",
             "source": f"{PKG}/csrc/{source}",
-            "replaces": f"{PALLAS}/{replaces}",
+            "replaces": f"{PALLAS}/{replaces}" if replaces else None,
             "launches": launches[key],
             "max_abs_err": s["max_abs_err"],
             "ms": s["ms"],

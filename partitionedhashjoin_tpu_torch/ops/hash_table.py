@@ -17,7 +17,10 @@ the same names and the same results bit for bit:
   int32 value.
 - **Chained** (``build_chained``, ``probe_chained_*``): one stable sort by
   bucket; rows sorted by bucket are the chains, ``offsets`` delimit them, and
-  a probe compares a window of ``PROBE_WINDOW`` chain entries per pass.
+  a probe compares a window of ``PROBE_WINDOW`` chain entries per pass.  The
+  count probe of a CUDA tensor instead walks each row's chain in one
+  hand-written kernel (``kernels/chained_probe``), which has no JAX
+  counterpart.
   It takes int32 and int64 keys (``_chained_keys``); the other tables take
   int32 keys only (``_as_i32_keys``).
 - **Dedup** (``build_dedup_hash_table``): the claim loop where a row that
@@ -54,6 +57,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from partitionedhashjoin_tpu_torch.ops.kernels import chained_probe as kchained
 from partitionedhashjoin_tpu_torch.ops.kernels import generate as kgenerate
 
 #: Default slots-per-key ratio: a power-of-two slot count >= 2x keys (load
@@ -462,12 +466,33 @@ def _probe_chained_block(table: ChainedHashTable, keys, bucket=None,
 
 def _probe_chained_count_chunk(table: ChainedHashTable, keys, bucket=None,
                                skip=None) -> torch.Tensor:
-    """Count-only probe, tail-compacted: one first-window pass over every
-    row, then the rows still active (longer chains, no match yet) go to a
-    tail of at most ``max(128, n // 8)`` rows that the window loop walks.
-    If more rows are active, the full window loop over all rows counts
-    instead; the count is exact either way.  Rows with index < ``skip`` are
-    not counted (the overlapping last window of a chunked probe)."""
+    """Count-only probe (0-dim int64); rows with index < ``skip`` are not
+    counted (the overlapping last window of a chunked probe).  ``bucket``
+    overrides the hash-derived bucket (the radix join's partition-segmented
+    bucket map).  A CUDA tensor takes the hand-written chain walk
+    (``kernels/chained_probe.chained_count``): K7's hashes, or ``bucket``
+    under an all-ones mask, and one launch; a CPU tensor the window scan
+    (``_windowed_count``)."""
+    keys = _chained_keys(keys)
+    if keys.device.type == "cuda":
+        if bucket is None:
+            hashes = hash_bits(_probe_keys(table, keys)[1], table.seed)
+            mask = table.num_buckets - 1
+        else:
+            hashes, mask = bucket.contiguous(), _MASK
+        return kchained.chained_count(keys.contiguous(), hashes, mask,
+                                      table.offsets, table.entry_keys,
+                                      int(skip or 0))
+    return _windowed_count(table, keys, bucket, skip)
+
+
+def _windowed_count(table: ChainedHashTable, keys, bucket=None,
+                    skip=None) -> torch.Tensor:
+    """The window scan of a count, tail-compacted: one first-window pass
+    over every row, then the rows still active (longer chains, no match
+    yet) go to a tail of at most ``max(128, n // 8)`` rows that the window
+    loop walks.  If more rows are active, the full window loop over all rows
+    counts instead; the count is exact either way."""
     keys, hashed = _probe_keys(table, keys)
     n = keys.shape[0]
     padded = _padded_entries(table)

@@ -18,6 +18,7 @@ from partitionedhashjoin_tpu_torch.config import NoPartitioningConfiguration
 from partitionedhashjoin_tpu_torch.data.table import make_table
 from partitionedhashjoin_tpu_torch.ops import hash_table as ht
 from partitionedhashjoin_tpu_torch.ops import hashing
+from partitionedhashjoin_tpu_torch.ops.kernels import chained_probe as kcp
 from partitionedhashjoin_tpu_torch.ops.kernels import generate as gen
 from partitionedhashjoin_tpu_torch.ops.no_partitioning import (
     NoPartitioningHashJoiner,
@@ -135,6 +136,21 @@ def test_chained_probes_i64(case, num_chunks):
     assert torch.equal(got_row, ref_first_row(build, probe))
     assert torch.equal(ht.probe_chained_count_all(table, probe),
                        ref_multiplicity(build, probe))
+
+
+@pytest.mark.parametrize("skip", [0, 1, 37])
+@pytest.mark.parametrize("case", sorted(KEY_CASES))
+def test_chained_count_plain_matches_window_scan_i64(case, skip):
+    """The chained-probe kernel's plain version counts what the window scan
+    counts, on K7's hashes under the table's mask."""
+    build, probe = _tensors(case)
+    table = ht.build_chained(build, SEED, ht.chained_num_buckets(build.numel()))
+    hashes = ht.hash_bits(ht._probe_keys(table, probe)[1], table.seed)
+    got = kcp.chained_count_plain(probe, hashes, table.num_buckets - 1,
+                                  table.offsets, table.entry_keys, skip)
+    assert got.dtype == torch.int64 and got.dim() == 0
+    want = ht._windowed_count(table, probe, skip=skip)
+    assert int(got) == int(want) == int(ref_found(build, probe)[skip:].sum())
 
 
 def test_int64_probe_of_int32_table():

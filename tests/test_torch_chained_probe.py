@@ -1,0 +1,148 @@
+"""The chained-probe count kernel's wrapper (``ops/kernels/chained_probe``) on
+the CPU: its argument checks, and its plain version against the port's
+window scan and ``torch.isin`` at every pair of key widths.
+
+The kernel itself runs only on the card (``tests/test_torch_cuda.py``).  No
+JAX here: the kernel has no JAX counterpart.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from partitionedhashjoin_tpu_torch.ops import hash_table as ht
+from partitionedhashjoin_tpu_torch.ops.kernels import chained_probe as kcp
+
+torch.set_num_threads(1)
+
+I32_MIN, I32_MAX = -(2**31), 2**31 - 1
+WIDTHS = [(torch.int32, torch.int32), (torch.int32, torch.int64),
+          (torch.int64, torch.int32), (torch.int64, torch.int64)]
+
+
+def _operands(probe_dtype, entry_dtype, seed=7):
+    """Build keys over int32's range (plus, at int64, a third of them moved
+    by 2^32) and probe keys that hit, miss and differ from a build key only
+    above bit 31."""
+    rng = np.random.default_rng(seed)
+    lo = rng.integers(I32_MIN, I32_MAX, 1500, dtype=np.int64)
+    lo[:3] = [I32_MIN, I32_MAX, 0]
+    build = np.concatenate([lo, lo[:500] + 2**32]) if entry_dtype == torch.int64 else lo
+    hits = rng.choice(build, 2001)
+    if probe_dtype == torch.int32:
+        hits = hits[(hits >= I32_MIN) & (hits <= I32_MAX)]
+    probe = np.concatenate([hits, rng.integers(I32_MIN, I32_MAX, 800, dtype=np.int64)])
+    if probe_dtype == torch.int64:
+        probe = np.concatenate([probe, lo[:300] + 2**32, lo[:300] - 2**32])
+    return (torch.from_numpy(build).to(entry_dtype),
+            torch.from_numpy(rng.permutation(probe)).to(probe_dtype))
+
+
+def _args(probe_dtype=torch.int32, entry_dtype=torch.int32):
+    build, probe = _operands(probe_dtype, entry_dtype)
+    table = ht.build_chained(build, 3, ht.chained_num_buckets(build.numel()))
+    hashes = ht.hash_bits(ht._probe_keys(table, probe)[1], table.seed)
+    return build, probe, table, hashes
+
+
+@pytest.mark.parametrize("skip", [0, 3, 10_000])
+@pytest.mark.parametrize("probe_dtype,entry_dtype", WIDTHS)
+def test_plain_count_matches_window_scan_and_isin(probe_dtype, entry_dtype, skip):
+    build, probe, table, hashes = _args(probe_dtype, entry_dtype)
+    want = int(torch.isin(probe[skip:].to(torch.int64), build.to(torch.int64)).sum())
+    assert 0 < int(torch.isin(probe.to(torch.int64), build.to(torch.int64)).sum()) < probe.numel()
+    got = kcp.chained_count(probe, hashes, table.num_buckets - 1, table.offsets,
+                            table.entry_keys, skip)
+    assert got.dtype == torch.int64 and got.dim() == 0
+    assert int(got) == int(ht._windowed_count(table, probe, skip=skip)) == want
+    # uint32 hashes are the same bit patterns
+    assert int(kcp.chained_count(probe, hashes.view(torch.uint32), table.num_buckets - 1,
+                                 table.offsets, table.entry_keys, skip)) == want
+
+
+def test_plain_count_on_a_long_chain_and_past_the_table():
+    """One chain of 2,000 entries (far past ``PROBE_WINDOW``), probed under
+    the all-ones mask; bucket ids past the table count as empty chains."""
+    build = torch.arange(2000, dtype=torch.int64) * 3
+    zeros = torch.zeros(2000, dtype=torch.int32)
+    table = ht.build_chained_from_buckets(zeros, build, 1, 2)
+    probe = torch.arange(6000, dtype=torch.int64)
+    bucket = torch.zeros(6000, dtype=torch.int32)
+    assert int(kcp.chained_count(probe, bucket, 0xFFFFFFFF, table.offsets,
+                                 table.entry_keys)) == 2000
+    assert int(ht._windowed_count(table, probe, bucket)) == 2000
+    bucket[::2] = 2  # past the table's 2 buckets
+    bucket[1::4] = -1  # 0xFFFFFFFF
+    assert int(kcp.chained_count(probe, bucket, 0xFFFFFFFF, table.offsets,
+                                 table.entry_keys)) == int((probe % 12 == 3).sum())
+
+
+def test_plain_count_of_empty_sides():
+    build, probe, table, hashes = _args()
+    args = (table.num_buckets - 1, table.offsets, table.entry_keys)
+    assert int(kcp.chained_count(probe[:0], hashes[:0], *args)) == 0
+    empty = ht.build_chained(build[:0], 3, 1)
+    assert int(kcp.chained_count(probe, torch.zeros_like(hashes), 0, empty.offsets,
+                                 empty.entry_keys)) == 0
+
+
+def test_cpu_probe_keeps_the_window_scan(monkeypatch):
+    """``probe_chained_count`` of a CPU tensor never calls the kernel's
+    wrapper and launches nothing."""
+    _, probe, table, _ = _args()
+    calls = []
+    monkeypatch.setattr(kcp, "chained_count", lambda *a, **k: calls.append(1))
+    before = kcp.LAUNCHES_CHAINED_COUNT
+    assert int(ht.probe_chained_count(table, probe, 3)) == int(
+        ht._windowed_count(table, probe))
+    assert not calls and kcp.LAUNCHES_CHAINED_COUNT == before
+
+
+def _bad(name, value):
+    _, probe, table, hashes = _args()
+    args = dict(keys=probe, hashes=hashes, mask=table.num_buckets - 1,
+                offsets=table.offsets, entry_keys=table.entry_keys, skip=0)
+    args[name] = value
+    return args
+
+
+@pytest.mark.parametrize("name,value", [
+    ("keys", torch.zeros(4, dtype=torch.int16)),
+    ("keys", torch.zeros(4, dtype=torch.float32)),
+    ("keys", torch.zeros((2, 2), dtype=torch.int32)),
+    ("keys", [1, 2, 3]),
+    ("hashes", torch.zeros(4, dtype=torch.int64)),
+    ("offsets", torch.zeros(4, dtype=torch.int64)),
+    ("entry_keys", torch.zeros(4, dtype=torch.uint8)),
+])
+def test_wrapper_rejects_wrong_dtype_or_rank(name, value):
+    with pytest.raises(TypeError, match=name):
+        kcp.chained_count(**_bad(name, value))
+
+
+def test_wrapper_rejects_wrong_shape_layout_and_values():
+    _, probe, table, hashes = _args()
+    with pytest.raises(ValueError, match="do not match"):
+        kcp.chained_count(**_bad("hashes", hashes[:-1]))
+    with pytest.raises(ValueError, match="contiguous"):
+        kcp.chained_count(**_bad("keys", torch.zeros(8, dtype=torch.int32)[::2]))
+    with pytest.raises(ValueError, match="num_buckets"):
+        kcp.chained_count(**_bad("offsets", torch.zeros(0, dtype=torch.int32)))
+    for mask in (-1, 2**32):
+        with pytest.raises(ValueError, match="mask"):
+            kcp.chained_count(**_bad("mask", mask))
+    with pytest.raises(ValueError, match="skip"):
+        kcp.chained_count(**_bad("skip", -1))
+
+
+def test_wrapper_rejects_other_devices():
+    """Inputs on two devices, or on a device that is neither the CPU nor
+    CUDA, raise before anything runs."""
+    _, probe, table, hashes = _args()
+    meta = dict(keys=probe.to("meta"), hashes=hashes.to("meta"),
+                mask=table.num_buckets - 1, offsets=table.offsets.to("meta"),
+                entry_keys=table.entry_keys.to("meta"))
+    with pytest.raises(ValueError, match="unsupported device"):
+        kcp.chained_count(**meta)
+    with pytest.raises(ValueError, match="different devices"):
+        kcp.chained_count(**dict(meta, keys=probe))

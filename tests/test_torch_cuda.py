@@ -1299,6 +1299,163 @@ def test_tail_and_fallback_on_card_match_cpu(cuda):
             assert int(got) == int(want)
 
 
+WIDTHS = [(torch.int32, torch.int32), (torch.int32, torch.int64),
+          (torch.int64, torch.int32), (torch.int64, torch.int64)]
+CHAINED_CASES = ("mixed", "misses", "empty_build", "empty_probe", "one_chain")
+
+
+def _chained_operands(case, probe_dtype, entry_dtype):
+    """(build, probe) CPU keys of one chained-count case: build keys over
+    int32's range (and, in an int64 build, the first 2,000 of them again
+    moved by 2^32), probe keys of an odd length that hit, miss and, at
+    int64, differ from a build key only above bit 31."""
+    rng = np.random.default_rng(2200)
+    lo = rng.integers(I32_MIN, I32_MAX, 5000, dtype=np.int64)
+    lo[:3] = [I32_MIN, I32_MAX, 0]
+    build = np.concatenate([lo, lo[:2000] + 2**32]) if entry_dtype == torch.int64 else lo
+    if case == "one_chain":
+        build = build[:3000]  # every entry in bucket 0: one chain of 3,000
+    hits = rng.choice(lo if case == "one_chain" else build, 6001)
+    if probe_dtype == torch.int32:
+        hits = hits[(hits >= I32_MIN) & (hits <= I32_MAX)]
+    probe = np.concatenate([hits, rng.integers(I32_MIN, I32_MAX, 3000, dtype=np.int64)])
+    if probe_dtype == torch.int64:
+        probe = np.concatenate([probe, lo[:1000] + 2**32, lo[:1000] - 2**32,
+                                lo[:7] ^ (1 << 62)])
+    probe = rng.permutation(probe)
+    if case == "misses":
+        probe = rng.integers(I32_MIN, I32_MAX, 4001, dtype=np.int64)
+    elif case == "empty_build":
+        build = build[:0]
+    elif case == "empty_probe":
+        probe = probe[:0]
+    return (torch.from_numpy(build).to(entry_dtype),
+            torch.from_numpy(probe).to(probe_dtype))
+
+
+def _chained_table(case, build):
+    from partitionedhashjoin_tpu_torch.ops import hash_table as ht
+
+    if case == "one_chain":
+        zeros = torch.zeros(build.shape, dtype=torch.int32, device=build.device)
+        return ht.build_chained_from_buckets(zeros, build, 3, 2)
+    return ht.build_chained(build, 3, ht.chained_num_buckets(build.numel()))
+
+
+def _chained_hashes(table, probe, case):
+    """(hashes, mask) of a probe: K7's with the table's mask, or, for the
+    one-chain table, bucket 0 for every row under the all-ones mask."""
+    from partitionedhashjoin_tpu_torch.ops import hash_table as ht
+
+    if case == "one_chain":
+        return torch.zeros(probe.shape, dtype=torch.int32, device=probe.device), 0xFFFFFFFF
+    return ht.hash_bits(ht._probe_keys(table, probe)[1], table.seed), table.num_buckets - 1
+
+
+@pytest.mark.parametrize("case", CHAINED_CASES)
+@pytest.mark.parametrize("probe_dtype,entry_dtype", WIDTHS)
+def test_chained_count_kernel_matches_plain(cuda, case, probe_dtype, entry_dtype):
+    """The chained-probe kernel's count equals its plain version, the CPU
+    window scan and ``torch.isin`` at every key-width pair, with and without
+    ``skip``; on a probe view off its 16-byte alignment and at odd lengths
+    around a thread's 4-row group too."""
+    from partitionedhashjoin_tpu_torch.ops import hash_table as ht
+    from partitionedhashjoin_tpu_torch.ops.kernels import chained_probe as kcp
+
+    build, probe = _chained_operands(case, probe_dtype, entry_dtype)
+    t_cpu = _chained_table(case, build)
+    t_gpu = _chained_table(case, build.to(cuda))
+    _same_fields(t_gpu, t_cpu, ("entry_keys", "entry_rows", "offsets", "max_chain"))
+    if case == "one_chain":
+        assert int(t_cpu.max_chain) == 3000 > ht.PROBE_WINDOW
+    rows = kcp.ROWS_PER_THREAD
+    n = probe.numel()
+    views = [(0, n), (1, n), (3, n - 2), (0, min(n, 4 * rows + 3))]
+    for lo_row, hi_row in views:
+        p_cpu = probe[lo_row:hi_row]
+        p_gpu = probe.to(cuda)[lo_row:hi_row]
+        h_cpu, mask = _chained_hashes(t_cpu, p_cpu, case)
+        h_gpu, _ = _chained_hashes(t_gpu, p_gpu, case)
+        bucket = h_cpu if case == "one_chain" else None
+        for skip in (0, 5, rows + 1):
+            want = int(torch.isin(p_cpu[skip:].to(torch.int64),
+                                  build.to(torch.int64)).sum())
+            got = kcp.chained_count(p_gpu, h_gpu, mask, t_gpu.offsets,
+                                    t_gpu.entry_keys, skip)
+            assert got.device == p_gpu.device and got.dim() == 0
+            assert int(got) == want, (lo_row, hi_row, skip)
+            assert int(kcp.chained_count(p_cpu, h_cpu, mask, t_cpu.offsets,
+                                         t_cpu.entry_keys, skip)) == want
+            assert int(ht._windowed_count(t_cpu, p_cpu, bucket, skip)) == want
+        # the table's entries as a view off their 16-byte alignment: the
+        # chain is read in chunks aligned to memory, not to entry_keys[0]
+        leads = range(1, 16 // t_gpu.entry_keys.element_size()) if build.numel() else ()
+        for lead in leads:
+            shifted = torch.cat([t_gpu.entry_keys.new_full((lead,), 77),
+                                 t_gpu.entry_keys])[lead:]
+            assert shifted.data_ptr() % 16 == lead * shifted.element_size()
+            got = kcp.chained_count(p_gpu, h_gpu, mask, t_gpu.offsets, shifted)
+            assert int(got) == int(torch.isin(p_cpu.to(torch.int64),
+                                              build.to(torch.int64)).sum()), lead
+    if case in ("mixed", "one_chain") and probe.numel():
+        assert 0 < int(torch.isin(probe.to(torch.int64), build.to(torch.int64)).sum())
+
+
+@pytest.mark.parametrize("probe_dtype,entry_dtype", WIDTHS)
+def test_chained_probe_on_card_counts_once_per_call(cuda, probe_dtype, entry_dtype):
+    """``probe_chained_count`` on the card launches the kernel once per
+    chunk and equals ``torch.isin`` for any ``num_chunks``; on the CPU it
+    never launches it."""
+    from partitionedhashjoin_tpu_torch.ops import hash_table as ht
+    from partitionedhashjoin_tpu_torch.ops.kernels import chained_probe as kcp
+
+    build, probe = _chained_operands("mixed", probe_dtype, entry_dtype)
+    want = int(torch.isin(probe.to(torch.int64), build.to(torch.int64)).sum())
+    t_gpu = _chained_table("mixed", build.to(cuda))
+    t_cpu = _chained_table("mixed", build)
+    for chunks in (1, 3, 7):
+        before = kcp.LAUNCHES_CHAINED_COUNT
+        assert int(ht.probe_chained_count(t_gpu, probe.to(cuda), chunks)) == want
+        assert kcp.LAUNCHES_CHAINED_COUNT == before + chunks
+        before = kcp.LAUNCHES_CHAINED_COUNT
+        assert int(ht.probe_chained_count(t_cpu, probe, chunks)) == want
+        assert kcp.LAUNCHES_CHAINED_COUNT == before
+    before = kcp.LAUNCHES_CHAINED_COUNT
+    assert int(ht.probe_chained_count(t_gpu, probe[:0].to(cuda))) == 0
+    assert kcp.LAUNCHES_CHAINED_COUNT == before
+
+
+def test_chained_joiners_on_card_launch_the_kernel_once(cuda):
+    """The no-partitioning chained join and the radix chained join (its
+    segmented bucket ids under the all-ones mask) count on the kernel, once
+    a join, and equal the CPU port and ``torch.isin``."""
+    from partitionedhashjoin_tpu_torch.ops.kernels import chained_probe as kcp
+
+    a, b = _hash_relations(4)
+    want = int(torch.isin(b, a).sum())
+    cpu = (make_table(a, a), make_table(b, b))
+    gpu = tuple(make_table(t.keys.to(cuda), t.payloads.to(cuda)) for t in cpu)
+    for make in (lambda: NoPartitioningHashJoiner(
+                     NoPartitioningConfiguration(mode="chained"), seed=9),
+                 lambda: RadixHashJoiner(
+                     RadixClusteringConfiguration(number_of_partitions=64, mode="chained"),
+                     seed=9)):
+        before = kcp.LAUNCHES_CHAINED_COUNT
+        assert make().run(*gpu) == want
+        assert kcp.LAUNCHES_CHAINED_COUNT == before + 1
+        assert make().run(*cpu) == want
+        assert kcp.LAUNCHES_CHAINED_COUNT == before + 1
+
+
+def test_chained_count_wrapper_rejects_mixed_devices(cuda):
+    from partitionedhashjoin_tpu_torch.ops.kernels import chained_probe as kcp
+
+    keys = torch.arange(8, dtype=torch.int32)
+    offsets = torch.tensor([0, 8], dtype=torch.int32)
+    with pytest.raises(ValueError, match="different devices"):
+        kcp.chained_count(keys.to(cuda), keys.to(cuda), 0, offsets, keys.to(cuda))
+
+
 def test_radix_partition_on_card_matches_cpu(cuda):
     from partitionedhashjoin_tpu_torch.ops import radix
 

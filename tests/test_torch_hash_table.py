@@ -20,6 +20,7 @@ from partitionedhashjoin_tpu.ops import hash_table as jht
 from partitionedhashjoin_tpu.ops import radix as jradix
 from partitionedhashjoin_tpu_torch.ops import hash_table as ht
 from partitionedhashjoin_tpu_torch.ops import radix
+from partitionedhashjoin_tpu_torch.ops.kernels import chained_probe as kcp
 from partitionedhashjoin_tpu_torch.ops.kernels import generate as kgen
 
 torch.set_num_threads(1)
@@ -194,6 +195,31 @@ def test_chained_matches_jax(case):
     assert want == int(np.isin(probe, build).sum())
     for chunks in (1, 3, 7):  # 7 does not divide the probe sizes
         assert int(ht.probe_chained_count(table, tp, num_chunks=chunks)) == want
+
+
+@pytest.mark.parametrize("skip", [0, 1, 37])
+@pytest.mark.parametrize("case", sorted(KEY_CASES))
+def test_chained_count_plain_matches_window_scan(case, skip):
+    """The chained-probe kernel's plain version counts what the port's window
+    scan and JAX's chunk count count, on K7's hashes under the table's mask
+    and on the one-chain table under a bucket override."""
+    build, probe = KEY_CASES[case]
+    tp = torch.from_numpy(probe)
+    table = ht.build_chained(torch.from_numpy(build), 0x1234,
+                             ht.chained_num_buckets(build.size))
+    got = kcp.chained_count_plain(tp, ht.hash_bits(tp, table.seed), table.num_buckets - 1,
+                                  table.offsets, table.entry_keys, skip)
+    want = int(np.isin(probe[skip:], build).sum())
+    assert int(got) == int(ht._windowed_count(table, tp, skip=skip)) == want
+    if build.size:
+        jtable, one = _one_bucket_table(build)
+        zeros = torch.zeros(probe.size, dtype=torch.int32)
+        got = kcp.chained_count_plain(tp, zeros, 0xFFFFFFFF, one.offsets, one.entry_keys,
+                                      skip)
+        jwant = jht._probe_chained_count_chunk(
+            jtable, jnp.asarray(probe), jnp.zeros(probe.size, jnp.int32),
+            skip=jnp.int32(skip)) if probe.size else 0
+        assert int(got) == int(ht._windowed_count(one, tp, zeros, skip)) == int(jwant) == want
 
 
 def _spy_fallback(monkeypatch):
