@@ -67,25 +67,25 @@ and raises on the first failure:
              chain of 4,096 entries, ``skip``, views off a 16-byte
              boundary), timed alone (median of 7, CUDA events) at 10M ⋈ 200M
              int64 Zipf(1.05) keys and 128M ⋈ 128M uniform unique int32 keys
-             beside its bound, the window scan it replaced, its plain version
-             and the chain entries a row walks.
+             beside its bound, its plain version and the chain entries a row
+             walks.
 4. library — at 10M ⋈ 200M: ``sort_merge_count`` and ``anti_count`` through
              K2, ``two_run_count_i64`` and an int64 ``PreparedBuild`` through
-             K3, each exact.  From here on every path runs under the
-             sorter switch's default, "auto": K6 sorts its int32 and int64
-             keys on the card; phase 6 alone runs under "xla".
+             K3, each exact.  Every key sort from here on is K6's, the
+             engine's one sorter.
 5. main    — ``cli.main`` at the reference workload (10M sequential build
              ⋈ 200M Zipf(1.05) probe drawn by the alias sampler, the CLI's
              rule up to 2^24 primary rows, with its warmup run) for the default
              join (no-partitioning), radix-partitioning, planned, sort-merge
              and sort-merge with int64 keys.  Each must count exactly
              200,000,000, print the JAX CLI's parameters, and launch its
-             kernel.
+             kernels: K1 or K3, and K6 (planned sorts no probe relation).
 
 6. query   — at 10M ⋈ 200M with the probe payloads of
              ``scripts/bench_pipeline.py`` (uniform in [0, 2^20)):
-             ``two_run_materialize`` (all match: keys ascending, pay_a ==
-             key ^ 0x5A17, pay_b sum kept) and again with uniform probe keys
+             ``two_run_materialize`` (all match: keys equal to
+             ``torch.sort`` of the probe keys, pay_a == key ^ 0x5A17, pay_b
+             sum kept) and again with uniform probe keys
              over [1, 2·N_A] (half miss: K5 compacts the matches);
              ``SortMergeJoiner.run_materialize`` inner and anti;
              ``bench_pipeline.run_query`` for the ordered and the naive plan
@@ -94,13 +94,9 @@ and raises on the first failure:
              more groups than keys the Zipf sampler can reach from float32
              uniforms); and
              ``filter_sort_aggregate_staged`` with ``(p & 1) == 0`` against
-             ``filter_sort_aggregate``.  K4 and K5 must launch.
-7. sorter  — ``merge_join.set_sort_impl("pallas")`` (set back to the
-             default after): ``cli.main`` for no-partitioning, radix-partitioning,
-             sort-merge and sort-merge int64 (each 200,000,000 and the
-             radix sort plus K1 or K3 launched), ``two_run_materialize``
-             (equal to the "xla" run on keys, pay_a and the pay_b sum) and
-             both query plans (equal to the "xla" plans and to the oracle).
+             ``filter_sort_aggregate``.  K4, K5 and K6 must launch.
+7. (none: the sorter phase's checks are phases 5 and 6's, now that K6 is
+             the one sorter.)
 8. generate — ``hash_keys`` over the 200M probe keys (K7);
              ``zipf_keys_pallas`` draws 200M Zipf(1.05) keys over [1, 10M]
              on the card (K8), ``two_run_count`` against the 10M sequential
@@ -114,10 +110,9 @@ and raises on the first failure:
              200,000,000 (K1), and its distinct keys lie within ±0.5% of
              the exact law's sum of 1 - (1 - p_k)^n (7,949,313).
 10. multi-key — ``multi_key_count`` at 10M ⋈ 200M on the keys of phase 9
-             split as (key >> 12, key & 4095) (K3 on the packed pair) and
-             (key >> 20, (key >> 10) & 1023, key & 1023), under "xla" and
-             "pallas" (K6 too for k = 2); each equals the native
-             ``host_join_count`` of the unsplit keys.
+             split as (key >> 12, key & 4095) (K6 and K3 on the packed
+             pair) and (key >> 20, (key >> 10) & 1023, key & 1023); each
+             equals the native ``host_join_count`` of the unsplit keys.
 11. bench  — ``python -m partitionedhashjoin_tpu_torch.bench`` at 10M ⋈ 200M
              as a subprocess: exactly one JSON line with ``bench.py``'s keys
              plus ``device``; every algo counts 200,000,000 and launches K1
@@ -131,7 +126,7 @@ and raises on the first failure:
              pipeline's relations, (b) SELECT key, COUNT/SUM/MIN/MAX ... JOIN
              ... GROUP BY key ORDER BY count DESC LIMIT 10 through
              ``execute_sql`` equals ``bench_pipeline.run_query``'s top 10 and
-             the phase-6 oracle, EXPLAIN R3 and R4, K4 launched; (c) the same
+             the phase-6 oracle, EXPLAIN R3 and R4, K6 and K4 launched; (c) the same
              with ``WHERE b.payload % 2 = 0`` takes R7 (K5, K4) and equals the
              oracle over the kept rows; (d) ``SELECT COUNT(*) FROM b ANTI
              JOIN a USING (key) WHERE a.key % 2 = 0`` equals the probe rows
@@ -140,8 +135,7 @@ and raises on the first failure:
              each run's start by ``torch.cummax`` (the JAX function's scan)
              on the same sort;
              (e) zero divisors and INT32_MIN // -1 through ``_compile_expr``
-             on 1M card rows equal the CPU port bit for bit; (f) (b) under
-             "xla" (the library sort) equals (b)'s run under the default (K6).
+             on 1M card rows equal the CPU port bit for bit.
 13. hash   — the hash-table layer at 10M ⋈ 200M on phase 12's relations
              (no new keys drawn): (a) ``NoPartitioningHashJoiner`` in mode
              "chained" and (b) ``RadixHashJoiner`` chained with 256
@@ -241,7 +235,7 @@ and raises on the first failure:
              K1, K4, K5), ``bench_scaling`` (S = 1, 2, 4, 8 at 1.25M ⋈ 25M
              per shard, so weak scaling at S = 8 is 10M ⋈ 200M; K1, K7), ``bench_overlap`` at 10M ⋈ 200M (chunks 1,
              2, 4, 8 on 8 shards; K1, K7) and ``bench_sorter_ab`` (both
-             counts 200,000,000, the sorter back on its default; K1, K6); each one
+             counts 200,000,000; K1, K6); each one
              JSON line with its JAX script's keys plus the card's name, its
              stderr and wall time logged; K1, K3, K4, K5, K6 and K7 must
              each launch.  ``python -m ...scripts.sweep --partitions 32
@@ -332,19 +326,17 @@ SALT = 0x5A17
 GROUP_CAPACITY = 1 << 24
 PALLAS = "partitionedhashjoin_tpu/ops/pallas"
 #: The CLI paths of phase 5: (argv, expected parameters beyond the base set,
-#: kernel counter that must be non-zero or None).
+#: kernel counters that must be non-zero: the count kernel and K6, the key
+#: sort; planned sorts no probe relation).
 MAIN_RUNS = (
-    ([], {"Type": "NoPartitioning"}, "k1"),
+    ([], {"Type": "NoPartitioning"}, ("k1", "k6")),
     (["--join", "radix-partitioning"],
-     {"Type": "RadixPartitioning", "NumberOfPartitions": "32"}, "k1"),
-    (["--join", "planned"], {"Type": "Planned", "Plan": "interval"}, None),
-    (["--join", "sort-merge"], {"Type": "SortMerge"}, "k1"),
+     {"Type": "RadixPartitioning", "NumberOfPartitions": "32"}, ("k1", "k6")),
+    (["--join", "planned"], {"Type": "Planned", "Plan": "interval"}, ()),
+    (["--join", "sort-merge"], {"Type": "SortMerge"}, ("k1", "k6")),
     (["--join", "sort-merge", "--key-dtype", "int64"],
-     {"Type": "SortMerge"}, "k3"),
+     {"Type": "SortMerge"}, ("k3", "k6")),
 )
-#: The CLI paths of phase 7, under the sorter switch's "pallas" (planned
-#: sorts no probe relation).
-SORTER_RUNS = tuple(run for run in MAIN_RUNS if run[2] is not None)
 
 
 def log(msg: str) -> None:
@@ -1647,9 +1639,9 @@ def _chain_reads(torch, table, keys, hashes, mask, chunk=25_000_000):
 def _time_chained(torch, kcp, ht, name, a, b):
     """The chained-probe kernel alone on one join's table and probe keys:
     median ms of 7 runs (CUDA events) against its bound (the probe keys and
-    hashes streamed once at the card's memory rate), the window scan it
-    replaced (median of 3) and the plain version (one run after a warm
-    one), with the random loads a row makes.  The counts must agree."""
+    hashes streamed once at the card's memory rate) and the plain version
+    (one run after a warm one), with the random loads a row makes.  The
+    counts must agree."""
     table = ht.build_chained(a, SEED, ht.chained_num_buckets(a.numel()))
     hashes = ht.hash_bits(b, SEED)
     mask = table.num_buckets - 1
@@ -1661,18 +1653,16 @@ def _time_chained(torch, kcp, ht, name, a, b):
         return kcp.chained_count_plain(b, hashes, mask, table.offsets, table.entry_keys)
 
     want = int(torch.isin(b, a).sum())
-    got, windowed, plain_count = (int(kernel()), int(ht._windowed_count(table, b)),
-                                  int(plain()))
-    _check(f"chained count {name}", got == windowed == plain_count == want,
-           f"kernel {got}, window scan {windowed}, plain {plain_count}, isin {want}")
+    got, plain_count = int(kernel()), int(plain())
+    _check(f"chained count {name}", got == plain_count == want,
+           f"kernel {got}, plain {plain_count}, isin {want}")
     kernel_ms = _median_ms(torch, kernel, 7)
-    windowed_ms = _median_ms(torch, lambda: ht._windowed_count(table, b), 3)
     plain_ms = _median_ms(torch, plain, 1)
     entries, chunks = _chain_reads(torch, table, b, hashes, mask)
     bound = _bound_ms(b.numel() * (b.element_size() + 4))
     log(f"[time chained] {name}: chained_count {kernel_ms:.4f} ms (median of 7; "
         f"{bound / kernel_ms:.1%} of the bound {bound:.4f} ms, {b.element_size() + 4} "
-        f"streamed bytes a row); window scan {windowed_ms:.4f} ms; plain "
+        f"streamed bytes a row); plain "
         f"{plain_ms:.4f} ms; random loads a row: 1 offsets pair + {chunks:.4f} "
         f"16-byte chunks of entries ({entries:.4f} entries walked); max chain "
         f"{int(table.max_chain)}; count {got:,} ok")
@@ -2048,19 +2038,6 @@ def _k6_sweeps():
     return bs.LAUNCHES_SORT, bs.SWEEPS_SKIPPED
 
 
-@contextlib.contextmanager
-def _sorter(impl):
-    """The sorter switch on ``impl``, set back to what it was after."""
-    from partitionedhashjoin_tpu_torch.ops import merge_join
-
-    prior = merge_join.get_sort_impl()
-    merge_join.set_sort_impl(impl)
-    try:
-        yield
-    finally:
-        merge_join.set_sort_impl(prior)
-
-
 def phase_library(torch, device, launches):
     """Library entry points at 10M ⋈ 200M; adds each path's launches."""
     from partitionedhashjoin_tpu_torch.ops import merge_join, sort_merge
@@ -2113,8 +2090,8 @@ class _JoinCounts(logging.Filter):
 
 
 def phase_main(torch, launches, runs=MAIN_RUNS, tag="main", kernels=()):
-    """``cli.main`` for every path of ``runs``; each must also launch
-    ``kernels``; adds each path's launches."""
+    """``cli.main`` for every path of ``runs``; each must launch its own
+    kernels and ``kernels``; adds each path's launches."""
     from partitionedhashjoin_tpu_torch import cli
 
     base = {
@@ -2122,14 +2099,14 @@ def phase_main(torch, launches, runs=MAIN_RUNS, tag="main", kernels=()):
         "SecondaryRelationSize": str(N_SECONDARY),
         "Skew": f"{SKEW:.6f}",
     }
-    for extra_argv, params, kernel in runs:
+    for extra_argv, params, own in runs:
         argv = extra_argv + [
             "--primary", str(N_PRIMARY), "--secondary", str(N_SECONDARY),
             "--skew", str(SKEW), "--seed", str(SEED), "--output", "stdout",
             "--platform", "cuda",
         ]
         name = " ".join(extra_argv) or "(default join)"
-        must = ((kernel,) if kernel else ()) + tuple(kernels)
+        must = tuple(own) + tuple(kernels)
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         counts = _JoinCounts()
@@ -2252,7 +2229,7 @@ def _run_path(torch, tag, launches, name, fn, kernels):
 
 def phase_query(torch, device, launches):
     """The materializing joins and the JOIN → GROUP BY → top-10 pipeline at
-    10M ⋈ 200M; adds each path's K4/K5 launches."""
+    10M ⋈ 200M; adds each path's K4/K5/K6 launches."""
     from partitionedhashjoin_tpu_torch import bench_pipeline
     from partitionedhashjoin_tpu_torch.data.table import make_table
     from partitionedhashjoin_tpu_torch.ops import aggregate, merge_join
@@ -2264,16 +2241,16 @@ def phase_query(torch, device, launches):
     keys, pa, pb, count = run(
         "two_run_materialize (all match)",
         lambda: merge_join.two_run_materialize(a_keys, a_pay, b_keys, b_pay),
-        ("k4",))
+        ("k6", "k4"))
     _check("two_run_materialize", int(count) == N_SECONDARY, f"count {int(count)}")
-    _check("two_run_materialize", bool((keys[1:] >= keys[:-1]).all()),
-           "keys not ascending")
+    _check("two_run_materialize", torch.equal(keys, torch.sort(b_keys).values),
+           "keys differ from torch.sort's")
     _check("two_run_materialize", torch.equal(pa, keys ^ SALT), "pay_a")
     _check("two_run_materialize",
            int(pb.sum(dtype=torch.int64)) == int(b_pay.sum(dtype=torch.int64)),
            "pay_b sum")
     del keys, pa, pb
-    log(f"[query] two_run_materialize: {int(count):,} rows, keys ascending, "
+    log(f"[query] two_run_materialize: {int(count):,} rows, keys == torch.sort, "
         f"pay_a == key ^ 0x5A17, pay_b sum kept: ok")
 
     # half the probe keys miss: the compaction runs
@@ -2284,7 +2261,7 @@ def phase_query(torch, device, launches):
     keys, pa, pb, count = run(
         "two_run_materialize (half miss)",
         lambda: merge_join.two_run_materialize(a_keys, a_pay, b_half, b_pay),
-        ("k4", "k5"))
+        ("k6", "k4", "k5"))
     hit = b_half <= N_PRIMARY
     c = int(count)
     _check("half miss", c == int(hit.sum()), f"count {c}")
@@ -2322,7 +2299,7 @@ def phase_query(torch, device, launches):
         results[plan] = run(
             f"pipeline {plan} plan",
             lambda: bench_pipeline.run_query(*rel, GROUP_CAPACITY, ordered),
-            ("k4", "k5"))
+            ("k6", "k4", "k5"))
     (g1, hot1, c1), (g2, hot2, c2) = results.values()
     _check("pipeline", int(c1) == int(c2) == N_SECONDARY, "counts")
     _check("pipeline", bench_pipeline.plans_agree(g1, g2)
@@ -2342,7 +2319,7 @@ def phase_query(torch, device, launches):
     log(f"[query] Zipf keys reachable from float32 uniforms: {reach:,}; "
         f"expected distinct keys of an exact Zipf({SKEW}) in "
         f"{N_SECONDARY:,} draws: {exact:,.1f}")
-    del results, g2, hot2, want, rel
+    del results, g1, hot1, g2, hot2, want, rel
 
     table = make_table(b_keys, torch.arange(N_SECONDARY, dtype=torch.int32,
                                             device=device))
@@ -2354,60 +2331,15 @@ def phase_query(torch, device, launches):
     staged, n_staged = run(
         "filter_sort_aggregate_staged",
         lambda: aggregate.filter_sort_aggregate_staged(
-            table, even, group_capacity=GROUP_CAPACITY), ("k5",))
+            table, even, group_capacity=GROUP_CAPACITY), ("k5", "k6"))
     fused, n_fused = run(
         "filter_sort_aggregate",
         lambda: aggregate.filter_sort_aggregate(
-            table, even, group_capacity=GROUP_CAPACITY), ("k5",))
+            table, even, group_capacity=GROUP_CAPACITY), ("k5", "k6"))
     _check("staged filter", int(n_staged) == int(n_fused) == N_SECONDARY // 2
            and bench_pipeline.plans_agree(staged, fused), "staged != fused")
     log(f"[query] staged filter aggregate == fused: {int(staged.num_groups):,}"
         f" groups of {int(n_staged):,} rows: ok")
-    return g1, hot1
-
-
-def phase_sorter(torch, device, launches, xla_groups, xla_hot):
-    """Phase 7: the main paths with the sorter switch on "pallas" (K6, the
-    radix sort); adds each path's launches."""
-    from partitionedhashjoin_tpu_torch import bench_pipeline
-    from partitionedhashjoin_tpu_torch.ops import merge_join
-
-    run = functools.partial(_run_path, torch, "sorter", launches)
-
-    a_keys, a_pay, b_keys, b_pay = _query_relations(torch, device)
-    with _sorter("xla"):
-        want = merge_join.two_run_materialize(a_keys, a_pay, b_keys, b_pay)
-    with _sorter("pallas"):
-        phase_main(torch, launches, SORTER_RUNS, "sorter", ("k6",))
-        got = run("two_run_materialize (all match)",
-                  lambda: merge_join.two_run_materialize(a_keys, a_pay, b_keys, b_pay),
-                  ("k6", "k4"))
-        _check("sorter materialize", int(got[3]) == int(want[3]) == N_SECONDARY,
-               f"count {int(got[3])}")
-        _check("sorter materialize", torch.equal(got[0], want[0])
-               and torch.equal(got[1], want[1]), "keys or pay_a")
-        _check("sorter materialize", int(got[2].sum(dtype=torch.int64))
-               == int(want[2].sum(dtype=torch.int64)), "pay_b sum")
-        del got, want
-        log("[sorter] two_run_materialize == the library sort's on keys, pay_a "
-            "and the pay_b sum: ok")
-        rel = (a_keys, a_pay, b_keys, b_pay)
-        oracle = _group_oracle(torch, b_keys, b_pay)
-        for plan, ordered in (("ordered", True), ("naive", False)):
-            g, hot, count = run(
-                f"pipeline {plan} plan",
-                lambda: bench_pipeline.run_query(*rel, GROUP_CAPACITY, ordered),
-                ("k6", "k4", "k5"))
-            groups = oracle["keys"].shape[0]
-            _check(f"sorter {plan}", int(count) == N_SECONDARY
-                   and bench_pipeline.plans_agree(g, xla_groups)
-                   and torch.equal(hot.keys, xla_hot.keys), "differs from xla")
-            for f, w in oracle.items():
-                _check(f"sorter {plan}", torch.equal(getattr(g, f)[:groups], w),
-                       f"oracle {f}")
-            log(f"[sorter] pipeline {plan} plan: {groups:,} groups, == the "
-                "library sort's plans and the oracle: ok")
-            del g, hot
 
 
 def phase_generate(torch, device, launches):
@@ -2497,10 +2429,9 @@ def phase_alias(torch, device, launches, card_line):
 
 def phase_multi_key(torch, launches, a, b, card_line):
     """Phase 10: composite-key counts at 10M ⋈ 200M — the keys of phase 9
-    split into 2 columns (K3 on the packed pair; K6 too under "pallas")
-    and 3 columns (the lexicographic sort-merge path), each equal to the
-    native host join count of the unsplit keys, under both sorter
-    settings."""
+    split into 2 columns (K6 and K3 on the packed pair) and 3 columns (the
+    lexicographic sort-merge path), each equal to the native host join
+    count of the unsplit keys."""
     from partitionedhashjoin_tpu_torch.data import host_loader
     from partitionedhashjoin_tpu_torch.ops import multi_key
 
@@ -2514,23 +2445,17 @@ def phase_multi_key(torch, launches, a, b, card_line):
         3: lambda k: (k >> 20, (k >> 10) & 1023, k & 1023),
     }
     run = functools.partial(_run_path, torch, "multi-key", launches)
-    for impl in ("xla", "pallas"):
-        with _sorter(impl):
-            for k, split in splits.items():
-                kernels = {2: ("k3",), 3: ()}[k]
-                if impl == "pallas" and k == 2:
-                    kernels += ("k6",)
-                cols_a, cols_b = split(a), split(b)
-                got = run(f"multi_key_count k={k} under {impl!r}",
-                          lambda: multi_key.multi_key_count(cols_a, cols_b),
-                          kernels)
-                _check(f"multi-key k={k} {impl}", int(got) == want, f"{int(got)}")
-                dev_ms = _time_ms(torch, lambda: multi_key.multi_key_count(
-                    cols_a, cols_b), reps=3)
-                log(f"[time multi-key] {card_line}: k={k} under {impl!r}, "
-                    f"{_shape()}: {int(got):,} == host_join_count; "
-                    f"{dev_ms:.4f} ms (CUDA events, warm)")
-                del cols_a, cols_b
+    for k, split in splits.items():
+        cols_a, cols_b = split(a), split(b)
+        got = run(f"multi_key_count k={k}",
+                  lambda: multi_key.multi_key_count(cols_a, cols_b),
+                  {2: ("k6", "k3"), 3: ()}[k])
+        _check(f"multi-key k={k}", int(got) == want, f"{int(got)}")
+        dev_ms = _time_ms(torch, lambda: multi_key.multi_key_count(
+            cols_a, cols_b), reps=3)
+        log(f"[time multi-key] {card_line}: k={k}, {_shape()}: {int(got):,} "
+            f"== host_join_count; {dev_ms:.4f} ms (CUDA events, warm)")
+        del cols_a, cols_b
     # the k >= 3 path spreads each run's start prefix with a cumsum and two
     # gathers, where the JAX function takes a cummax
     n = N_PRIMARY + N_SECONDARY
@@ -2558,8 +2483,7 @@ def phase_bench(torch, launches, card_line):
 
     torch.cuda.empty_cache()
     env = dict(os.environ, PHJ_BENCH_PRIMARY=str(N_PRIMARY),
-               PHJ_BENCH_SECONDARY=str(N_SECONDARY), PHJ_BENCH_SKEW=str(SKEW),
-               PHJ_SORT_IMPL="xla")
+               PHJ_BENCH_SECONDARY=str(N_SECONDARY), PHJ_BENCH_SKEW=str(SKEW))
     env.pop("PHJ_BENCH_ALGOS", None)
     t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, "-m", f"{PKG}.bench"], env=env,
@@ -2709,7 +2633,7 @@ def phase_sql(torch, device, launches, card_line):
         f"both subprocesses {wall_s:.3f} s wall (startup, generation, count)")
     log("[sql shell] --explain:\n" + plan_out.rstrip())
 
-    # (b)-(f) share the pipeline's relations (scripts/bench_pipeline.py)
+    # (b)-(e) share the pipeline's relations (scripts/bench_pipeline.py)
     a_keys, a_pay, b_keys, b_pay = _query_relations(torch, device)
     db = {"a": make_table(a_keys, a_pay), "b": make_table(b_keys, b_pay)}
     kw = dict(group_capacity=GROUP_CAPACITY)
@@ -2726,7 +2650,7 @@ def phase_sql(torch, device, launches, card_line):
     plan = explain_sql(sql_b, db, **kw)
     _check("sql (b) explain", "R3" in plan and "R4" in plan, plan)
     b_ms = _host_ms(torch, lambda: execute_sql(sql_b, db, **kw))
-    rb = run("(b) " + sql_b, lambda: execute_sql(sql_b, db, **kw), ("k4", "k5"))
+    rb = run("(b) " + sql_b, lambda: execute_sql(sql_b, db, **kw), ("k6", "k4", "k5"))
     _check_sql_rows("sql (b)", rb, want)
     log(f"[time sql] {card_line}: (b) {b_ms:.3f} ms host clock (warm); 10 rows == "
         f"bench_pipeline.run_query's ordered plan == the bincount / scatter_add "
@@ -2786,16 +2710,6 @@ def phase_sql(torch, device, launches, card_line):
         f"INT32_MIN // -1 over {1 << 20:,} card rows: bit-equal to the CPU port")
     del k, p
 
-    # (f) (b) under the sorter switch's "xla": the library sort, equal to
-    # (b)'s run under the default (K6 on the card)
-    with _sorter("xla"):
-        f_ms = _host_ms(torch, lambda: execute_sql(sql_b, db, **kw))
-        rf = run("(f) " + sql_b + " under 'xla'", lambda: execute_sql(sql_b, db, **kw),
-                 ("k4", "k5"))
-    _check("sql (f)", all(np.array_equal(rf.columns[c], rb.columns[c]) for c in rb.columns),
-           "differs from the default's run")
-    log(f"[time sql] {card_line}: (f) {f_ms:.3f} ms host clock (warm) under "
-        "'xla'; == the default's run (K6)")
     return a_keys, a_pay, b_keys, b_pay
 
 
@@ -3006,7 +2920,7 @@ def _phase_hash_bench(torch, launches, card_line):
     torch.cuda.empty_cache()
     env = dict(os.environ, PHJ_BENCH_PRIMARY=str(N_PRIMARY),
                PHJ_BENCH_SECONDARY=str(N_SECONDARY), PHJ_BENCH_SKEW=str(SKEW),
-               PHJ_BENCH_ALGOS="radix-chained", PHJ_SORT_IMPL="xla")
+               PHJ_BENCH_ALGOS="radix-chained")
     t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, "-m", f"{PKG}.bench"], env=env,
                           capture_output=True, text=True, timeout=600)
@@ -3096,7 +3010,7 @@ def phase_shuffle(torch, device, launches, card_line):
     # (a) the CLI at each shard count
     for s in SHUFFLE_SHARDS:
         run = (["--join", "shuffle", "--shards", str(s)],
-               {"Type": "DistributedShuffle", "NumberOfShards": str(s)}, "k1")
+               {"Type": "DistributedShuffle", "NumberOfShards": str(s)}, ("k1",))
         phase_main(torch, launches, (run,), "shuffle", () if s == 1 else ("k7",))
 
     # the library on the CLI's relations (same flags, same seed)
@@ -3647,7 +3561,7 @@ def phase_multiprocess_ops(torch, launches, card_line, digests):
 #: The knobs of the script entries, unset so that phase 17 runs each at its
 #: defaults.
 SCRIPT_ENV = ("PHJ_BENCH_PRIMARY", "PHJ_BENCH_SECONDARY", "PHJ_BENCH_SKEW",
-              "PHJ_BENCH_FUSED_ONLY", "PHJ_SORT_IMPL", "PHJ_AB_PRIMARY",
+              "PHJ_BENCH_FUSED_ONLY", "PHJ_AB_PRIMARY",
               "PHJ_AB_SECONDARY", "PHJ_AB_SKEW", "PHJ_AB_IMPLS")
 #: record_results' algos and its figure.dat columns at the default partitions
 GRID_ALGOS = ["sort-merge", "no-partitioning", "radix", "shuffle",
@@ -3787,10 +3701,6 @@ def phase_scripts(torch, launches, card_line):
         line = [x for x in err.splitlines() if x.startswith(f"{impl:7s}:")]
         _check("scripts bench_sorter_ab", len(line) == 1
                and f"count={N_SECONDARY} " in line[0], f"{impl}: {line}")
-    from partitionedhashjoin_tpu_torch.ops import merge_join
-
-    _check("scripts bench_sorter_ab", merge_join.get_sort_impl() == "auto",
-           merge_join.get_sort_impl())
 
     for k in ("k1", "k3", "k4", "k5", "k6", "k7"):
         _check("scripts", seen[k] > 0, f"{k} was never launched by the entries")
@@ -3822,10 +3732,7 @@ def main() -> int:
                               "k6", "k7", "k7i64", "k8", "chained"), 0)
     phase_library(torch, device, launches)
     phase_main(torch, launches)
-    with _sorter("xla"):  # phase 7 holds K6 to these
-        xla_groups, xla_hot = phase_query(torch, device, launches)
-    phase_sorter(torch, device, launches, xla_groups, xla_hot)
-    del xla_groups, xla_hot
+    phase_query(torch, device, launches)
     phase_generate(torch, device, launches)
     a, b = phase_alias(torch, device, launches, card)
     phase_multi_key(torch, launches, a, b, card)

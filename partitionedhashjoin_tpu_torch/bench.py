@@ -32,8 +32,8 @@ Run from the repository root:
 Env knobs: PHJ_BENCH_PRIMARY, PHJ_BENCH_SECONDARY, PHJ_BENCH_SKEW,
 PHJ_BENCH_ALGOS (comma list of sort-merge, radix, radix-chained,
 no-partitioning, planned; default sort-merge,radix), PHJ_BENCH_DEADLINE_S (the watchdog's deadline,
-default 2400) and PHJ_SORT_IMPL (the sorter switch,
-``merge_join.set_sort_impl_from_env``).  The probe keys come from the
+default 2400).  ``sort_impl`` is ``merge_join.SORT_IMPL``: every key sort
+is K6's.  The probe keys come from the
 rejection sampler ``zipf_keys`` on the device, from a ``torch.Generator``
 seeded 20260816.  Phase times and the kernel launches of each measured run
 go to stderr; stdout carries only the JSON line.
@@ -243,9 +243,6 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     sync(device)
     log(f"generate (rejection sampler): {time.perf_counter() - t0:.3f} s")
 
-    sort_impl = merge_join.set_sort_impl_from_env()
-    log(f"sort impl: {sort_impl}")
-
     best = None
     roofline_json = {}
     for algo in algos:
@@ -285,7 +282,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             "n_b": n_b,
             "skew": skew,
             "generation_path": "rejection",
-            "sort_impl": sort_impl,
+            "sort_impl": merge_join.SORT_IMPL,
             "roofline_fraction_single_touch": dict(roofline_json),
             "device": kind,
         }

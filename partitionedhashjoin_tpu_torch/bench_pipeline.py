@@ -28,10 +28,8 @@ after a warmup, closed by a barrier), and the device it ran on.
 Relations, as in the JAX script: build keys 1..N_A with payload
 ``key ^ 0x5A17``, probe keys Zipf(``SKEW``) over [1, N_A] (seed
 ``SEED``), probe payloads uniform in [0, 2^20) from a generator seeded with
-``PAYLOAD_SEED``; the GROUP BY capacity is ``GROUP_CAPACITY``.  The sorter
-switch follows ``PHJ_SORT_IMPL`` (``merge_join.set_sort_impl_from_env``, as
-the JAX package's benches do): ``PHJ_SORT_IMPL=pallas`` runs the query's
-sorts through K6.
+``PAYLOAD_SEED``; the GROUP BY capacity is ``GROUP_CAPACITY``.  The query's
+sorts run through K6 (``sort_impl`` is ``merge_join.SORT_IMPL``).
 """
 
 from __future__ import annotations
@@ -140,12 +138,10 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv: Optional[Sequence[str]] = None) -> int:
     args = build_parser().parse_args(argv)
     device = resolve_device(args.platform)
-    sort_impl = merge_join.set_sort_impl_from_env()
     n_a, n_b, skew = args.primary, args.secondary, SKEW
     kind = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else "cpu")
-    log(f"device: {kind}; query over {n_a} ⋈ {n_b}, skew {skew}; sort impl "
-        f"{sort_impl}")
+    log(f"device: {kind}; query over {n_a} ⋈ {n_b}, skew {skew}")
     t0 = time.perf_counter()
     rel = make_relations(n_a, n_b, device)
     sync(device)
@@ -212,7 +208,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         "ordered_ms": round(best * 1e3),
         "query_layer_ms": round(query_s * 1e3),
         "sql_ms": round(sql_s * 1e3),
-        "sort_impl": sort_impl,
+        "sort_impl": merge_join.SORT_IMPL,
         "device": kind,
     }))
     return 0

@@ -19,10 +19,10 @@ else falls out of prefix sums:
 
   pass 1   one sort on (key, payload), valid rows first (skipped by
            ``aggregate_sorted``, whose input is already in key order):
-           the packed (key, payload) library sort, or under the sorter
-           switch's "pallas" (``_pass1_sort_choice``) K6 on the JAX
-           package's tuple (invalid flag, key, payload[, row]), the flag
-           left out when there is no validity mask
+           for int32 keys and payloads K6 on the JAX package's tuple
+           (invalid flag, key, payload[, row]), the flag left out when
+           there is no validity mask; for wider columns the packed (key,
+           payload) library sort
   pass 2   the run-start rows compacted to the front, carrying key, MIN
            (the payload at the start), the exclusive payload cumsum and the
            previous row's payload (the MAX of the group before) — through
@@ -52,7 +52,6 @@ import torch
 from partitionedhashjoin_tpu_torch.data.table import Table
 from partitionedhashjoin_tpu_torch.ops import filter as filter_ops
 from partitionedhashjoin_tpu_torch.ops import hash_table as ht
-from partitionedhashjoin_tpu_torch.ops import merge_join
 from partitionedhashjoin_tpu_torch.ops.sort import sort_by_key_payload
 from partitionedhashjoin_tpu_torch.ops.kernels import bitonic_sort
 from partitionedhashjoin_tpu_torch.ops.kernels import compact as kcompact
@@ -242,14 +241,13 @@ def _sort_group_and_aggregate(
     kernel_compaction: bool = False,
     with_distinct: bool = False,
     presorted: bool = False,
-    sort_impl: str = "xla",
 ) -> GroupByResult:
     """GROUP BY over one (valid, key, payload) order; see the module note.
 
     ``presorted``: the caller asserts the rows are already in that order
     (valid rows a prefix, keys ascending in it, payloads ascending within
-    each key run), so pass 1 is skipped.  ``sort_impl`` "pallas" (int32
-    keys and payloads) runs pass 1 through K6."""
+    each key run), so pass 1 is skipped.  Otherwise pass 1 runs through K6
+    when keys and payloads are int32, through the library sort when not."""
     n = keys.shape[0]
     device = keys.device
     pdt = payloads.dtype
@@ -260,7 +258,7 @@ def _sort_group_and_aggregate(
     if presorted:
         key_s, pay_s, row_s = keys, payloads, rank
         valid_s = valid
-    elif sort_impl == "pallas":
+    elif keys.dtype == torch.int32 and pdt == torch.int32:
         # full-lex tuple order == (invalid, key, payload) order; the row
         # operand only orders bit-identical (key, payload) rows, which
         # share a group.  With no mask the invalid flag is left out: each
@@ -419,16 +417,6 @@ def _kernel_compaction_choice(table: Table, compaction: str) -> bool:
     return int32 and table.keys.device.type == "cuda"
 
 
-def _pass1_sort_choice(table: Table) -> str:
-    """Pass-1 sort: "pallas" (K6) where the sorter switch resolves to it
-    for the table's device and keys and payloads are int32, else "xla" (the
-    library sort)."""
-    impl = merge_join.resolve_sort_impl(merge_join.get_sort_impl(),
-                                        table.keys.device)
-    int32 = table.keys.dtype == torch.int32 and table.payloads.dtype == torch.int32
-    return "pallas" if impl == "pallas" and int32 else "xla"
-
-
 def _capacity(table: Table, group_capacity: Optional[int]) -> int:
     return table.size if group_capacity is None else min(group_capacity, table.size)
 
@@ -516,7 +504,6 @@ def sort_aggregate(
         with_group_of_row=with_group_of_row,
         kernel_compaction=_kernel_compaction_choice(table, compaction),
         with_distinct=with_distinct,
-        sort_impl=_pass1_sort_choice(table),
     )
 
 
@@ -536,7 +523,7 @@ def filter_sort_aggregate(
         table.keys, table.payloads, _capacity(table, group_capacity),
         valid=mask, with_group_of_row=with_group_of_row,
         kernel_compaction=_kernel_compaction_choice(table, compaction),
-        with_distinct=with_distinct, sort_impl=_pass1_sort_choice(table),
+        with_distinct=with_distinct,
     )
     return g, mask.sum()
 
@@ -551,12 +538,11 @@ def _staged_filter(keys, payloads, mask):
 
 
 def _staged_pass2(total, keys_c, pay_c, n_orig, group_capacity,
-                  kernel_compaction, with_distinct=False, sort_impl="xla"):
+                  kernel_compaction, with_distinct=False):
     """Dispatch 2: aggregate exactly the ``total`` compacted rows."""
     g = _sort_group_and_aggregate(
         keys_c[:total], pay_c[:total], group_capacity,
         kernel_compaction=kernel_compaction, with_distinct=with_distinct,
-        sort_impl=sort_impl,
     )
     # group_of_row keeps its [n_orig] shape, all -1 (not tracked here)
     g.group_of_row = torch.full((n_orig,), -1, dtype=torch.int32,
@@ -591,6 +577,6 @@ def filter_sort_aggregate_staged(
         int(count), keys_c, pay_c, table.size,
         _capacity(table, group_capacity),
         kernel_compaction=_kernel_compaction_choice(table, compaction),
-        with_distinct=with_distinct, sort_impl=_pass1_sort_choice(table),
+        with_distinct=with_distinct,
     )
     return g, count

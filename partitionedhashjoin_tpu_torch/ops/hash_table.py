@@ -16,11 +16,11 @@ the same names and the same results bit for bit:
   Slot occupancy lives in ``slot_rows`` (-1 = empty), so keys may take any
   int32 value.
 - **Chained** (``build_chained``, ``probe_chained_*``): one stable sort by
-  bucket; rows sorted by bucket are the chains, ``offsets`` delimit them, and
-  a probe compares a window of ``PROBE_WINDOW`` chain entries per pass.  The
-  count probe of a CUDA tensor instead walks each row's chain in one
-  hand-written kernel (``kernels/chained_probe``), which has no JAX
-  counterpart.
+  bucket; rows sorted by bucket are the chains, and ``offsets`` delimit
+  them.  The count probe walks each row's chain in one hand-written kernel
+  (``kernels/chained_probe``, its plain version on a CPU tensor), which has
+  no JAX counterpart; the other probes compare a window of
+  ``PROBE_WINDOW`` chain entries per pass.
   It takes int32 and int64 keys (``_chained_keys``); the other tables take
   int32 keys only (``_as_i32_keys``).
 - **Dedup** (``build_dedup_hash_table``): the claim loop where a row that
@@ -469,53 +469,17 @@ def _probe_chained_count_chunk(table: ChainedHashTable, keys, bucket=None,
     """Count-only probe (0-dim int64); rows with index < ``skip`` are not
     counted (the overlapping last window of a chunked probe).  ``bucket``
     overrides the hash-derived bucket (the radix join's partition-segmented
-    bucket map).  A CUDA tensor takes the hand-written chain walk
-    (``kernels/chained_probe.chained_count``): K7's hashes, or ``bucket``
-    under an all-ones mask, and one launch; a CPU tensor the window scan
-    (``_windowed_count``)."""
+    bucket map).  One call of ``kernels/chained_probe.chained_count``: K7's
+    hashes under the table's mask, or ``bucket`` under an all-ones mask."""
     keys = _chained_keys(keys)
-    if keys.device.type == "cuda":
-        if bucket is None:
-            hashes = hash_bits(_probe_keys(table, keys)[1], table.seed)
-            mask = table.num_buckets - 1
-        else:
-            hashes, mask = bucket.contiguous(), _MASK
-        return kchained.chained_count(keys.contiguous(), hashes, mask,
-                                      table.offsets, table.entry_keys,
-                                      int(skip or 0))
-    return _windowed_count(table, keys, bucket, skip)
-
-
-def _windowed_count(table: ChainedHashTable, keys, bucket=None,
-                    skip=None) -> torch.Tensor:
-    """The window scan of a count, tail-compacted: one first-window pass
-    over every row, then the rows still active (longer chains, no match
-    yet) go to a tail of at most ``max(128, n // 8)`` rows that the window
-    loop walks.  If more rows are active, the full window loop over all rows
-    counts instead; the count is exact either way."""
-    keys, hashed = _probe_keys(table, keys)
-    n = keys.shape[0]
-    padded = _padded_entries(table)
-    start, end = _chain_bounds(table, hashed, bucket)
-    counted = (None if skip is None
-               else torch.arange(n, device=keys.device) >= int(skip))
-    found1 = _any(_window(padded, keys, start, end - start))
-    if counted is not None:
-        found1 &= counted
-    count1 = found1.sum()
-    pos2 = start + PROBE_WINDOW
-    active = ~found1 & (pos2 < end)
-    if counted is not None:
-        active &= counted
-    tail = torch.nonzero(active).squeeze(1)
-    if tail.numel() <= max(128, n // 8):
-        found, _ = _scan_chains(table, padded, keys[tail], pos2[tail],
-                                end[tail], need_rows=False)
-        return count1 + found.sum()
-    found, _ = _probe_chained_block(table, keys, bucket=bucket, need_rows=False)
-    if counted is not None:
-        found &= counted
-    return found.sum()
+    if bucket is None:
+        hashes = hash_bits(_probe_keys(table, keys)[1], table.seed)
+        mask = table.num_buckets - 1
+    else:
+        hashes, mask = bucket.contiguous(), _MASK
+    return kchained.chained_count(keys.contiguous(), hashes, mask,
+                                  table.offsets, table.entry_keys,
+                                  int(skip or 0))
 
 
 def probe_chained_count(table: ChainedHashTable, keys: torch.Tensor,

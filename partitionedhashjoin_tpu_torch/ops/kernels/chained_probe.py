@@ -2,8 +2,9 @@
 
 A kernel of the port's own, with no TPU counterpart: the JAX package's
 chained probe (``partitionedhashjoin_tpu/ops/hash_table.py``,
-``_probe_chained_count_chunk``) is ``jnp`` window gathers, which
-``ops/hash_table.py`` keeps for CPU tensors.  ``chained_count`` counts the
+``_probe_chained_count_chunk``) is ``jnp`` window gathers; the port's
+count probe (``ops/hash_table.py``) calls ``chained_count`` on every
+device.  ``chained_count`` counts the
 probe rows ``i >= skip`` whose key is among the entries
 ``entry_keys[offsets[b], offsets[b + 1])`` of their bucket
 ``b = hashes[i] & mask`` (the Get semantics of

@@ -3,32 +3,22 @@ merge-probe kernel.
 
 Counterpart of ``partitionedhashjoin_tpu/ops/merge_join.py``:
 
-    order:  one unstable 1-key sort per relation, chosen by the sorter
-            switch below: the library ``torch.sort`` (the JAX package's
-            ``jax.lax.sort``) or K6, the radix sort, for int32 and int64
-            keys
+    order:  one 1-key sort per relation, ``key_sort``: K6, the radix sort
+            (``ops/kernels/bitonic_sort.py``), for int32 and int64 keys, the
+            library ``torch.sort`` for other dtypes
     probe:  ``ops/kernels/merge_probe.py`` — K1 for int32 keys, K3 for
-            int64 keys: the CUDA kernel on the card, its plain PyTorch
-            version on the CPU
+            int64 keys
 
-The sorter switch (``set_sort_impl`` / ``PHJ_SORT_IMPL``) is engine-wide,
-as in the JAX package, and keeps its values:
-
-    "xla"     the library sort, ``torch.sort``
-    "pallas"  K6, ``ops/kernels/bitonic_sort`` (the port of the JAX
-              package's Pallas sorter): its CUDA kernels on a CUDA tensor,
-              its plain version on a CPU tensor
-    "auto"    K6 on a CUDA tensor, the library sort on a CPU tensor (the
-              default; the JAX package's stays "xla")
-
-It reaches five call sites: ``key_sort`` (int32 keys through ``sort_i32``,
-int64 keys through ``sort_i64``; so ``two_run_count``,
-``two_run_count_i64``, ``PreparedBuild`` of either width and, through them,
-the no-partitioning, sort-merge and radix joiners), ``two_run_materialize``'s
-two (key, payload) sorts and GROUP BY pass 1 (``ops/aggregate.py``).  K6
-sorts an int64 key natively, 8-bit digits of the biased key, skipping every
-digit that is the same in every row; the JAX package keeps the library sort
-for an int64 ``PreparedBuild``.
+Each kernel module launches its CUDA kernel on a CUDA tensor and runs its
+plain PyTorch version on a CPU tensor, so the card and the CPU sort the same
+way and give the same answers.  K6 reaches three call sites: ``key_sort``
+(so ``two_run_count``, ``two_run_count_i64``, ``PreparedBuild`` of either
+width and, through them, the no-partitioning, sort-merge and radix
+joiners), ``two_run_materialize``'s two (key, payload) sorts and GROUP BY
+pass 1 (``ops/aggregate.py``).  K6 sorts an int64 key natively, 8-bit digits
+of the biased key, skipping every digit that is the same in every row.  The
+JAX package's sorter is a switch whose default is its library sort; the
+port has no switch.
 
 Validity masks are supported exactly, by the JAX package's protocol:
 invalid rows are rewritten to INT32_MAX before the sort, the probe searches
@@ -52,56 +42,21 @@ matching build row, and the stream-compaction kernel K5
 
 from __future__ import annotations
 
-import os
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
-from partitionedhashjoin_tpu_torch.ops import sort as sort_ops
 from partitionedhashjoin_tpu_torch.ops.kernels import bitonic_sort
 from partitionedhashjoin_tpu_torch.ops.kernels import compact as kcompact
 from partitionedhashjoin_tpu_torch.ops.kernels import merge_payload, merge_probe
 
 _I32_MAX = merge_probe.INT32_MAX
 _WIDE = (torch.int64, torch.uint64)
-_SORT_IMPLS = ("xla", "pallas", "auto")
 
-# Module-level because it is an engine-wide tuning fact, not a per-call
-# choice (as in the JAX package).
-_DEFAULT_SORT_IMPL = "auto"
-_SORT_IMPL = _DEFAULT_SORT_IMPL
-
-
-def set_sort_impl(impl: str) -> None:
-    """Select the sorter of every switch call site (see the module note)."""
-    global _SORT_IMPL
-    if impl not in _SORT_IMPLS:
-        raise ValueError(f"unknown sort impl {impl!r}")
-    _SORT_IMPL = impl
-
-
-def get_sort_impl() -> str:
-    return _SORT_IMPL
-
-
-def resolve_sort_impl(impl: str, device) -> str:
-    """Collapse "auto" to a concrete impl for tensors on ``device``."""
-    if impl == "auto":
-        return "pallas" if torch.device(device).type == "cuda" else "xla"
-    return impl
-
-
-def set_sort_impl_from_env() -> str:
-    """Apply the ``PHJ_SORT_IMPL`` environment variable (the benches' knob;
-    unset means the default, "auto"); returns the active impl."""
-    set_sort_impl(os.environ.get("PHJ_SORT_IMPL", _DEFAULT_SORT_IMPL))
-    return _SORT_IMPL
-
-
-def _use_k6(t: torch.Tensor) -> bool:
-    """The switch resolves to K6 for tensors like ``t``."""
-    return resolve_sort_impl(_SORT_IMPL, t.device) == "pallas"
+#: The JAX package's name for the sorter that K6 ports; the benches' JSON
+#: lines carry it as their ``sort_impl``, the JAX benches' key.
+SORT_IMPL = "pallas"
 
 
 def _as_i32(name: str, keys: torch.Tensor) -> torch.Tensor:
@@ -122,14 +77,12 @@ def _as_i64(name: str, keys: torch.Tensor) -> torch.Tensor:
 
 
 def key_sort(keys: torch.Tensor) -> torch.Tensor:
-    """Ascending 1-key sort: int32 and int64 keys through the sorter switch
-    (K6's ``sort_i32`` / ``sort_i64`` where it resolves to K6), other dtypes
-    through the library sort (unstable either way)."""
-    if _use_k6(keys):
-        if keys.dtype == torch.int32:
-            return bitonic_sort.sort_i32(keys.contiguous())
-        if keys.dtype == torch.int64:
-            return bitonic_sort.sort_i64(keys.contiguous())
+    """Ascending 1-key sort: int32 keys through K6's ``sort_i32``, int64
+    keys through its ``sort_i64``, other dtypes through the library sort."""
+    if keys.dtype == torch.int32:
+        return bitonic_sort.sort_i32(keys.contiguous())
+    if keys.dtype == torch.int64:
+        return bitonic_sort.sort_i64(keys.contiguous())
     return torch.sort(keys, stable=False).values
 
 
@@ -161,7 +114,7 @@ def two_run_count_i64(
 ) -> torch.Tensor:
     """Get-semantics match count for int64 keys (the reference's Tuple::id
     width, src/Common/Table.hpp:20-25): one unstable sort per relation
-    (``key_sort``: K6's native int64 key or the library sort), then K3 over
+    (``key_sort``: K6's native int64 key), then K3 over
     the full int64 domain.  No validity masks."""
     build_keys = _as_i64("build_keys", build_keys)
     probe_keys = _as_i64("probe_keys", probe_keys)
@@ -224,8 +177,8 @@ class PreparedBuild:
 
     int32 keys also hold the INT32_MAX flag ``max_in_a`` and take validity
     masks.  int64 keys keep only the sorted run (``max_in_a`` is None), are
-    sorted by ``key_sort`` (K6 under the sorter switch, where the JAX
-    package keeps the library sort), probed by K3 and raise ``TypeError`` on
+    sorted by ``key_sort`` (K6, where the JAX package keeps the library
+    sort), probed by K3 and raise ``TypeError`` on
     validity masks, as in the JAX package.
     """
 
@@ -303,17 +256,15 @@ def two_run_materialize(
 
     Returns ``(keys, pay_a, pay_b, count)``: the matching probe rows in
     sorted-key order, compacted to the front with a zero tail, and their
-    number as a 0-dim int64 tensor.  Under the library sort ("xla") the
-    build side is sorted stably, so among duplicate build keys the EARLIEST
-    build row wins (the JAX package sorts it unstably: there the winner
-    depends on tie order).  Under K6 ("pallas") both sides are sorted as
-    (key, payload) tuples, as in the JAX package, so the SMALLEST payload
-    wins and the probe rows come out in (key, payload) order.  The
-    compaction is skipped when every probe row matches (the count's
-    readback decides); otherwise K5 compacts the matching rows.
+    number as a 0-dim int64 tensor.  Both sides are sorted as (key,
+    payload) tuples by K6's ``sort_i32_tuple``, as in the JAX package's
+    "pallas" branch, so among duplicate build keys the SMALLEST payload wins
+    and the probe rows come out in (key, payload) order.  The compaction is
+    skipped when every probe row matches (the count's readback decides);
+    otherwise K5 compacts the matching rows.
 
-    ``probe_payload_sorted=True`` makes the probe payload a second sort key,
-    so ``pay_b`` ascends within each key run — the order
+    ``probe_payload_sorted`` is accepted for the JAX package's signature:
+    the tuple sort already orders ``pay_b`` within each key run, the order
     ``aggregate_sorted(payload_sorted=True)`` consumes.
     """
     for name, t in (
@@ -333,18 +284,10 @@ def two_run_materialize(
         return z, z.clone(), z.clone(), count
     a_keys, a_pay = build_keys.to(torch.int32), build_payloads.to(torch.int32)
     b_keys, b_pay = probe_keys.to(torch.int32), probe_payloads.to(torch.int32)
-    if _use_k6(a_keys):
-        a_keys, a_pay = bitonic_sort.sort_i32_tuple(
-            a_keys.contiguous(), a_pay.contiguous())
-        b_keys, b_pay = bitonic_sort.sort_i32_tuple(
-            b_keys.contiguous(), b_pay.contiguous())
-    else:
-        # stable: equal keys keep their row order
-        a_keys, a_pay = sort_ops.sort_by_key(a_keys, a_pay)
-        if probe_payload_sorted:
-            _, b_keys, b_pay = sort_ops.sort_by_key_payload(b_keys, b_pay)
-        else:
-            b_keys, b_pay = sort_ops.sort_by_key(b_keys, b_pay)
+    a_keys, a_pay = bitonic_sort.sort_i32_tuple(a_keys.contiguous(),
+                                                a_pay.contiguous())
+    b_keys, b_pay = bitonic_sort.sort_i32_tuple(b_keys.contiguous(),
+                                                b_pay.contiguous())
     pay_a, pos = merge_payload.ranged_merge_payload_prepared(a_keys, a_pay, b_keys)
     count = torch.count_nonzero(pos)
     if int(count) == n_b:  # all-match: no compaction needed

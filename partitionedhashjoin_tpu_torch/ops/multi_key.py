@@ -9,8 +9,8 @@ This module generalizes the count joins to k int32 key columns:
 * ``k == 2`` rides the int64 path, K3: each (c1, c2) maps one-to-one to the
   int64 ``(c1 << 32) | (uint32(c2) ^ 0x80000000)``, whose order is the
   lexicographic order of the pair, and ``merge_join.two_run_count_i64``
-  counts it (its sorts follow the sorter switch: the library sort, or K6's
-  native int64 key).  The JAX package feeds the two
+  counts it (its sorts are K6's, on the native int64 key).  The JAX
+  package feeds the two
   columns to its plane kernel as the (hi, lo) planes; the map is the same
   pairing, spelled as one int64.
 * ``k >= 3`` takes the generalized sort-merge path: the concatenated
@@ -18,8 +18,8 @@ This module generalizes the count joins to k int32 key columns:
   ``torch.sort`` passes (least significant column first; stability keeps
   build rows before equal-tuple probe rows, the JAX sort's tag operand),
   then the build multiplicity of each run, a run being delimited by "any
-  column differs from the previous row".  It reads no sorter switch, as in
-  the JAX package.
+  column differs from the previous row".  Its passes are library sorts, as
+  in the JAX package.
 
 Exactness: no column combination is hashed, and the k = 2 packing is a
 bijection, so nothing can collide.  64-bit columns are refused with a

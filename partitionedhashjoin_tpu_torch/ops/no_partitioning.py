@@ -16,9 +16,10 @@ reference.  Two layouts of the global structure
   exist for the TPU's watchdog and are not ported: the port probes in one
   call.
 - ``"chained"``: the literal hash table, ``ops/hash_table.py``'s chained
-  table.  Build = the hash (K7 on the card) and one stable sort by bucket;
-  probe = window gathers along each chain, in one call (no
-  ``probe_chunk_rows`` windows).  int32 and int64 keys: an int64 key keeps
+  table.  Build = the hash (K7) and one stable sort by bucket; probe = one
+  launch of ``chained_count_kernel`` (``ops/kernels/chained_probe.py``), one
+  thread per probe row walking its chain (no ``probe_chunk_rows``
+  windows).  int32 and int64 keys: an int64 key keeps
   its 8 bytes in the table and in every compare, and K7's int64 kernel
   hashes it (the JAX joiner's chained mode is 32-bit); a build and a probe
   of different widths compare at int64.

@@ -6,8 +6,7 @@ RadixHashJoiner`` and of the reference's src/RadixCluster/HashJoin.hpp:
 
 - ``"vmem"`` (and ``"auto"``, which is "vmem" on every device): range-radix
   clustering.  Partition phase: one sort per relation
-  (``merge_join.key_sort``: int32 and int64 keys through the sorter
-  switch, K6 on the card by default, else the library sort).  Sorting by key
+  (``merge_join.key_sort``: K6 for int32 and int64 keys).  Sorting by key
   IS range-radix clustering: every partition is a contiguous key range,
   laid out contiguously, which is what the reference's scatter produces per
   hash partition (:394-412).  ``number_of_partitions`` is advisory, as in
@@ -21,7 +20,9 @@ RadixHashJoiner`` and of the reference's src/RadixCluster/HashJoin.hpp:
   one stable sort each).  Build phase: every partition's chained table in
   one flat bucket space (partition p owns buckets ``[boff[p], boff[p] +
   bcnt[p])``, ``bcnt[p]`` ~ |A_p|), built by one stable sort.  Probe phase:
-  window gathers along each probe row's chain, in one call.  The partition
+  one launch of ``chained_count_kernel`` (``ops/kernels/chained_probe.py``),
+  one thread per probe row walking its chain, over the partition-segmented
+  bucket ids.  The partition
   and bucket hashes are decorrelated by seed (src/main.cpp:215-217, 267):
   both derive from one base seed through distinct mix constants.  int32
   keys only.
@@ -176,7 +177,7 @@ class RadixHashJoiner:
         dtype = _key_dtype(table_a.keys, table_b.keys)
 
         timer.set_partitioning_phase_begin()
-        # int32 and int64 keys through the sorter switch (K6 on the card)
+        # int32 and int64 keys through K6
         a_sorted = merge_join.key_sort(table_a.keys.to(dtype))
         b_sorted = merge_join.key_sort(table_b.keys.to(dtype))
         sync(a_sorted.device)

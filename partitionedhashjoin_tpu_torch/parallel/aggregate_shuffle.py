@@ -33,9 +33,9 @@ Where the port departs from the JAX module (the results are the same):
   one thread block).
 - The combiner (``_combine``) compacts a shard's valid rows with K5 first
   and aggregates only those, where JAX sorts every slot with a validity
-  flag.  Its pass-2 compaction runs K5 on the card and its sort follows the
-  sorter switch (K6 under "pallas"), as ``sort_aggregate`` does; JAX pins
-  its plain compaction and XLA's sort inside ``shard_map``.
+  flag.  Its pass-2 compaction runs K5 on the card and its sort is K6, as
+  ``sort_aggregate``'s is; JAX pins its plain compaction and XLA's sort
+  inside ``shard_map``.
   ``mesh.gather_prefixes`` compacts with K5 on the card (JAX: ``compact_sort``).
 - The shards share one device (``parallel/mesh.py``): the combiners and
   merges run in a loop over a process's shards, the routing once over its
@@ -60,7 +60,6 @@ from typing import Optional
 import torch
 
 from partitionedhashjoin_tpu_torch.data.table import Table
-from partitionedhashjoin_tpu_torch.ops import merge_join
 from partitionedhashjoin_tpu_torch.ops.aggregate import (
     GroupByResult,
     _sort_group_and_aggregate,
@@ -93,12 +92,10 @@ PARTIAL_SLOT_BYTES = 21
 
 
 def _combiner_options(device: torch.device) -> dict:
-    """The local aggregate's kernels, as ``sort_aggregate`` picks them for
-    int32 columns: K5 compacts on the card, and pass 1 sorts through K6
-    where the sorter switch resolves to "pallas"."""
-    impl = merge_join.resolve_sort_impl(merge_join.get_sort_impl(), device)
-    return {"kernel_compaction": device.type == "cuda",
-            "sort_impl": "pallas" if impl == "pallas" else "xla"}
+    """The local aggregate's pass-2 compaction, as ``sort_aggregate`` picks
+    it for int32 columns: K5 on the card.  Pass 1 sorts the int32 columns
+    through K6."""
+    return {"kernel_compaction": device.type == "cuda"}
 
 
 def _combine(keys, pays, valid, cap: int, opts: dict, with_distinct: bool = False):

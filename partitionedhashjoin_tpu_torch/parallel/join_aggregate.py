@@ -27,7 +27,7 @@ and retries, so results are exact.
 Semantics: inner join, aggregates over the PROBE payload (the query
 layer's ``carry="probe"``): each probe row whose key is among the build
 keys counts once, which is the single-device first-match materialize →
-GROUP BY.  The combiner runs K5 and follows the sorter switch as in
+GROUP BY.  The combiner runs K5 and K6 as in
 ``parallel/aggregate_shuffle.py``; ``last_run`` records each attempt.
 
 On a mesh over several processes every process passes its own rows of both

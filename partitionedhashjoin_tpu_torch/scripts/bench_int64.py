@@ -9,7 +9,7 @@ halves carry entropy and no int32 shortcut could answer.  ``vs_baseline``
 is against the C++ reference's best CPU figure, 200M rows in 1.196 s.
 
 Env: PHJ_BENCH_PRIMARY (10M), PHJ_BENCH_SECONDARY (200M), PHJ_BENCH_SKEW
-(1.05), PHJ_SORT_IMPL (the sorter switch).  Run from the repository root:
+(1.05).  Run from the repository root:
 
     python -m partitionedhashjoin_tpu_torch.scripts.bench_int64              # the card
     PHJ_BENCH_PRIMARY=5000 PHJ_BENCH_SECONDARY=70000 \\
@@ -28,7 +28,7 @@ from typing import Optional, Sequence
 import torch
 
 from partitionedhashjoin_tpu_torch.data.table import make_table
-from partitionedhashjoin_tpu_torch.ops import generators, merge_join
+from partitionedhashjoin_tpu_torch.ops import generators
 from partitionedhashjoin_tpu_torch.ops.sort_merge import SortMergeJoiner
 from partitionedhashjoin_tpu_torch.scripts._common import (
     BASELINE_ROWS_PER_S,
@@ -54,9 +54,6 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     args = add_platform(argparse.ArgumentParser(
         description=__doc__.splitlines()[0])).parse_args(argv)
     device, kind = open_device(args.platform)
-    impl = merge_join.set_sort_impl_from_env()
-    if impl != "xla":
-        log(f"sort impl: {impl}")
     n_a = int(os.environ.get("PHJ_BENCH_PRIMARY", 10_000_000))
     n_b = int(os.environ.get("PHJ_BENCH_SECONDARY", 200_000_000))
     skew = float(os.environ.get("PHJ_BENCH_SKEW", 1.05))

@@ -14,9 +14,9 @@ script's at-scale output oracles:
 
 Prints one JSON line (the JAX script's keys plus ``"device"``); the exit
 code is 1 when an oracle fails.  Env: PHJ_BENCH_PRIMARY (10M),
-PHJ_BENCH_SECONDARY (200M), PHJ_BENCH_SKEW (1.05), PHJ_SORT_IMPL.  The JAX
-script's PHJ_BENCH_INTERPRET has no counterpart: ``--platform cpu`` runs
-the kernels' plain versions.
+PHJ_BENCH_SECONDARY (200M), PHJ_BENCH_SKEW (1.05).  The JAX script's
+PHJ_BENCH_INTERPRET has no counterpart: ``--platform cpu`` runs the
+kernels' plain versions.
 
     python -m partitionedhashjoin_tpu_torch.scripts.bench_materialize
 """
@@ -32,7 +32,7 @@ from typing import Optional, Sequence
 
 import torch
 
-from partitionedhashjoin_tpu_torch.ops import generators, merge_join
+from partitionedhashjoin_tpu_torch.ops import generators
 from partitionedhashjoin_tpu_torch.ops.merge_join import two_run_materialize
 from partitionedhashjoin_tpu_torch.scripts._common import (
     add_platform,
@@ -64,9 +64,6 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     args = add_platform(argparse.ArgumentParser(
         description=__doc__.splitlines()[0])).parse_args(argv)
     device, kind = open_device(args.platform)
-    impl = merge_join.set_sort_impl_from_env()
-    if impl != "xla":
-        log(f"sort impl: {impl}")
     n_a = int(os.environ.get("PHJ_BENCH_PRIMARY", 10_000_000))
     n_b = int(os.environ.get("PHJ_BENCH_SECONDARY", 200_000_000))
     skew = float(os.environ.get("PHJ_BENCH_SKEW", 1.05))

@@ -13,8 +13,7 @@ line (the JAX script's keys, the winning pipeline among them, plus
 throughput, for scale only (the reference has no aggregate).
 
 Env: PHJ_BENCH_SECONDARY (rows, 200M), PHJ_BENCH_PRIMARY (key domain, 10M),
-PHJ_BENCH_SKEW (1.05), PHJ_BENCH_FUSED_ONLY=1 (skip "staged"),
-PHJ_SORT_IMPL.
+PHJ_BENCH_SKEW (1.05), PHJ_BENCH_FUSED_ONLY=1 (skip "staged").
 
     python -m partitionedhashjoin_tpu_torch.scripts.bench_operators
 """
@@ -31,7 +30,7 @@ from typing import Optional, Sequence
 import torch
 
 from partitionedhashjoin_tpu_torch.data.table import make_table
-from partitionedhashjoin_tpu_torch.ops import generators, merge_join
+from partitionedhashjoin_tpu_torch.ops import generators
 from partitionedhashjoin_tpu_torch.ops.aggregate import (
     filter_sort_aggregate,
     filter_sort_aggregate_staged,
@@ -60,9 +59,6 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     args = add_platform(argparse.ArgumentParser(
         description=__doc__.splitlines()[0])).parse_args(argv)
     device, kind = open_device(args.platform)
-    impl = merge_join.set_sort_impl_from_env()
-    if impl != "xla":
-        log(f"sort impl: {impl}")
     n = int(os.environ.get("PHJ_BENCH_SECONDARY", 200_000_000))
     domain = int(os.environ.get("PHJ_BENCH_PRIMARY", 10_000_000))
     skew = float(os.environ.get("PHJ_BENCH_SKEW", 1.05))

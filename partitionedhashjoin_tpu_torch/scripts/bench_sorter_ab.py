@@ -1,12 +1,12 @@
 """A/B of the two-run count join's sorter: the library sort against K6.
 
 Counterpart of ``scripts/bench_sorter_ab.py``.  Same device data, same
-count kernel (K1), one process; the only variable is
-``merge_join.set_sort_impl``: "xla" (``torch.sort``) against "pallas" (K6,
-the port's radix sort).  For each, ``two_run_count`` runs once (its time
-printed as the first call), then best of 3; the counts must agree.  The
-sorter is set back to what it was at the end, also on failure.  Output goes to
-stderr only, as in the JAX script.
+count kernel (K1), one process; the only variable is the sort of the two
+key runs: "xla" sorts them with ``torch.sort`` and counts them with
+``merge_join.sorted_runs_count``, "pallas" is ``merge_join.two_run_count``
+(K6, the port's radix sort, then K1).  For each, the count runs once (its
+time printed as the first call), then best of 3; the counts must agree.
+Output goes to stderr only, as in the JAX script.
 
 Env: PHJ_AB_PRIMARY (10M), PHJ_AB_SECONDARY (200M), PHJ_AB_SKEW (1.05),
 PHJ_AB_IMPLS (csv of xla,pallas; default both).  The JAX script's
@@ -24,6 +24,8 @@ import sys
 import time
 from typing import Optional, Sequence
 
+import torch
+
 from partitionedhashjoin_tpu_torch.ops import generators, merge_join
 from partitionedhashjoin_tpu_torch.scripts._common import (
     add_platform,
@@ -35,6 +37,14 @@ from partitionedhashjoin_tpu_torch.scripts._common import (
 from partitionedhashjoin_tpu_torch.utils.device import sync
 
 SEED = 20260816
+
+
+def _library_sort_count(a, b):
+    """K1's count over the two runs sorted by the library sort."""
+    return merge_join.sorted_runs_count(torch.sort(a).values, torch.sort(b).values)
+
+
+COUNTS = {"xla": _library_sort_count, "pallas": merge_join.two_run_count}
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
@@ -55,19 +65,15 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     log(f"generated in {time.perf_counter() - t0:.3f}s")
 
     results = {}
-    prior = merge_join.get_sort_impl()
-    try:
-        for impl in impls:
-            merge_join.set_sort_impl(impl)
-            t0 = time.perf_counter()
-            c = int(merge_join.two_run_count(a, b))
-            first_s = time.perf_counter() - t0
-            best = best_of(lambda: merge_join.two_run_count(a, b), 3, device)
-            results[impl] = (best, c)
-            log(f"{impl:7s}: {best * 1e3:9.3f} ms  ({n_b / best:.6e} rows/s)"
-                f"  count={c}  [first call {first_s:.3f}s]")
-    finally:
-        merge_join.set_sort_impl(prior)
+    for impl in impls:
+        count = COUNTS[impl]
+        t0 = time.perf_counter()
+        c = int(count(a, b))
+        first_s = time.perf_counter() - t0
+        best = best_of(lambda: count(a, b), 3, device)
+        results[impl] = (best, c)
+        log(f"{impl:7s}: {best * 1e3:9.3f} ms  ({n_b / best:.6e} rows/s)"
+            f"  count={c}  [first call {first_s:.3f}s]")
     if len(results) == 2:
         counts = {v[1] for v in results.values()}
         if len(counts) != 1:

@@ -49,7 +49,6 @@ def test_main_prints_one_json_line(monkeypatch, capsys):
     monkeypatch.setenv("PHJ_BENCH_SECONDARY", "70000")
     monkeypatch.delenv("PHJ_BENCH_SKEW", raising=False)
     monkeypatch.delenv("PHJ_BENCH_ALGOS", raising=False)
-    monkeypatch.delenv("PHJ_SORT_IMPL", raising=False)
     assert bench.main(["--platform", "cpu"]) == 0
     out, err = capsys.readouterr()
     lines = out.splitlines()
@@ -57,7 +56,7 @@ def test_main_prints_one_json_line(monkeypatch, capsys):
     doc = json.loads(lines[0])
     assert set(doc) == BENCH_KEYS | {"device"}
     assert doc["device"] == "cpu" and doc["unit"] == "rows/s"
-    assert doc["generation_path"] == "rejection" and doc["sort_impl"] == "auto"
+    assert doc["generation_path"] == "rejection" and doc["sort_impl"] == "pallas"
     algo = doc["metric"].split("_")[4]
     assert algo in ("sort-merge", "radix")
     assert doc["metric"] == f"join_rows_per_s_{algo}_5000x70000_skew1.05"
@@ -99,7 +98,7 @@ def test_phase_rooflines_match_bench_py(algo, phases):
 
 def test_emit_matches_bench_py(capsys):
     extra = {"n_a": 10, "n_b": 20, "skew": 1.05, "generation_path": "rejection",
-             "sort_impl": "xla", "roofline_fraction_single_touch": {"x": 0.5}}
+             "sort_impl": "pallas", "roofline_fraction_single_touch": {"x": 0.5}}
     _bench_py_functions("_emit")["_emit"](("radix", 1.5e9), extra)
     want = json.loads(capsys.readouterr().out)
     bench._emit(("radix", 1.5e9), {**extra, "device": "cpu"})

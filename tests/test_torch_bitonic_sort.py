@@ -426,15 +426,20 @@ def test_sort_i64_on_cpu_is_the_library_sort(n):
 
 
 @pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
-def test_key_sort_under_the_default_is_the_library_sort_on_cpu(dtype):
-    """The default "auto" keeps the library sort on a CPU tensor, for both
-    key widths."""
+def test_key_sort_under_the_default_is_the_library_sort_on_cpu(dtype, monkeypatch):
+    """``key_sort`` of a CPU tensor runs K6's plain version (``sort_i32`` or
+    ``sort_i64``) and gives the library sort's answer, for both key
+    widths."""
     from partitionedhashjoin_tpu_torch.ops import merge_join as mj
 
-    assert mj.get_sort_impl() == "auto"
+    calls = []
+    name = "sort_i32" if dtype == torch.int32 else "sort_i64"
+    real = getattr(bs, name)
+    monkeypatch.setattr(bs, name, lambda x: calls.append(x.dtype) or real(x))
     info = torch.iinfo(dtype)
     x = torch.from_numpy(_rng(9).integers(info.min, info.max, 30_001,
                                           endpoint=True)).to(dtype)
     x[:2] = torch.tensor([info.min, info.max], dtype=dtype)
     got = mj.key_sort(x)
     assert got.dtype == dtype and torch.equal(got, torch.sort(x).values)
+    assert calls == [dtype]

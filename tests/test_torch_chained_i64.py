@@ -141,15 +141,16 @@ def test_chained_probes_i64(case, num_chunks):
 @pytest.mark.parametrize("skip", [0, 1, 37])
 @pytest.mark.parametrize("case", sorted(KEY_CASES))
 def test_chained_count_plain_matches_window_scan_i64(case, skip):
-    """The chained-probe kernel's plain version counts what the window scan
-    counts, on K7's hashes under the table's mask."""
+    """The chained-probe kernel's plain version counts what the plain
+    reference finds, on K7's hashes under the table's mask, as the port's
+    count probe does."""
     build, probe = _tensors(case)
     table = ht.build_chained(build, SEED, ht.chained_num_buckets(build.numel()))
     hashes = ht.hash_bits(ht._probe_keys(table, probe)[1], table.seed)
     got = kcp.chained_count_plain(probe, hashes, table.num_buckets - 1,
                                   table.offsets, table.entry_keys, skip)
     assert got.dtype == torch.int64 and got.dim() == 0
-    want = ht._windowed_count(table, probe, skip=skip)
+    want = ht._probe_chained_count_chunk(table, probe, skip=skip)
     assert int(got) == int(want) == int(ref_found(build, probe)[skip:].sum())
 
 

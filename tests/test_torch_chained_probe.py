@@ -1,6 +1,7 @@
 """The chained-probe count kernel's wrapper (``ops/kernels/chained_probe``) on
-the CPU: its argument checks, and its plain version against the port's
-window scan and ``torch.isin`` at every pair of key widths.
+the CPU: its argument checks, and its plain version, which the port's count
+probe runs on a CPU tensor, against ``torch.isin`` at every pair of key
+widths.
 
 The kernel itself runs only on the card (``tests/test_torch_cuda.py``).  No
 JAX here: the kernel has no JAX counterpart.
@@ -54,7 +55,7 @@ def test_plain_count_matches_window_scan_and_isin(probe_dtype, entry_dtype, skip
     got = kcp.chained_count(probe, hashes, table.num_buckets - 1, table.offsets,
                             table.entry_keys, skip)
     assert got.dtype == torch.int64 and got.dim() == 0
-    assert int(got) == int(ht._windowed_count(table, probe, skip=skip)) == want
+    assert int(got) == int(ht._probe_chained_count_chunk(table, probe, skip=skip)) == want
     # uint32 hashes are the same bit patterns
     assert int(kcp.chained_count(probe, hashes.view(torch.uint32), table.num_buckets - 1,
                                  table.offsets, table.entry_keys, skip)) == want
@@ -70,7 +71,7 @@ def test_plain_count_on_a_long_chain_and_past_the_table():
     bucket = torch.zeros(6000, dtype=torch.int32)
     assert int(kcp.chained_count(probe, bucket, 0xFFFFFFFF, table.offsets,
                                  table.entry_keys)) == 2000
-    assert int(ht._windowed_count(table, probe, bucket)) == 2000
+    assert int(ht._probe_chained_count_chunk(table, probe, bucket)) == 2000
     bucket[::2] = 2  # past the table's 2 buckets
     bucket[1::4] = -1  # 0xFFFFFFFF
     assert int(kcp.chained_count(probe, bucket, 0xFFFFFFFF, table.offsets,
@@ -86,16 +87,18 @@ def test_plain_count_of_empty_sides():
                                  empty.entry_keys)) == 0
 
 
-def test_cpu_probe_keeps_the_window_scan(monkeypatch):
-    """``probe_chained_count`` of a CPU tensor never calls the kernel's
-    wrapper and launches nothing."""
-    _, probe, table, _ = _args()
+def test_cpu_probe_runs_the_plain_version(monkeypatch):
+    """``probe_chained_count`` of a CPU tensor calls the kernel's wrapper,
+    which runs ``chained_count_plain`` and launches nothing."""
+    build, probe, table, _ = _args()
     calls = []
-    monkeypatch.setattr(kcp, "chained_count", lambda *a, **k: calls.append(1))
+    real = kcp.chained_count_plain
+    monkeypatch.setattr(kcp, "chained_count_plain",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
     before = kcp.LAUNCHES_CHAINED_COUNT
     assert int(ht.probe_chained_count(table, probe, 3)) == int(
-        ht._windowed_count(table, probe))
-    assert not calls and kcp.LAUNCHES_CHAINED_COUNT == before
+        torch.isin(probe, build).sum())
+    assert len(calls) == 3 and kcp.LAUNCHES_CHAINED_COUNT == before
 
 
 def _bad(name, value):

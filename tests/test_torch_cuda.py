@@ -7,7 +7,6 @@ it runs with tests/conftest.py (which imports jax) switched off:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
 
-import contextlib
 
 import numpy as np
 import pytest
@@ -50,17 +49,6 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
     return torch.device("cuda", 0)
-
-
-@contextlib.contextmanager
-def _sorter(impl):
-    """The sorter switch on ``impl``, set back to what it was after."""
-    prior = merge_join.get_sort_impl()
-    merge_join.set_sort_impl(impl)
-    try:
-        yield
-    finally:
-        merge_join.set_sort_impl(prior)
 
 
 def _cases():
@@ -417,19 +405,17 @@ def test_payload_wrapper_rejects_bad_inputs(cuda):
 
 
 def test_two_run_materialize_on_card_matches_cpu(cuda):
-    """The card under the default sorter against the CPU under the sorter
-    it resolves to on the card (K6's plain version: the probe rows come out
-    in (key, payload) order)."""
+    """The card (K6) against the CPU (K6's plain version): the probe rows
+    come out in (key, payload) order on both."""
     rng = np.random.default_rng(47)
     a = rng.permutation(np.arange(0, 40000, 2)).astype(np.int32)
     b = rng.integers(0, 40000, 300000).astype(np.int32)
     a_pay = rng.integers(0, 1000, a.size).astype(np.int32)
     b_pay = rng.integers(0, 1000, b.size).astype(np.int32)
     for payload_sorted in (False, True):
-        with _sorter(merge_join.resolve_sort_impl(merge_join.get_sort_impl(), cuda)):
-            cpu = merge_join.two_run_materialize(
-                *map(torch.from_numpy, (a, a_pay, b, b_pay)),
-                probe_payload_sorted=payload_sorted)
+        cpu = merge_join.two_run_materialize(
+            *map(torch.from_numpy, (a, a_pay, b, b_pay)),
+            probe_payload_sorted=payload_sorted)
         before, before_k5 = mpay.LAUNCHES, kc.LAUNCHES
         gpu = merge_join.two_run_materialize(
             *(torch.from_numpy(x).to(cuda) for x in (a, a_pay, b, b_pay)),
@@ -806,10 +792,9 @@ def test_sort_i64_rejects_bad_inputs_on_card(cuda):
 
 @pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
 def test_key_sort_runs_k6_under_the_default(cuda, dtype, monkeypatch):
-    """Under the default sorter a card's int32 or int64 keys are sorted by
-    K6 alone: the plan's sweeps launch, the rest are counted as skipped,
-    and the library sort is never called."""
-    assert merge_join.get_sort_impl() == "auto"
+    """A card's int32 or int64 keys are sorted by K6 alone: the plan's
+    sweeps launch, the rest are counted as skipped, and the library sort is
+    never called."""
     gen_ = torch.Generator(device=cuda)
     gen_.manual_seed(11)
     keys = generators.zipf_keys(300_007, 1.05, 10_000_000, generator=gen_,
@@ -852,51 +837,47 @@ def test_two_run_count_i64_on_card_matches_cpu(cuda):
         assert (bs.LAUNCHES_UPSWEEP - before[0], mp.LAUNCHES_I64 - before[1]) == (2, 1)
 
 
-def test_sorter_switch_launches_k6_on_card(cuda):
-    """Under "pallas" every call site launches K6 on the card and gives
-    the library sort's results; "auto", the default, resolves to K6 on the
-    card, and "xla" launches none."""
+def test_every_sort_site_launches_k6_on_card(cuda):
+    """Every sort site launches K6 on the card and gives the answers of the
+    CPU, where K6's plain version runs, and of ``np.isin``."""
     rng = np.random.default_rng(61)
     a = rng.integers(0, 20000, 15000).astype(np.int32)
     b = rng.integers(-100, 21000, 90000).astype(np.int32)
     a_pay = (a ^ 0x5A17).astype(np.int32)
     b_pay = rng.integers(0, 1 << 20, b.size).astype(np.int32)
-    ta, tb, tap, tbp = (torch.from_numpy(x).to(cuda) for x in (a, b, a_pay, b_pay))
-    a64, b64 = ta.to(torch.int64) << 33, tb.to(torch.int64) << 33
-    table = make_table(tb, tbp)
     ak, ap = np.unique(a, return_index=True)  # unique build keys: one answer
 
-    def run_all():
+    def run_all(device):
+        ta, tb, tap, tbp = (torch.from_numpy(x).to(device)
+                            for x in (a, b, a_pay, b_pay))
+        a64, b64 = ta.to(torch.int64) << 33, tb.to(torch.int64) << 33
+        table = make_table(tb, tbp)
         return [
             int(merge_join.two_run_count(ta, tb)),
             int(merge_join.PreparedBuild(ta).count(tb)),
             int(merge_join.two_run_count_i64(a64, b64)),
             RadixHashJoiner().run(make_table(ta, tap), table),
             [t.cpu() for t in merge_join.two_run_materialize(
-                torch.from_numpy(ak).to(cuda), torch.from_numpy(a_pay[ap]).to(cuda),
+                torch.from_numpy(ak).to(device),
+                torch.from_numpy(a_pay[ap]).to(device),
                 tb, tbp, probe_payload_sorted=True)],
             aggregate.sort_aggregate(table, with_distinct=True),
         ]
 
-    with _sorter("xla"):
-        before = _launches()
-        want = run_all()
-        assert _launches() == before  # "xla" forces the library sort
-    for impl in ("pallas", "auto"):
-        with _sorter(impl):
-            before = _launches()
-            got = run_all()
-        grew = tuple(a - b for a, b in zip(_launches(), before))
-        # two sorts each for the counts, radix and materialize, one for the
-        # prepared build's probe plus its build, one GROUP BY pass 1: each
-        # the radix sort (an upsweep, then sweeps), never K6a or K6b
-        assert grew[0] == 2 + 2 + 2 + 2 + 2 + 1
-        assert grew[1] >= grew[0] and grew[2:] == (0, 0)
-        assert got[:4] == want[:4] == [int(np.isin(b, a).sum())] * 4
-        for g, w in zip(got[4], want[4]):
-            assert torch.equal(g, w)
-        for f in ("keys", "count", "sum", "min", "max", "distinct", "num_groups"):
-            assert torch.equal(getattr(got[5], f), getattr(want[5], f)), f
+    want = run_all("cpu")
+    before = _launches()
+    got = run_all(cuda)
+    grew = tuple(a - b for a, b in zip(_launches(), before))
+    # two sorts each for the counts, radix and materialize, one for the
+    # prepared build's probe plus its build, one GROUP BY pass 1: each the
+    # radix sort (an upsweep, then sweeps), never K6a or K6b
+    assert grew[0] == 2 + 2 + 2 + 2 + 2 + 1
+    assert grew[1] >= grew[0] and grew[2:] == (0, 0)
+    assert got[:4] == want[:4] == [int(np.isin(b, a).sum())] * 4
+    for g, w in zip(got[4], want[4]):
+        assert torch.equal(g, w)
+    for f in ("keys", "count", "sum", "min", "max", "distinct", "num_groups"):
+        assert torch.equal(getattr(got[5], f).cpu(), getattr(want[5], f)), f
 
 
 # ---------------------------------------------------------------- K7, K8
@@ -991,11 +972,10 @@ def test_zipf_kernel_few_rounds(cuda, rounds):
 # ------------------------------------------ multi-key, alias sampler, bench
 
 
-@pytest.mark.parametrize("sort_impl", ["xla", "pallas"])
 @pytest.mark.parametrize("k", [1, 2, 3, 4])
-def test_multi_key_on_card_matches_cpu(cuda, k, sort_impl):
+def test_multi_key_on_card_matches_cpu(cuda, k):
     """Counts on the card equal the CPU's (the kernels' plain versions);
-    k = 2 launches K3, and K6 under "pallas"."""
+    k = 2 launches K6 and K3."""
     from partitionedhashjoin_tpu_torch.ops import multi_key
 
     rng = np.random.default_rng(80 + k)
@@ -1007,15 +987,14 @@ def test_multi_key_on_card_matches_cpu(cuda, k, sort_impl):
     dev_a, dev_b = [c.to(cuda) for c in cpu_a], [c.to(cuda) for c in cpu_b]
     want = (int(multi_key.multi_key_count(cpu_a, cpu_b)),
             int(multi_key.multi_key_count_all(cpu_a, cpu_b)))
-    with _sorter(sort_impl):
-        before = (mp.LAUNCHES_I64, bs.LAUNCHES_SORT)
-        got = multi_key.multi_key_count(dev_a, dev_b)
-        grew = (mp.LAUNCHES_I64 - before[0], bs.LAUNCHES_SORT - before[1])
-        got_all = multi_key.multi_key_count_all(dev_a, dev_b)
+    before = (mp.LAUNCHES_I64, bs.LAUNCHES_SORT)
+    got = multi_key.multi_key_count(dev_a, dev_b)
+    grew = (mp.LAUNCHES_I64 - before[0], bs.LAUNCHES_SORT - before[1])
+    got_all = multi_key.multi_key_count_all(dev_a, dev_b)
     assert got.device.type == got_all.device.type == "cuda"
     assert (int(got), int(got_all)) == want
     if k == 2:
-        assert grew[0] == 1 and (grew[1] > 0) == (sort_impl == "pallas")
+        assert grew[0] == 1 and grew[1] > 0
 
 
 def test_alias_sampler_on_card(cuda):
@@ -1056,7 +1035,6 @@ def test_bench_on_card(cuda, monkeypatch, capsys):
     monkeypatch.setenv("PHJ_BENCH_PRIMARY", "100000")
     monkeypatch.setenv("PHJ_BENCH_SECONDARY", "2000000")
     monkeypatch.delenv("PHJ_BENCH_ALGOS", raising=False)
-    monkeypatch.delenv("PHJ_SORT_IMPL", raising=False)
     assert bench.main(["--platform", "cuda"]) == 0
     out, err = capsys.readouterr()
     lines = out.splitlines()
@@ -1118,16 +1096,14 @@ def _sql_tables(device):
             "b": make_table(b.keys.to(device), b_pay.to(device))}
 
 
-@pytest.mark.parametrize("sort_impl", ["xla", "pallas"])
 @pytest.mark.parametrize("sql", _SQL_STATEMENTS)
-def test_sql_on_card_matches_cpu(cuda, sql, sort_impl):
-    """Each statement on the card (K1, K4, K5; K6 under "pallas") equals the
-    port's CPU run (the kernels' plain versions), column for column."""
+def test_sql_on_card_matches_cpu(cuda, sql):
+    """Each statement on the card (K1, K4, K5, K6) equals the port's CPU run
+    (the kernels' plain versions), column for column."""
     from partitionedhashjoin_tpu_torch.sql import execute_sql
 
     want = execute_sql(sql, _sql_tables("cpu"))
-    with _sorter(sort_impl):
-        got = execute_sql(sql, _sql_tables(cuda))
+    got = execute_sql(sql, _sql_tables(cuda))
     assert got.row_count == want.row_count and list(got.columns) == list(want.columns)
     for name, w in want.columns.items():
         assert got.columns[name].dtype == w.dtype
@@ -1280,8 +1256,9 @@ def test_int64_chained_join_at_full_size(cuda):
 
 
 def test_tail_and_fallback_on_card_match_cpu(cuda):
-    """Both branches of the chained count: a short tail and the full
-    fallback (a 4,096-row chain that every probe row walks)."""
+    """The chained count on the JAX package's tail and fallback shapes (a
+    64-entry chain, and a 4,096-row chain that every probe row walks)
+    equals the CPU's, where the kernel's plain version runs."""
     from partitionedhashjoin_tpu_torch.ops import hash_table as ht
 
     for build, probe in ((torch.arange(64, dtype=torch.int32),
@@ -1356,7 +1333,7 @@ def _chained_hashes(table, probe, case):
 @pytest.mark.parametrize("probe_dtype,entry_dtype", WIDTHS)
 def test_chained_count_kernel_matches_plain(cuda, case, probe_dtype, entry_dtype):
     """The chained-probe kernel's count equals its plain version, the CPU
-    window scan and ``torch.isin`` at every key-width pair, with and without
+    count probe and ``torch.isin`` at every key-width pair, with and without
     ``skip``; on a probe view off its 16-byte alignment and at odd lengths
     around a thread's 4-row group too."""
     from partitionedhashjoin_tpu_torch.ops import hash_table as ht
@@ -1386,7 +1363,7 @@ def test_chained_count_kernel_matches_plain(cuda, case, probe_dtype, entry_dtype
             assert int(got) == want, (lo_row, hi_row, skip)
             assert int(kcp.chained_count(p_cpu, h_cpu, mask, t_cpu.offsets,
                                          t_cpu.entry_keys, skip)) == want
-            assert int(ht._windowed_count(t_cpu, p_cpu, bucket, skip)) == want
+            assert int(ht._probe_chained_count_chunk(t_cpu, p_cpu, bucket, skip)) == want
         # the table's entries as a view off their 16-byte alignment: the
         # chain is read in chunks aligned to memory, not to entry_keys[0]
         leads = range(1, 16 // t_gpu.entry_keys.element_size()) if build.numel() else ()

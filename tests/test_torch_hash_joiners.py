@@ -280,7 +280,6 @@ def test_bench_radix_chained_prints_one_json_line(monkeypatch, capsys):
     monkeypatch.setenv("PHJ_BENCH_SECONDARY", "70000")
     monkeypatch.setenv("PHJ_BENCH_ALGOS", "radix-chained")
     monkeypatch.delenv("PHJ_BENCH_SKEW", raising=False)
-    monkeypatch.delenv("PHJ_SORT_IMPL", raising=False)
     assert bench.main(["--platform", "cpu"]) == 0
     out, err = capsys.readouterr()
     lines = out.splitlines()

@@ -200,17 +200,23 @@ def test_chained_matches_jax(case):
 @pytest.mark.parametrize("skip", [0, 1, 37])
 @pytest.mark.parametrize("case", sorted(KEY_CASES))
 def test_chained_count_plain_matches_window_scan(case, skip):
-    """The chained-probe kernel's plain version counts what the port's window
-    scan and JAX's chunk count count, on K7's hashes under the table's mask
-    and on the one-chain table under a bucket override."""
+    """The chained-probe kernel's plain version, which the port's count
+    probe runs on the CPU, counts what JAX's window scan
+    (``_probe_chained_count_chunk``) and ``np.isin`` count, on K7's hashes
+    under the table's mask and on the one-chain table under a bucket
+    override."""
     build, probe = KEY_CASES[case]
     tp = torch.from_numpy(probe)
-    table = ht.build_chained(torch.from_numpy(build), 0x1234,
-                             ht.chained_num_buckets(build.size))
+    nb = ht.chained_num_buckets(build.size)
+    table = ht.build_chained(torch.from_numpy(build), 0x1234, nb)
     got = kcp.chained_count_plain(tp, ht.hash_bits(tp, table.seed), table.num_buckets - 1,
                                   table.offsets, table.entry_keys, skip)
     want = int(np.isin(probe[skip:], build).sum())
-    assert int(got) == int(ht._windowed_count(table, tp, skip=skip)) == want
+    assert int(got) == int(ht._probe_chained_count_chunk(table, tp, skip=skip)) == want
+    if build.size and probe.size:
+        jtable = jht.build_chained(jnp.asarray(build), jnp.uint32(0x1234), nb)
+        assert int(jht._probe_chained_count_chunk(
+            jtable, jnp.asarray(probe), skip=jnp.int32(skip))) == want
     if build.size:
         jtable, one = _one_bucket_table(build)
         zeros = torch.zeros(probe.size, dtype=torch.int32)
@@ -219,19 +225,7 @@ def test_chained_count_plain_matches_window_scan(case, skip):
         jwant = jht._probe_chained_count_chunk(
             jtable, jnp.asarray(probe), jnp.zeros(probe.size, jnp.int32),
             skip=jnp.int32(skip)) if probe.size else 0
-        assert int(got) == int(ht._windowed_count(one, tp, zeros, skip)) == int(jwant) == want
-
-
-def _spy_fallback(monkeypatch):
-    calls = []
-    real = ht._probe_chained_block
-
-    def spy(*args, **kwargs):
-        calls.append(1)
-        return real(*args, **kwargs)
-
-    monkeypatch.setattr(ht, "_probe_chained_block", spy)
-    return calls
+        assert int(got) == int(jwant) == want
 
 
 def _one_bucket_table(build):
@@ -245,30 +239,29 @@ def _one_bucket_table(build):
     return j, t
 
 
-def test_tail_overflow_fallback_exact(monkeypatch):
+def test_tail_overflow_fallback_exact():
     """JAX's TestChainedTable::test_tail_overflow_fallback_exact shape: a
-    4,096-row chain of one key that every probe row walks, so the active
-    rows overflow the tail and the full window loop counts."""
+    4,096-row chain of one key that every probe row walks, so JAX's active
+    rows overflow its tail and its full window loop counts; the port's
+    count (the chained-probe kernel's plain version on the CPU) is exact."""
     build = np.full(4096, 77, np.int32)
     jtable, table = _one_bucket_table(build)
-    calls = _spy_fallback(monkeypatch)
     zeros_j, zeros_t = jnp.zeros(4096, jnp.int32), torch.zeros(4096, dtype=torch.int32)
     for probe in (np.full(4096, 78, np.int32), build):
         want = int(jht._probe_chained_count_chunk(jtable, jnp.asarray(probe), zeros_j))
         got = int(ht._probe_chained_count_chunk(table, torch.from_numpy(probe), zeros_t))
         assert got == want
-    assert want == 4096 and len(calls) == 1  # the missing keys take the fallback
+    assert want == 4096
 
 
-def test_tail_path_with_skip(monkeypatch):
+def test_tail_path_with_skip():
     """A chain of 64 distinct keys probed by 2,048 rows of which 200 look
-    past the first window: the tail (<= 2,048 // 8 rows) counts them, and
-    ``skip`` leaves the first rows out, as in JAX."""
+    past the first window (JAX's tail counts them), and ``skip`` leaves the
+    first rows out, as in JAX."""
     build = np.arange(64, dtype=np.int32)
     jtable, table = _one_bucket_table(build)
     probe = np.full(2048, 1, np.int32)
     probe[::10][:200] = np.arange(200) % 80  # 4..63 hit late, >= 64 miss
-    calls = _spy_fallback(monkeypatch)
     bucket_j, bucket_t = jnp.zeros(2048, jnp.int32), torch.zeros(2048, dtype=torch.int32)
     for skip in (None, 0, 37, 2048):
         want = int(jht._probe_chained_count_chunk(
@@ -278,7 +271,6 @@ def test_tail_path_with_skip(monkeypatch):
             table, torch.from_numpy(probe), bucket_t, skip=skip))
         assert got == want
         assert want == int((np.isin(probe, build) & (np.arange(2048) >= (skip or 0))).sum())
-    assert not calls
 
 
 def test_tables_cross_between_packages():

@@ -4,8 +4,8 @@ Oracles: Python ``Counter`` arithmetic over key TUPLES (any packing or
 hashing collision would show), and the JAX package's plain-XLA programs
 ``_multi_key_count_xla`` / ``_multi_key_count_all_xla`` (the latter's
 uint32 pair decoded with ``widesum.pair_to_int``).  k = 2 rides K3 through
-``merge_join.two_run_count_i64`` under both sorter settings; on the CPU that
-is the kernels' plain versions.
+``merge_join.two_run_count_i64`` (K6's int64 key sort, then K3); on the CPU
+that is the kernels' plain versions.
 """
 
 from collections import Counter
@@ -75,13 +75,11 @@ def test_partial_tuple_matches_do_not_count():
     assert int(mk.multi_key_count(_t(a), _t(b))) == 1
 
 
-@pytest.mark.parametrize("sort_impl", ["xla", "pallas"])
-def test_extremes_in_both_columns(sort_impl, monkeypatch):
+def test_extremes_in_both_columns():
     ext = [I32_MIN, I32_MIN + 1, -1, 0, 1, I32_MAX - 1, I32_MAX]
     pairs = [(x, y) for x in ext for y in ext]
     a = [np.array([p[0] for p in pairs[::2]]), np.array([p[1] for p in pairs[::2]])]
     b = [np.array([p[0] for p in pairs] * 2), np.array([p[1] for p in pairs] * 2)]
-    monkeypatch.setattr(merge_join, "_SORT_IMPL", sort_impl)
     count, count_all = _oracle(a, b)
     assert int(mk.multi_key_count(_t(a), _t(b))) == count == 50
     assert int(mk.multi_key_count_all(_t(a), _t(b))) == count_all
@@ -96,8 +94,7 @@ def test_extremes_in_both_columns(sort_impl, monkeypatch):
     assert bool((packed[torch.from_numpy(order)].diff() >= 0).all())
 
 
-@pytest.mark.parametrize("sort_impl", ["xla", "pallas"])
-def test_pair_rides_two_run_count_i64(sort_impl, monkeypatch):
+def test_pair_rides_two_run_count_i64(monkeypatch):
     rng = np.random.default_rng(7)
     a = _random_cols(rng, 2, 3000, 0, 40)
     b = _random_cols(rng, 2, 5000, 0, 40)
@@ -105,13 +102,12 @@ def test_pair_rides_two_run_count_i64(sort_impl, monkeypatch):
     real = merge_join.two_run_count_i64
 
     def spy(build_keys, probe_keys):
-        calls.append((build_keys.dtype, probe_keys.dtype, merge_join.get_sort_impl()))
+        calls.append((build_keys.dtype, probe_keys.dtype))
         return real(build_keys, probe_keys)
 
     monkeypatch.setattr(merge_join, "two_run_count_i64", spy)
-    monkeypatch.setattr(merge_join, "_SORT_IMPL", sort_impl)
     got = int(mk.multi_key_count(_t(a), _t(b)))
-    assert calls == [(torch.int64, torch.int64, sort_impl)]
+    assert calls == [(torch.int64, torch.int64)]
     assert got == _oracle(a, b)[0]
     assert got == int(jax_mk._multi_key_count_xla(_jax(a), _jax(b)))
 

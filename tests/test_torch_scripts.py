@@ -116,14 +116,12 @@ def _json_line(capsys) -> dict:
 @pytest.fixture
 def small(monkeypatch):
     """The env entries' workload at 5,000 ⋈ 70,000, every other knob unset."""
-    for var in ("PHJ_BENCH_SKEW", "PHJ_BENCH_FUSED_ONLY", "PHJ_SORT_IMPL",
-                "PHJ_AB_SKEW", "PHJ_AB_IMPLS"):
+    for var in ("PHJ_BENCH_SKEW", "PHJ_BENCH_FUSED_ONLY", "PHJ_AB_SKEW",
+                "PHJ_AB_IMPLS"):
         monkeypatch.delenv(var, raising=False)
     for var, n in (("PHJ_BENCH_PRIMARY", N_A), ("PHJ_BENCH_SECONDARY", N_B),
                    ("PHJ_AB_PRIMARY", N_A), ("PHJ_AB_SECONDARY", N_B)):
         monkeypatch.setenv(var, str(n))
-    yield
-    merge_join.set_sort_impl("auto")
 
 
 def _zipf(n, card, seed):
@@ -300,21 +298,20 @@ def test_bench_sorter_ab_stderr_only(small, capsys):
         line = [x for x in err.splitlines() if x.startswith(f"{impl:7s}:")]
         assert len(line) == 1 and f"count={want}  [first call" in line[0]
     assert "speedup pallas vs xla: " in err
-    assert merge_join.get_sort_impl() == "auto"
 
 
-def test_bench_sorter_ab_resets_the_sorter_on_failure(small, monkeypatch):
-    real = merge_join.two_run_count
-
-    def failing(a, b):
-        if merge_join.get_sort_impl() == "pallas":
-            raise RuntimeError("sorter failed")
-        return real(a, b)
-
-    monkeypatch.setattr(merge_join, "two_run_count", failing)
-    with pytest.raises(RuntimeError, match="sorter failed"):
-        bench_sorter_ab.main(CPU)
-    assert merge_join.get_sort_impl() == "auto"
+@pytest.mark.parametrize("impl", ["xla", "pallas"])
+def test_bench_sorter_ab_one_side(small, monkeypatch, capsys, impl):
+    """``PHJ_AB_IMPLS`` names one side: its one line, exact, and no
+    speedup."""
+    monkeypatch.setenv("PHJ_AB_IMPLS", impl)
+    assert bench_sorter_ab.main(CPU) == 0
+    out, err = capsys.readouterr()
+    want = np.isin(_zipf(N_B, N_A, bench_sorter_ab.SEED).numpy(),
+                   np.arange(1, N_A + 1)).sum()
+    lines = [x for x in err.splitlines() if x.startswith(("xla ", "pallas "))]
+    assert out == "" and len(lines) == 1 and lines[0].startswith(f"{impl:7s}:")
+    assert f"count={want}  [first call" in lines[0] and "speedup" not in err
 
 
 def test_bench_scaling_line(capsys):

@@ -1,15 +1,17 @@
-"""The sorter switch (``merge_join.set_sort_impl`` / ``PHJ_SORT_IMPL``) at
-every call site, on the CPU, where "pallas" runs K6's plain version.
+"""K6 at every sort site of the port, on the CPU, where it runs its plain
+version.
 
-Each call site's result under "pallas" is held exactly to the JAX package.
-Counts and GROUP BY results do not depend on the sorter, so JAX runs its
-default sort there (its interpret-mode Pallas tuple sort takes 40 s to 126 s
-to compile on a CPU).  ``two_run_materialize`` with duplicate build keys
-does depend on it (the smallest payload wins under "pallas"), so it is held
-row for row to JAX's own "pallas" branch in interpret mode, with JAX's tuple
-sorter standing in as its unique full-lex order.  A spy on
-``bitonic_sort.sort_i32_tuple`` shows which sites went through K6, and with
-how many operands.
+The port has one sorter: each sort site calls K6's module
+(``ops/kernels/bitonic_sort``), which launches its kernel on a CUDA tensor
+and runs its plain version on a CPU tensor.  Each call site's result is held
+exactly to the JAX package.  Counts and GROUP BY results do not depend on
+the sorter, so JAX runs its default sort there (its interpret-mode Pallas
+tuple sort takes 40 s to 126 s to compile on a CPU).
+``two_run_materialize`` with duplicate build keys does depend on it (the
+smallest payload wins under K6), so it is held row for row to JAX's own
+"pallas" branch in interpret mode, with JAX's tuple sorter standing in as
+its unique full-lex order.  A spy on ``bitonic_sort.sort_i32_tuple`` shows
+which sites went through K6, and with how many operands.
 """
 
 import numpy as np
@@ -30,38 +32,17 @@ from partitionedhashjoin_tpu_torch.ops.kernels import bitonic_sort
 from partitionedhashjoin_tpu_torch.ops.no_partitioning import NoPartitioningHashJoiner
 from partitionedhashjoin_tpu_torch.ops.radix_cluster import RadixHashJoiner
 from partitionedhashjoin_tpu_torch.ops.sort_merge import SortMergeJoiner
+from partitionedhashjoin_tpu_torch.parallel import mesh as pm
+from partitionedhashjoin_tpu_torch.parallel.aggregate_shuffle import (
+    DistributedAggregateOperator,
+)
+from partitionedhashjoin_tpu_torch.parallel.join_aggregate import (
+    DistributedJoinAggregateOperator,
+)
 
 I32_MAX = np.iinfo(np.int32).max
 I32_MIN = np.iinfo(np.int32).min
 FIELDS = ("keys", "count", "sum", "min", "max")
-
-
-def test_sort_impl_switch_plumbing(monkeypatch):
-    """The counterpart of tests/test_merge_probe.py's plumbing test: env
-    knob, "auto" resolution, rejection of unknown impls.  The port's default
-    is "auto" (K6 on the card); "xla" still forces the library sort."""
-    assert mj.get_sort_impl() == "auto"
-    monkeypatch.setenv("PHJ_SORT_IMPL", "pallas")
-    try:
-        assert mj.set_sort_impl_from_env() == "pallas"
-        assert mj.get_sort_impl() == "pallas"
-    finally:
-        mj.set_sort_impl("auto")
-    monkeypatch.setenv("PHJ_SORT_IMPL", "xla")
-    assert mj.set_sort_impl_from_env() == "xla"
-    monkeypatch.delenv("PHJ_SORT_IMPL")
-    assert mj.set_sort_impl_from_env() == "auto"
-    # auto: K6 on a CUDA tensor, the library sort on a CPU tensor
-    assert mj.resolve_sort_impl("auto", torch.device("cpu")) == "xla"
-    assert mj.resolve_sort_impl("auto", torch.device("cuda", 0)) == "pallas"
-    assert mj.resolve_sort_impl("pallas", "cpu") == "pallas"
-    assert mj.resolve_sort_impl("xla", "cuda") == "xla"
-    with pytest.raises(ValueError):
-        mj.set_sort_impl("typo")
-    monkeypatch.setenv("PHJ_SORT_IMPL", "typo")
-    with pytest.raises(ValueError):
-        mj.set_sort_impl_from_env()
-    assert mj.get_sort_impl() == "auto"
 
 
 class _Spy:
@@ -87,16 +68,6 @@ def spy(monkeypatch):
     return _Spy(monkeypatch)
 
 
-@pytest.fixture
-def pallas(spy):
-    prior = mj.get_sort_impl()
-    mj.set_sort_impl("pallas")
-    try:
-        yield spy
-    finally:
-        mj.set_sort_impl(prior)
-
-
 def _keys(seed, dtype=np.int32):
     rng = np.random.default_rng(seed)
     a = rng.integers(-3000, 3000, 2500).astype(dtype)
@@ -110,7 +81,7 @@ def _keys(seed, dtype=np.int32):
     return a, b
 
 
-def test_two_run_count_and_prepared_build_under_pallas(pallas):
+def test_two_run_count_and_prepared_build_under_pallas(spy):
     a, b = _keys(1)
     rng = np.random.default_rng(2)
     av, bv = rng.random(a.size) < 0.8, rng.random(b.size) < 0.7
@@ -119,17 +90,17 @@ def test_two_run_count_and_prepared_build_under_pallas(pallas):
                                         interpret=True))
         got = mj.two_run_count(*map(torch.from_numpy, (a, b) + masks))
         assert int(got) == want
-        assert pallas.take() == [1, 1]  # the build and the probe sort
+        assert spy.take() == [1, 1]  # the build and the probe sort
     jax_pb = jax_mj.PreparedBuild(jnp.asarray(a), interpret=True)
     pb = mj.PreparedBuild(torch.from_numpy(a))
-    assert pallas.take() == [1]
+    assert spy.take() == [1]
     for probe in (b, b[::-1].copy()):
         assert int(pb.count(torch.from_numpy(probe))) == int(jax_pb.count(jnp.asarray(probe)))
-    assert pallas.take() == [1, 1]
+    assert spy.take() == [1, 1]
     assert torch.equal(pb.a_sorted, torch.sort(torch.from_numpy(a)).values)
 
 
-def test_int64_keys_under_pallas(pallas, monkeypatch):
+def test_int64_keys_under_pallas(spy, monkeypatch):
     """Sort-merge int64 and an int64 PreparedBuild sort their keys with
     K6's native int64 key (``sort_i64``; the JAX package keeps the library
     sort for the prepared build); no int32 tuple sort runs."""
@@ -147,9 +118,9 @@ def test_int64_keys_under_pallas(pallas, monkeypatch):
     monkeypatch.setattr(bitonic_sort, "sort_i64", spy_i64)
     ta, tb = torch.from_numpy(a), torch.from_numpy(b)
     assert int(SortMergeJoiner.count(ta, tb)) == want == int(np.isin(b, a).sum())
-    assert pallas.take() == [] and i64_calls == [torch.int64] * 2
+    assert spy.take() == [] and i64_calls == [torch.int64] * 2
     assert int(mj.PreparedBuild(ta).count(tb)) == want
-    assert pallas.take() == [] and i64_calls == [torch.int64] * 4
+    assert spy.take() == [] and i64_calls == [torch.int64] * 4
     # the int64 sort is the int64 order over the whole domain
     edges = np.asarray([0, -1, 1, 2**31 - 1, 2**31, 2**32 - 1, 2**32, -(2**31),
                         -(2**31) - 1, np.iinfo(np.int64).max,
@@ -160,7 +131,7 @@ def test_int64_keys_under_pallas(pallas, monkeypatch):
                                   np.sort(keys))
 
 
-def test_joiners_under_pallas(pallas):
+def test_joiners_under_pallas(spy):
     a, b = _keys(5)
     ta, tb = (table_from_numpy(k, np.arange(k.size, dtype=np.int32), "cpu")
               for k in (a, b))
@@ -168,22 +139,38 @@ def test_joiners_under_pallas(pallas):
     assert want == int(np.isin(b, a).sum())
     for joiner in (RadixHashJoiner(), NoPartitioningHashJoiner(), SortMergeJoiner()):
         assert joiner.run(ta, tb) == want, type(joiner).__name__
-        assert pallas.take() == [1, 1], type(joiner).__name__
+        assert spy.take() == [1, 1], type(joiner).__name__
 
 
-def test_auto_and_xla_keep_the_library_sort_on_cpu(spy):
+def test_every_sort_site_reaches_k6_on_cpu(spy, monkeypatch):
+    """Each sort site calls K6's module on a CPU tensor: the int32 key sort
+    and the (key, payload) sorts through ``sort_i32_tuple``, the int64 key
+    sort through ``sort_i64``, GROUP BY pass 1 through ``sort_i32_tuple``;
+    each gives the library sort's answer."""
     a, b = _keys(6)
-    want = int(np.isin(b, a).sum())
-    for impl in ("xla", "auto"):
-        mj.set_sort_impl(impl)
-        try:
-            assert int(mj.two_run_count(torch.from_numpy(a), torch.from_numpy(b))) == want
-        finally:
-            mj.set_sort_impl("auto")
-    assert spy.take() == []
+    ta, tb = torch.from_numpy(a), torch.from_numpy(b)
+    assert int(mj.two_run_count(ta, tb)) == int(np.isin(b, a).sum())
+    assert spy.take() == [1, 1]
+    assert torch.equal(mj.key_sort(ta), torch.sort(ta).values)
+    assert spy.take() == [1]
+    i64_calls = []
+    real = bitonic_sort.sort_i64
+    monkeypatch.setattr(bitonic_sort, "sort_i64",
+                        lambda x: i64_calls.append(x.dtype) or real(x))
+    wide = ta.to(torch.int64) << 33
+    assert torch.equal(mj.key_sort(wide), torch.sort(wide).values)
+    assert i64_calls == [torch.int64] and spy.take() == []
+    mj.two_run_materialize(ta, ta, tb, tb)
+    assert spy.take() == [2, 2]
+    agg.sort_aggregate(make_table(tb, tb))
+    assert spy.take() == [2]
+    # other dtypes keep the library sort
+    small = ta.to(torch.int16)
+    assert torch.equal(mj.key_sort(small), torch.sort(small).values)
+    assert spy.take() == [] and i64_calls == [torch.int64]
 
 
-def test_two_run_materialize_duplicate_build_keys_matches_jax_pallas(pallas, monkeypatch):
+def test_two_run_materialize_duplicate_build_keys_matches_jax_pallas(spy, monkeypatch):
     """Row for row against JAX's "pallas" materialize: both sort (key,
     payload) tuples, so among duplicate build keys the SMALLEST payload
     wins, and probe rows come out in (key, payload) order.
@@ -206,20 +193,19 @@ def test_two_run_materialize_duplicate_build_keys_matches_jax_pallas(pallas, mon
         return list(jax.lax.sort(tuple(operands), num_keys=len(operands)))
 
     monkeypatch.setattr(jax_bs, "sort_i32_tuple", full_lex_sort)
+    monkeypatch.setattr(jax_mj, "_SORT_IMPL", "pallas")  # JAX's own switch
     jax_mj._materialize_i32.clear_cache()  # trace anew, through the stand-in
-    jax_mj.set_sort_impl("pallas")
     try:
         want = jax_mj.two_run_materialize(*map(jnp.asarray, (a, a_pay, b, b_pay)),
                                           interpret=True)
     finally:
-        jax_mj.set_sort_impl("xla")
         jax_mj._materialize_i32.clear_cache()  # drop the trace with the stand-in
     assert sorted_tuples == [2, 2]  # JAX took its "pallas" branch on both sides
     want = [np.asarray(w) for w in want]
     args = [torch.from_numpy(x) for x in (a, a_pay, b, b_pay)]
     for payload_sorted in (False, True):
         got = mj.two_run_materialize(*args, probe_payload_sorted=payload_sorted)
-        assert pallas.take() == [2, 2]
+        assert spy.take() == [2, 2]
         for g, w in zip(got, want):
             np.testing.assert_array_equal(g.numpy(), w)
     keys, pay_a, pay_b, count = (g.numpy() for g in got)
@@ -254,16 +240,15 @@ def _columns(n=20000, seed=8):
     return keys, pay
 
 
-def test_sort_aggregate_pass1_under_pallas(pallas):
+def test_sort_aggregate_pass1_under_pallas(spy):
     keys, pay = _columns()
     jt = jax_table(jnp.asarray(keys), jnp.asarray(pay))
     tt = make_table(torch.from_numpy(keys), torch.from_numpy(pay))
-    assert agg._pass1_sort_choice(tt) == "pallas"
     want = jax_agg.sort_aggregate(jt, with_group_of_row=True, with_distinct=True,
                                   compaction="sort")
     for with_row, operands in ((True, 3), (False, 2)):
         got = agg.sort_aggregate(tt, with_group_of_row=with_row, with_distinct=True)
-        assert pallas.take() == [operands]  # (key, payload[, row]): no mask
+        assert spy.take() == [operands]  # (key, payload[, row]): no mask
         _assert_groups(got, want, FIELDS + ("distinct",))
         if with_row:
             np.testing.assert_array_equal(got.group_of_row.numpy(),
@@ -271,13 +256,12 @@ def test_sort_aggregate_pass1_under_pallas(pallas):
         else:
             assert (got.group_of_row == -1).all()
     wide = make_table(torch.from_numpy(keys), torch.from_numpy(pay.astype(np.int64)))
-    assert agg._pass1_sort_choice(wide) == "xla"
     # int64 payloads keep the library sort (their sums do not wrap)
     _assert_groups(agg.sort_aggregate(wide), want, ("keys", "count", "min", "max"))
-    assert pallas.take() == []
+    assert spy.take() == []
 
 
-def test_filter_aggregates_pass1_under_pallas(pallas):
+def test_filter_aggregates_pass1_under_pallas(spy):
     keys, pay = _columns(n=12000, seed=9)
     jt = jax_table(jnp.asarray(keys), jnp.asarray(pay))
     tt = make_table(torch.from_numpy(keys), torch.from_numpy(pay))
@@ -292,7 +276,7 @@ def test_filter_aggregates_pass1_under_pallas(pallas):
         got, got_n = agg.filter_sort_aggregate(
             tt, even, group_capacity=900, with_group_of_row=with_row,
             with_distinct=True)
-        assert pallas.take() == [operands]
+        assert spy.take() == [operands]
         assert int(got_n) == int(want_n)
         _assert_groups(got, want, FIELDS + ("distinct",))
         if with_row:
@@ -300,24 +284,62 @@ def test_filter_aggregates_pass1_under_pallas(pallas):
                                           np.asarray(want.group_of_row))
     staged, staged_n = agg.filter_sort_aggregate_staged(
         tt, even, group_capacity=900, with_distinct=True)
-    assert pallas.take() == [2]  # the survivors, compacted: no mask
+    assert spy.take() == [2]  # the survivors, compacted: no mask
     assert int(staged_n) == int(want_n)
     _assert_groups(staged, want, FIELDS + ("distinct",))
 
 
+@pytest.mark.parametrize("operator", ["aggregate", "join_aggregate"])
+def test_distributed_combiner_sorts_through_k6(spy, operator):
+    """Each shard's combiner sorts its (key, payload) rows through K6, and
+    the groups equal a numpy GROUP BY (of the probe rows that match, for
+    the join)."""
+    rng = np.random.default_rng(12)
+    keys = rng.integers(0, 300, 5000).astype(np.int32)
+    pays = rng.integers(-100, 100, keys.size).astype(np.int32)
+    build = np.arange(0, 300, 2, dtype=np.int32)
+    mesh = pm.make_mesh(2, devices=["cpu"])
+    table = table_from_numpy(keys, pays, "cpu")
+    if operator == "aggregate":
+        g = DistributedAggregateOperator(mesh, seed=3).run(table)
+        sel = np.ones(keys.size, bool)
+    else:
+        g = DistributedJoinAggregateOperator(mesh, seed=3).run(
+            table_from_numpy(build, build, "cpu"), table)
+        sel = np.isin(keys, build)
+    assert spy.take() == [2, 2]  # one combiner per shard
+    n = int(g.num_groups)
+    got = {k: (c, s, lo, hi) for k, c, s, lo, hi in zip(
+        *(getattr(g, f)[:n].tolist() for f in FIELDS))}
+    want = {}
+    for k in np.unique(keys[sel]).tolist():
+        p = pays[sel][keys[sel] == k]
+        want[k] = (p.size, int(p.sum()), int(p.min()), int(p.max()))
+    assert got == want
+
+
 def test_query_plans_under_pallas_match_xla(spy):
-    """bench_pipeline's two plans give the same groups and top-10 under
-    both sorters (the naive plan's GROUP BY sorts through K6 too)."""
+    """bench_pipeline's two plans give the same groups and top-10, both
+    sorting through K6 (the naive plan's GROUP BY too), and equal a numpy
+    GROUP BY of the probe rows, every one of which matches."""
     rel = bench_pipeline.make_relations(3000, 40000, "cpu")
-    want = [bench_pipeline.run_query(*rel, 4096, ordered) for ordered in (True, False)]
-    assert spy.take() == []
-    mj.set_sort_impl("pallas")
-    try:
-        got = [bench_pipeline.run_query(*rel, 4096, ordered) for ordered in (True, False)]
-    finally:
-        mj.set_sort_impl("auto")
+    got = [bench_pipeline.run_query(*rel, 4096, ordered) for ordered in (True, False)]
     assert spy.take() == [2, 2, 2, 2, 2]
-    for (g, hot, count), (wg, whot, wcount) in zip(got, want):
-        assert int(count) == int(wcount) == 40000
-        assert bench_pipeline.plans_agree(g, wg)
-        assert torch.equal(hot.keys, whot.keys)
+    b_keys, b_pay = rel[2].numpy(), rel[3].numpy()
+    keys, counts = np.unique(b_keys, return_counts=True)
+    order = np.argsort(b_keys, kind="stable")
+    runs = np.cumsum(counts) - counts
+    sums = np.add.reduceat(b_pay[order].astype(np.int64), runs)
+    mins = np.minimum.reduceat(b_pay[order], runs)
+    maxs = np.maximum.reduceat(b_pay[order], runs)
+    want = dict(keys=keys, count=counts, sum=sums.astype(np.int32), min=mins,
+                max=maxs)
+    for g, hot, count in got:
+        assert int(count) == 40000 and int(g.num_groups) == keys.size
+        for f, w in want.items():
+            np.testing.assert_array_equal(getattr(g, f)[:keys.size].numpy(), w,
+                                          err_msg=f)
+        assert bench_pipeline.plans_agree(g, got[0][0])
+        assert torch.equal(hot.keys, got[0][1].keys)
+    top = np.sort(counts)[::-1][:10]
+    np.testing.assert_array_equal(got[0][1].keys.numpy(), top)
