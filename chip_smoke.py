@@ -68,7 +68,13 @@ and raises on the first failure:
              boundary), timed alone (median of 7, CUDA events) at 10M ⋈ 200M
              int64 Zipf(1.05) keys and 128M ⋈ 128M uniform unique int32 keys
              beside its bound, its plain version and the chain entries a row
-             walks.
+             walks.  Then the chained build kernel (no TPU counterpart)
+             against its plain version at both id widths (a long chain, wide
+             gaps, ids past the table and below 0, ragged lengths, columns
+             off a 16-byte boundary), timed alone at the chained cells'
+             builds (10M int64 keys into 2^24 buckets, 128M int32 keys into
+             2^27) beside its streamed bytes' bound, its plain version, the
+             histogram steps it replaced and the key gather beside it.
 4. library — at 10M ⋈ 200M: ``sort_merge_count`` and ``anti_count`` through
              K2, ``two_run_count_i64`` and an int64 ``PreparedBuild`` through
              K3, each exact.  Every key sort from here on is K6's, the
@@ -152,8 +158,9 @@ and raises on the first failure:
              row found holds its key, multiplicity 1.  Each step prints its
              host ms, its device ms between CUDA events, its peak allocated
              bytes and its K5/K7 launches and chained-probe launches
-             (``LAUNCHES_CHAINED_COUNT``: one a count join in (a), (a2) and
-             (b)); every hash runs on K7, (c)'s compaction on K5.
+             (``LAUNCHES_CHAINED_COUNT`` and ``LAUNCHES_CHAINED_BUILD``: one
+             each a count join in (a), (a2) and (b)); every hash runs on K7,
+             (c)'s compaction on K5.
 
 14. shuffle — the mesh and the distributed shuffle join at 10M ⋈ 200M on the
              CLI's relations, every shard on the one card: (a) ``cli.main
@@ -1735,6 +1742,101 @@ def parity_chained(torch, device):
             "bound_ms": bound, "library_ms": None}
 
 
+def _histogram_build(torch, bucket, order, nb):
+    """The build's steps after its sort before the build kernel, bar the
+    key gather: the ``bincount`` histogram, its scan after a 0, the casts
+    and the max."""
+    counts = torch.bincount(bucket, minlength=nb)[:nb]
+    offsets = torch.cat([counts.new_zeros((1,)), torch.cumsum(counts, 0)])
+    return order.to(torch.int32), offsets.to(torch.int32), counts.max().to(torch.int32)
+
+
+def _time_chained_build(torch, kcp, ht, name, keys):
+    """The build kernel alone on a chained cell's build (K7's buckets of
+    ``keys`` into ``chained_num_buckets`` buckets): median ms of 7 runs
+    (CUDA events) against its bound (its columns streamed once at the
+    card's memory rate), the histogram steps it replaced
+    (``_histogram_build``, which reads back twice), its plain version and
+    the key gather beside it.  All three tables must agree."""
+    n = keys.numel()
+    nb = ht.chained_num_buckets(n)
+    bucket = ht.hash_bits(keys, SEED) & (nb - 1)
+    sorted_bucket, order = torch.sort(bucket, stable=True)
+    args = (sorted_bucket, order, nb)
+    got = kcp.chained_build(*args)
+    for other in (kcp.chained_build_plain(*args), _histogram_build(torch, bucket, order, nb)):
+        _check(f"chained build {name}",
+               all(torch.equal(g, w) for g, w in zip(got, other)), "tables differ")
+    kernel_ms = _median_ms(torch, lambda: kcp.chained_build(*args), 7)
+    replaced_ms = _median_ms(torch, lambda: _histogram_build(torch, bucket, order, nb), 7)
+    plain_ms = _median_ms(torch, lambda: kcp.chained_build_plain(*args), 1)
+    gather_ms = _median_ms(torch, lambda: keys[order], 7)
+    streamed = n * (sorted_bucket.element_size() + 8 + 4) + (nb + 1) * 4
+    bound = _bound_ms(streamed)
+    log(f"[time chained build] {name}: chained_build {kernel_ms:.4f} ms (median of 7; "
+        f"{bound / kernel_ms:.1%} of the bound {bound:.4f} ms, {streamed:,} bytes: ids, "
+        f"order, entry rows, offsets); the histogram steps it replaced "
+        f"{replaced_ms:.4f} ms; plain {plain_ms:.4f} ms; the key gather beside it "
+        f"{gather_ms:.4f} ms; max chain {int(got[2])}; {n:,} rows, {nb:,} buckets ok")
+    del bucket, sorted_bucket, order, got, args
+    torch.cuda.empty_cache()
+    return kernel_ms, plain_ms, bound
+
+
+def parity_chained_build(torch, device):
+    """The chained build kernel (no TPU counterpart) against its plain
+    version on the card at both id widths: random ids at load 1, a chain of
+    100,001 rows, gaps of 999 empty buckets, ids up to 2^31 - 1 (2^40 at
+    int64) past the table, ids below 0, 1 to 9 rows, and the columns one
+    element off their 16-byte alignment; then timed at the two chained
+    cells' builds."""
+    from partitionedhashjoin_tpu_torch.ops import hash_table as ht
+    from partitionedhashjoin_tpu_torch.ops.kernels import chained_probe as kcp
+
+    par = Parity(torch, "chained build")
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 25)
+
+    def ids(lo, hi, n, dtype):
+        return torch.randint(lo, hi, (n,), generator=gen, device=device).to(dtype)
+
+    def off16(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=device)
+        buf[1:] = t
+        return buf[1:]
+
+    for id_dtype in (torch.int32, torch.int64):
+        top = I32_MAX if id_dtype == torch.int32 else 2**40
+        cases = (
+            ("random", ids(0, 1 << 20, 1_000_003, id_dtype), 1 << 20),
+            ("one chain", torch.full((100_001,), 3, dtype=id_dtype, device=device), 8),
+            ("gaps", ids(0, 1000, 30_007, id_dtype) * 1000, 1_000_003),
+            ("past the table", torch.cat([ids(0, 4097, 20_000, id_dtype),
+                                          ids(4097, top, 5_000, id_dtype)]), 4096),
+            ("below 0", ids(-50, 600, 9_999, id_dtype), 512),
+            *((f"{n} rows", ids(0, 6, n, id_dtype), 5) for n in (1, 2, 3, 5, 9)),
+        )
+        for cname, bucket, nb in cases:
+            sorted_bucket, order = torch.sort(bucket, stable=True)
+            for vname, cols in (("aligned", (sorted_bucket, order)),
+                                ("off 16 bytes", (off16(sorted_bucket), off16(order)))):
+                par.check_tensors(f"{id_dtype} ids, {cname}, {vname}",
+                                  lambda: kcp.chained_build(*cols, nb),
+                                  lambda: kcp.chained_build_plain(*cols, nb))
+    a, _ = _reference_data(torch, device, torch.int64)
+    kernel_ms, plain_ms, bound = _time_chained_build(
+        torch, kcp, ht, f"{N_PRIMARY:,} int64 keys", a)
+    del a
+    torch.cuda.empty_cache()
+    gen.manual_seed(SEED + 128)
+    a = (torch.randperm(N_UNIFORM, generator=gen, device=device) + 1).to(torch.int32)
+    _time_chained_build(torch, kcp, ht, f"{N_UNIFORM:,} uniform unique int32 keys", a)
+    del a
+    torch.cuda.empty_cache()
+    return {"max_abs_err": par.max_err, "ms": kernel_ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "library_ms": None}
+
+
 def _sass_mixes(sass, function, loop):
     """SASS instructions of one round of the Zipf sampler, by opcode, in the
     function of ``cuobjdump -sass`` output ``sass`` whose mangled name
@@ -2019,7 +2121,7 @@ def _reset_counts():
     kc.LAUNCHES = bs.LAUNCHES_BLOCKS = bs.LAUNCHES_MERGE = 0
     bs.LAUNCHES_UPSWEEP = bs.LAUNCHES_SORT = bs.SWEEPS_SKIPPED = 0
     kg.LAUNCHES_HASH = kg.LAUNCHES_HASH64 = kg.LAUNCHES_ZIPF = 0
-    kg.LAUNCHES_UNIFORMS = kcp.LAUNCHES_CHAINED_COUNT = 0
+    kg.LAUNCHES_UNIFORMS = kcp.LAUNCHES_CHAINED_COUNT = kcp.LAUNCHES_CHAINED_BUILD = 0
 
 
 def _read_counts():
@@ -2029,7 +2131,8 @@ def _read_counts():
             "k6a": bs.LAUNCHES_BLOCKS, "k6b": bs.LAUNCHES_MERGE,
             "k6": bs.LAUNCHES_UPSWEEP + bs.LAUNCHES_SORT,
             "k7": kg.LAUNCHES_HASH, "k7i64": kg.LAUNCHES_HASH64,
-            "k8": kg.LAUNCHES_ZIPF, "chained": kcp.LAUNCHES_CHAINED_COUNT}
+            "k8": kg.LAUNCHES_ZIPF, "chained": kcp.LAUNCHES_CHAINED_COUNT,
+            "chained_build": kcp.LAUNCHES_CHAINED_BUILD}
 
 
 def _k6_sweeps():
@@ -2745,7 +2848,8 @@ def _hash_step(torch, launches, card_line, name, fn, kernels):
         f"{times[0][1]:.4f} ms (CUDA events); warm host {times[1][0]:.3f} ms, device "
         f"{times[1][1]:.4f} ms; peak allocated {peak} B; launches k5 {counts['k5']}, "
         f"k7 {counts['k7']}, k7 int64 {counts['k7i64']}, chained count "
-        f"{counts['chained']} (LAUNCHES_CHAINED_COUNT)")
+        f"{counts['chained']} (LAUNCHES_CHAINED_COUNT), chained build "
+        f"{counts['chained_build']} (LAUNCHES_CHAINED_BUILD)")
     return first
 
 
@@ -2814,7 +2918,8 @@ def phase_hash(torch, device, launches, card_line, rel):
             seed=SEED)),
     )
     for name, make in joins:
-        count = step(name, lambda: make().run(table_a, table_b), ("k7", "chained"))
+        count = step(name, lambda: make().run(table_a, table_b),
+                     ("k7", "chained", "chained_build"))
         _check(name, count == N_SECONDARY, f"count {count}")
         count, part, build, probe = _timed_join(make, table_a, table_b)
         _check(name, count == N_SECONDARY, f"count {count}")
@@ -2900,7 +3005,8 @@ def _phase_hash_i64(torch, step, card_line, a_keys, b_keys):
         return NoPartitioningHashJoiner(NoPartitioningConfiguration(mode="chained"),
                                         seed=SEED)
 
-    count = step(name, lambda: make().run(table_a, table_b), ("k7i64", "chained"))
+    count = step(name, lambda: make().run(table_a, table_b),
+                 ("k7i64", "chained", "chained_build"))
     _check(name, count == want, f"count {count}, reference {want}")
     count, part, build, probe = _timed_join(make, table_a, table_b)
     _check(name, count == want, f"count {count}, reference {want}")
@@ -3727,9 +3833,11 @@ def main() -> int:
     stats["hash_keys"] = parity_k7(torch, device)
     stats["hash_keys_i64"] = parity_k7_i64(torch, device)
     stats["chained_count"] = parity_chained(torch, device)
+    stats["chained_build"] = parity_chained_build(torch, device)
     stats["zipf_keys_pallas"] = parity_k8(torch, device, card)
     launches = dict.fromkeys(("k1", "k2", "k3", "k4", "k5", "k6a", "k6b",
-                              "k6", "k7", "k7i64", "k8", "chained"), 0)
+                              "k6", "k7", "k7i64", "k8", "chained",
+                              "chained_build"), 0)
     phase_library(torch, device, launches)
     phase_main(torch, launches)
     phase_query(torch, device, launches)
@@ -3760,6 +3868,7 @@ def main() -> int:
         ("hash_keys", "k7", "generate.cu", "generate.py:46"),
         ("hash_keys_i64", "k7i64", "generate.cu", "generate.py:46"),
         ("chained_count", "chained", "chained_probe.cu", None),
+        ("chained_build", "chained_build", "chained_probe.cu", None),
         ("zipf_keys_pallas", "k8", "generate.cu", "generate.py:103"),
     )
     kernels = []

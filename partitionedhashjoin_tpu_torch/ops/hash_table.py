@@ -17,10 +17,12 @@ the same names and the same results bit for bit:
   int32 value.
 - **Chained** (``build_chained``, ``probe_chained_*``): one stable sort by
   bucket; rows sorted by bucket are the chains, and ``offsets`` delimit
-  them.  The count probe walks each row's chain in one hand-written kernel
-  (``kernels/chained_probe``, its plain version on a CPU tensor), which has
-  no JAX counterpart; the other probes compare a window of
-  ``PROBE_WINDOW`` chain entries per pass.
+  them.  One pass over the sorted bucket ids and the sort's permutation
+  writes the offsets, the entry rows and the longest chain (JAX scatters a
+  histogram and takes its ``cumsum``), and the count probe walks each
+  row's chain; both are hand-written kernels (``kernels/chained_probe``,
+  their plain versions on a CPU tensor) with no JAX counterpart.  The other
+  probes compare a window of ``PROBE_WINDOW`` chain entries per pass.
   It takes int32 and int64 keys (``_chained_keys``); the other tables take
   int32 keys only (``_as_i32_keys``).
 - **Dedup** (``build_dedup_hash_table``): the claim loop where a row that
@@ -356,18 +358,23 @@ def build_chained_from_buckets(
     bucket: torch.Tensor, keys: torch.Tensor, seed, num_buckets: int
 ) -> ChainedHashTable:
     """Chained build from precomputed bucket ids: one stable sort by bucket,
-    so each chain keeps build-row order.  The radix join computes its
+    so each chain keeps build-row order, then one pass over the sorted ids
+    and the sort's permutation (``kernels/chained_probe.chained_build``)
+    writes the offsets (``offsets[b]`` is the first sorted row whose id is
+    >= b, so an id at or past ``num_buckets`` is in no chain), the entry
+    rows and the longest chain, which stays on the device; the keys are
+    gathered in sorted order.  The radix join computes its
     partition-segmented bucket ids itself; plain tables use
     ``build_chained``."""
     keys = _chained_keys(keys)
-    _, order = torch.sort(bucket, stable=True)
-    counts = torch.bincount(bucket, minlength=num_buckets)[:num_buckets]
-    offsets = torch.cat([counts.new_zeros((1,)), torch.cumsum(counts, 0)])
+    sorted_bucket, order = torch.sort(bucket, stable=True)
+    entry_rows, offsets, max_chain = kchained.chained_build(
+        sorted_bucket, order, num_buckets)
     return ChainedHashTable(
         entry_keys=keys[order],
-        entry_rows=order.to(torch.int32),
-        offsets=offsets.to(torch.int32),
-        max_chain=counts.max().to(torch.int32),
+        entry_rows=entry_rows,
+        offsets=offsets,
+        max_chain=max_chain,
         seed=_seed(seed),
     )
 

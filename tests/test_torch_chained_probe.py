@@ -1,10 +1,13 @@
-"""The chained-probe count kernel's wrapper (``ops/kernels/chained_probe``) on
-the CPU: its argument checks, and its plain version, which the port's count
-probe runs on a CPU tensor, against ``torch.isin`` at every pair of key
-widths.
+"""The chained table's kernel wrappers (``ops/kernels/chained_probe``) on the
+CPU: their argument checks and their plain versions, which the port's build
+and count probe run on a CPU tensor.  The build's plain version is held to
+the histogram formulation it replaced (``bincount``, ``cumsum``, a leading
+0) on the edges of its offsets; the count's to ``torch.isin`` at every pair
+of key widths.
 
-The kernel itself runs only on the card (``tests/test_torch_cuda.py``).  No
-JAX here: the kernel has no JAX counterpart.
+The kernels themselves run only on the card (``tests/test_torch_cuda.py``).
+No JAX here: the JAX package's table is compared in
+``tests/test_torch_hash_table.py``.
 """
 
 import numpy as np
@@ -12,6 +15,7 @@ import pytest
 import torch
 
 from partitionedhashjoin_tpu_torch.ops import hash_table as ht
+from partitionedhashjoin_tpu_torch.ops import radix, radix_cluster
 from partitionedhashjoin_tpu_torch.ops.kernels import chained_probe as kcp
 
 torch.set_num_threads(1)
@@ -149,3 +153,140 @@ def test_wrapper_rejects_other_devices():
         kcp.chained_count(**meta)
     with pytest.raises(ValueError, match="different devices"):
         kcp.chained_count(**dict(meta, keys=probe))
+
+
+# ---------------------------------------------------------------- the build
+
+
+def _histogram_table(bucket, keys, num_buckets):
+    """The build as it was before the one-pass kernel: a stable sort, then a
+    ``bincount`` of the ids below ``num_buckets``, its ``cumsum`` after a
+    0, and its max."""
+    _, order = torch.sort(bucket, stable=True)
+    counts = torch.bincount(bucket, minlength=num_buckets)[:num_buckets]
+    offsets = torch.cat([counts.new_zeros((1,)), torch.cumsum(counts, 0)])
+    return (keys[order], order.to(torch.int32), offsets.to(torch.int32),
+            counts.max().to(torch.int32))
+
+
+def _segmented_ids(n=3000, partitions=16):
+    """The radix joiner's partition-segmented bucket ids of ``n`` keys, and
+    its bucket count."""
+    keys = torch.from_numpy(np.random.default_rng(9).integers(
+        I32_MIN, I32_MAX, n, dtype=np.int64)).to(torch.int32)
+    part, hist, _ = radix.radix_partition_keys(keys, 5, partitions)
+    boff, bcnt = ht.segment_geometry(hist, ratio=1.0)
+    bucket = radix_cluster._segment_bucket_ids(part, 5, 6, boff, bcnt, partitions)
+    return bucket, ht.segmented_capacity(n, partitions, ratio=1.0)
+
+
+def build_case(name):
+    """``(bucket ids, num_buckets)`` of one build edge: int32 ids, every
+    one >= 0."""
+    rng = np.random.default_rng(len(name))
+
+    def ids(a):
+        return torch.from_numpy(np.asarray(a, np.int64)).to(torch.int32)
+
+    if name == "empty":
+        return ids([]), 4
+    if name == "one_bucket_table":  # num_buckets = 1
+        return ids(np.zeros(37)), 1
+    if name == "one_chain":  # every row in bucket 5 of 8
+        return ids(np.full(1001, 5)), 8
+    if name == "gaps":  # empty buckets at the front, in the middle, at the end
+        return ids(rng.permutation(np.repeat([9, 10, 40, 41, 41, 70], 13))), 100
+    if name == "past_the_table":  # ids at and past num_buckets: no chain
+        return ids(rng.permutation(np.concatenate(
+            [rng.integers(0, 64, 700), np.full(50, 64), rng.integers(65, 3000, 90)]))), 64
+    if name == "all_past_the_table":
+        return ids(rng.integers(16, 300, 95)), 16
+    if name == "random":  # load ~1, ragged length
+        return ids(rng.integers(0, 4096, 4093)), 4096
+    if name == "segmented":
+        return _segmented_ids()
+    raise KeyError(name)
+
+
+BUILD_CASES = ("empty", "one_bucket_table", "one_chain", "gaps", "past_the_table",
+               "all_past_the_table", "random", "segmented")
+
+
+def _build_keys(bucket, dtype):
+    """Distinct build keys, at int64 spread past int32's range."""
+    n = bucket.numel()
+    keys = torch.arange(n, dtype=torch.int64) * 7919 - 3 * n
+    if dtype == torch.int64:
+        keys = keys * (2**33 + 1)
+    return keys.to(dtype)
+
+
+@pytest.mark.parametrize("key_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("case", BUILD_CASES)
+def test_plain_build_matches_histogram_build(case, key_dtype):
+    """``chained_build_plain`` and ``build_chained_from_buckets`` on the CPU
+    give the table the histogram formulation gave, field for field and
+    dtype for dtype, and every id past the table stays among the entries
+    but in no chain."""
+    bucket, nb = build_case(case)
+    keys = _build_keys(bucket, key_dtype)
+    want = _histogram_table(bucket, keys, nb)
+    sorted_bucket, order = torch.sort(bucket, stable=True)
+    got = (keys[order], *kcp.chained_build_plain(sorted_bucket, order, nb))
+    table = ht.build_chained_from_buckets(bucket, keys, 3, nb)
+    fields = (table.entry_keys, table.entry_rows, table.offsets, table.max_chain)
+    for w, g, t in zip(want, got, fields):
+        assert w.dtype == g.dtype == t.dtype and w.shape == g.shape == t.shape
+        assert torch.equal(w, g) and torch.equal(w, t)
+    assert table.offsets.shape == (nb + 1,) and table.max_chain.dim() == 0
+    assert int(table.offsets[-1]) == int((bucket < nb).sum())
+    assert sorted(table.entry_rows.tolist()) == list(range(bucket.numel()))
+
+
+def test_cpu_build_runs_the_plain_version(monkeypatch):
+    """``build_chained`` of a CPU tensor calls the build wrapper, which runs
+    ``chained_build_plain`` and launches nothing."""
+    calls = []
+    real = kcp.chained_build_plain
+    monkeypatch.setattr(kcp, "chained_build_plain",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    before = kcp.LAUNCHES_CHAINED_BUILD
+    build, _ = _operands(torch.int32, torch.int32)
+    ht.build_chained(build, 3, ht.chained_num_buckets(build.numel()))
+    assert len(calls) == 1 and kcp.LAUNCHES_CHAINED_BUILD == before
+
+
+def _build_args():
+    bucket, nb = build_case("random")
+    sorted_bucket, order = torch.sort(bucket, stable=True)
+    return dict(sorted_bucket=sorted_bucket, order=order, num_buckets=nb)
+
+
+@pytest.mark.parametrize("name,value", [
+    ("sorted_bucket", torch.zeros(4093, dtype=torch.int16)),
+    ("sorted_bucket", torch.zeros(4093, dtype=torch.float32)),
+    ("sorted_bucket", torch.zeros((1, 4093), dtype=torch.int32)),
+    ("order", torch.zeros(4093, dtype=torch.int32)),
+    ("order", torch.zeros((4093, 1), dtype=torch.int64)),
+    ("order", list(range(4093))),
+])
+def test_build_wrapper_rejects_wrong_dtype_or_rank(name, value):
+    with pytest.raises(TypeError, match=name):
+        kcp.chained_build(**dict(_build_args(), **{name: value}))
+
+
+def test_build_wrapper_rejects_wrong_shape_layout_and_values():
+    args = _build_args()
+    with pytest.raises(ValueError, match="does not match"):
+        kcp.chained_build(**dict(args, order=args["order"][:-1].contiguous()))
+    with pytest.raises(ValueError, match="contiguous"):
+        kcp.chained_build(**dict(args, order=torch.zeros(2 * 4093, dtype=torch.int64)[::2]))
+    for nb in (0, -1, 2**31 - 1):
+        with pytest.raises(ValueError, match="num_buckets"):
+            kcp.chained_build(**dict(args, num_buckets=nb))
+    meta = dict(args, sorted_bucket=args["sorted_bucket"].to("meta"),
+                order=args["order"].to("meta"))
+    with pytest.raises(ValueError, match="unsupported device"):
+        kcp.chained_build(**meta)
+    with pytest.raises(ValueError, match="different devices"):
+        kcp.chained_build(**dict(meta, order=args["order"]))

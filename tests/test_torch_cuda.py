@@ -1404,8 +1404,9 @@ def test_chained_probe_on_card_counts_once_per_call(cuda, probe_dtype, entry_dty
 
 def test_chained_joiners_on_card_launch_the_kernel_once(cuda):
     """The no-partitioning chained join and the radix chained join (its
-    segmented bucket ids under the all-ones mask) count on the kernel, once
-    a join, and equal the CPU port and ``torch.isin``."""
+    segmented bucket ids under the all-ones mask) build on the build kernel
+    and count on the count kernel, each once a join, and equal the CPU port
+    and ``torch.isin``."""
     from partitionedhashjoin_tpu_torch.ops.kernels import chained_probe as kcp
 
     a, b = _hash_relations(4)
@@ -1417,11 +1418,13 @@ def test_chained_joiners_on_card_launch_the_kernel_once(cuda):
                  lambda: RadixHashJoiner(
                      RadixClusteringConfiguration(number_of_partitions=64, mode="chained"),
                      seed=9)):
-        before = kcp.LAUNCHES_CHAINED_COUNT
+        before, built = kcp.LAUNCHES_CHAINED_COUNT, kcp.LAUNCHES_CHAINED_BUILD
         assert make().run(*gpu) == want
         assert kcp.LAUNCHES_CHAINED_COUNT == before + 1
+        assert kcp.LAUNCHES_CHAINED_BUILD == built + 1
         assert make().run(*cpu) == want
         assert kcp.LAUNCHES_CHAINED_COUNT == before + 1
+        assert kcp.LAUNCHES_CHAINED_BUILD == built + 1
 
 
 def test_chained_count_wrapper_rejects_mixed_devices(cuda):
@@ -1431,6 +1434,125 @@ def test_chained_count_wrapper_rejects_mixed_devices(cuda):
     offsets = torch.tensor([0, 8], dtype=torch.int32)
     with pytest.raises(ValueError, match="different devices"):
         kcp.chained_count(keys.to(cuda), keys.to(cuda), 0, offsets, keys.to(cuda))
+
+
+def _build_ids(case, id_dtype):
+    """``(bucket ids, num_buckets)`` on the CPU for one build case of the
+    card's build kernel: ragged lengths around a thread's 4-row group and a
+    warp's 128 rows, one long chain, runs of empty buckets longer than a
+    warp's stage of offsets, ids far past the table and below 0."""
+    rng = np.random.default_rng(2500)
+    if case == "random":
+        ids, nb = rng.integers(0, 1 << 20, 1_000_003), 1 << 20
+    elif case == "one_chain":
+        ids, nb = np.full(100_001, 3), 8
+    elif case == "gaps":  # runs of empty buckets far longer than a group
+        ids, nb = rng.integers(0, 1000, 30_007) * 1000, 1_000_000 + 3
+    elif case == "past_the_table":
+        top = I32_MAX if id_dtype == torch.int32 else 2**40
+        ids = np.concatenate([rng.integers(0, 4096, 20_000), np.full(99, 4096),
+                              rng.integers(4097, top, 5_000, dtype=np.int64)])
+        nb = 4096
+    elif case == "below_zero":
+        ids, nb = rng.integers(-50, 600, 9_999), 512
+    elif case.startswith("tiny"):
+        n = int(case[4:])
+        ids, nb = rng.integers(0, 6, n), 5
+    else:
+        raise KeyError(case)
+    return torch.from_numpy(rng.permutation(np.asarray(ids, np.int64))).to(id_dtype), nb
+
+
+BUILD_CASES = ("random", "one_chain", "gaps", "past_the_table", "below_zero",
+               "tiny1", "tiny2", "tiny3", "tiny5", "tiny9")
+
+
+@pytest.mark.parametrize("case", BUILD_CASES)
+@pytest.mark.parametrize("id_dtype", [torch.int32, torch.int64])
+def test_chained_build_kernel_matches_plain(cuda, case, id_dtype):
+    """The build kernel's entry rows, offsets and longest chain are
+    bit-identical to its plain version's at both id widths, and with both
+    columns one element off their 16-byte alignment (the kernel's
+    one-row-at-a-time path)."""
+    from partitionedhashjoin_tpu_torch.ops.kernels import chained_probe as kcp
+
+    bucket, nb = _build_ids(case, id_dtype)
+    sorted_bucket, order = torch.sort(bucket.to(cuda), stable=True)
+    want = kcp.chained_build_plain(sorted_bucket.cpu(), order.cpu(), nb)
+    got = kcp.chained_build(sorted_bucket, order, nb)
+    for name, g, w in zip(("entry_rows", "offsets", "max_chain"), got, want):
+        assert g.device.type == "cuda" and g.dtype == w.dtype, name
+        assert torch.equal(g.cpu(), w), name
+    if case == "one_chain":
+        assert int(got[2]) == bucket.numel()
+    shifted = [_off16(t) for t in (sorted_bucket, order)]
+    assert all(t.data_ptr() % 16 for t in shifted)
+    for name, g, w in zip(("entry_rows", "offsets", "max_chain"),
+                          kcp.chained_build(*shifted, nb), want):
+        assert torch.equal(g.cpu(), w), name
+
+
+def _off16(t):
+    """A copy of the 1-D ``t`` that starts one element past a 16-byte
+    boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    buf[1:] = t
+    return buf[1:]
+
+
+@pytest.mark.parametrize("n,log2_buckets,key_dtype", [
+    (10_000_000, 24, torch.int64),  # upstream_nopart_chained's build
+    (128_000_000, 27, torch.int32),  # kimb_nopart_chained's build
+])
+def test_chained_build_kernel_at_full_size(cuda, n, log2_buckets, key_dtype):
+    """At the chained cells' shapes, on K7's buckets of unique keys of the
+    cell's width, the build kernel is bit-identical to its plain version on
+    the card."""
+    from partitionedhashjoin_tpu_torch.ops import hash_table as ht
+    from partitionedhashjoin_tpu_torch.ops.kernels import chained_probe as kcp
+
+    g = torch.Generator(device=cuda).manual_seed(n)
+    keys = (torch.randperm(n, generator=g, device=cuda) + 1).to(key_dtype)
+    nb = 1 << log2_buckets
+    assert ht.chained_num_buckets(n) == nb
+    sorted_bucket, order = torch.sort(ht.hash_bits(keys, 7) & (nb - 1), stable=True)
+    got = kcp.chained_build(sorted_bucket, order, nb)
+    want = kcp.chained_build_plain(sorted_bucket, order, nb)
+    for name, a, b in zip(("entry_rows", "offsets", "max_chain"), got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b), name
+    assert int(got[1][-1]) == n and 1 < int(got[2]) < 32
+
+
+def test_chained_build_on_card_launches_once_and_reads_nothing_back(cuda):
+    """A chained build on the card launches the build kernel once (none on
+    the CPU), no histogram, scan or cat, and waits on no value from the
+    card: its longest chain stays there."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from partitionedhashjoin_tpu_torch.ops import hash_table as ht
+    from partitionedhashjoin_tpu_torch.ops.kernels import chained_probe as kcp
+
+    a, _ = _hash_relations(6, n_a=300_000)
+    nb = ht.chained_num_buckets(a.numel())
+    ac = a.to(cuda)
+    ht.build_chained(ac, 9, nb)  # warm: the library is built and loaded
+    torch.cuda.synchronize()
+    for _ in range(2):
+        before = kcp.LAUNCHES_CHAINED_BUILD
+        ht.build_chained(ac, 9, nb)
+        assert kcp.LAUNCHES_CHAINED_BUILD == before + 1
+    ht.build_chained(a, 9, nb)
+    assert kcp.LAUNCHES_CHAINED_BUILD == before + 1
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        table = ht.build_chained(ac, 9, nb)
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages()]
+    assert any("chained_build_kernel" in k for k in names), names
+    for banned in ("kernelHistogram1D", "aten::bincount", "DeviceScanKernel",
+                   "aten::cumsum", "CatArrayBatchedCopy", "aten::cat", "aten::max",
+                   "_local_scalar_dense", "aten::item", "cudaStreamSynchronize"):
+        assert not [k for k in names if banned in k], (banned, names)
+    assert table.max_chain.device.type == "cuda" and table.max_chain.dim() == 0
 
 
 def test_radix_partition_on_card_matches_cpu(cuda):

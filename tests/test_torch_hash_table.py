@@ -23,6 +23,8 @@ from partitionedhashjoin_tpu_torch.ops import radix
 from partitionedhashjoin_tpu_torch.ops.kernels import chained_probe as kcp
 from partitionedhashjoin_tpu_torch.ops.kernels import generate as kgen
 
+import test_torch_chained_probe
+
 torch.set_num_threads(1)
 
 I32_MAX = np.iinfo(np.int32).max
@@ -226,6 +228,26 @@ def test_chained_count_plain_matches_window_scan(case, skip):
             jtable, jnp.asarray(probe), jnp.zeros(probe.size, jnp.int32),
             skip=jnp.int32(skip)) if probe.size else 0
         assert int(got) == int(jwant) == want
+
+
+@pytest.mark.parametrize("case", test_torch_chained_probe.BUILD_CASES)
+def test_chained_build_from_buckets_matches_jax(case):
+    """The port's build from bucket ids (its one-pass build's plain version
+    on the CPU) gives JAX's table, read through
+    ``ChainedHashTable.from_numpy``, on every edge of the offsets: an empty
+    build, one bucket, one chain, empty buckets at both ends and between,
+    ids at and past the table, the radix joiner's segmented ids."""
+    bucket, nb = test_torch_chained_probe.build_case(case)
+    keys = test_torch_chained_probe._build_keys(bucket, torch.int32)
+    j = jht.build_chained_from_buckets(jnp.asarray(bucket.numpy()),
+                                       jnp.asarray(keys.numpy()), jnp.uint32(3), nb)
+    want = ht.ChainedHashTable.from_numpy(j.entry_keys, j.entry_rows, j.offsets,
+                                          j.max_chain, j.seed)
+    got = ht.build_chained_from_buckets(bucket, keys, 3, nb)
+    for f in ("entry_keys", "entry_rows", "offsets", "max_chain"):
+        w, g = getattr(want, f), getattr(got, f)
+        assert w.dtype == g.dtype and torch.equal(w, g), f
+    assert got.seed == want.seed == 3
 
 
 def _one_bucket_table(build):
