@@ -1,4 +1,5 @@
-"""Hooks of the whole test suite: the `slow` marker and a per-test time limit.
+"""Hooks of the whole test suite: the `slow` marker, a per-test time limit and
+the benchmark tests' tiny form of a newer configuration.
 
 pytest loads this file for any run started at the repository's root, before
 tests/conftest.py, which belongs to the JAX package's suite and is kept as it
@@ -33,6 +34,12 @@ SLOW_TESTS = (
 # measured on 8 CPU cores (~600 s, under load).
 TEST_TIME_LIMIT_S = 900
 
+# Tiny forms of benchmark configurations younger than the map of
+# benchmark/tests/conftest.py (TINY), which a PR that adds a configuration may
+# not edit: set on each collected module's tiny_bench, as benchmark/conftest.py
+# sets its own, so any one file of benchmark/tests runs alone.
+BENCH_TINY = {"upstream_groupby_200M_zipf105": "tiny_zipf"}
+
 _stderr_fd = pytest.StashKey[int]()
 
 
@@ -55,6 +62,10 @@ def pytest_collection_modifyitems(items):
     for item in items:
         if f"{item.path.name}::{item.nodeid.partition('::')[2]}" in SLOW_TESTS:
             item.add_marker(pytest.mark.slow)
+    for module in {getattr(item, "module", None) for item in items}:
+        tiny_bench = getattr(module, "tiny_bench", None)
+        if tiny_bench is not None:
+            tiny_bench.__globals__["TINY"].update(BENCH_TINY)
 
 
 @pytest.hookimpl(wrapper=True)

@@ -8,10 +8,21 @@ representative, the key's smallest valid row id, in rounds set by
 distinct-key collisions, not by duplication.  Representatives are numbered
 in row order, so groups come in the order of their keys' first valid rows;
 COUNT and SUM are ``index_add_`` and MIN/MAX ``scatter_reduce`` with
-``include_self`` over the dtype's max/min onto the group vector.  Outputs
+``include_self`` over the dtype's max/min onto a vector of the G groups,
+where group g sits at g * ``_SPREAD`` mod G, gathered back in group order
+(the heaviest keys take the first ids, and ids in one 128-byte line would
+serialize their atomics together).  Outputs
 are ``n`` long with JAX's fill values past ``num_groups`` (0 for keys,
 counts and sums, the dtype's max for MIN, its min for MAX).  A filter's
-rejected rows are never inserted and join no group.
+rejected rows are never inserted and join no group.  Keys are int32 or
+int64: an int64 key keeps its 8 bytes in the dedup table and in
+``keys``, so keys that differ above bit 31 are distinct groups (the JAX
+package's hash layer is 32-bit, so int64 keys have no JAX counterpart).
+Both take an optional ``utils/results.IHashJoinTimer``, as the joiners'
+``run`` does: its build phase is the dedup claim loop, its probe phase the
+grouping and the COUNT/SUM/MIN/MAX scatters, each closed by a device
+barrier; without a timer nothing synchronizes.  The loop's rounds are
+counted in ``hash_table.CLAIM_ROUNDS``.
 
 **Sort family**: one sort puts every group in a contiguous run ordered by
 (valid, key, payload), so the run starts give the groups and everything
@@ -55,6 +66,15 @@ from partitionedhashjoin_tpu_torch.ops import hash_table as ht
 from partitionedhashjoin_tpu_torch.ops.sort import sort_by_key_payload
 from partitionedhashjoin_tpu_torch.ops.kernels import bitonic_sort
 from partitionedhashjoin_tpu_torch.ops.kernels import compact as kcompact
+from partitionedhashjoin_tpu_torch.utils.device import sync
+from partitionedhashjoin_tpu_torch.utils.results import (
+    IHashJoinTimer,
+    NoOpHashJoinTimer,
+)
+
+#: A prime above any group count (< 2^32, so g * _SPREAD fits int64): the
+#: hash GROUP BY accumulates group g of G at g * _SPREAD mod G.
+_SPREAD = 2654435761
 
 
 def masked_mean(count, total, dtype=torch.float32) -> torch.Tensor:
@@ -88,13 +108,22 @@ class GroupByResult:
 
 
 def _group_and_aggregate(keys, payloads, seed, size, valid=None,
-                         has_valid=False) -> GroupByResult:
+                         has_valid=False,
+                         timer: Optional[IHashJoinTimer] = None) -> GroupByResult:
     """The hash GROUP BY over a dedup table of ``size`` slots: outputs of
-    ``n`` rows, groups in the order of their keys' first valid rows."""
+    ``n`` rows, groups in the order of their keys' first valid rows.  With
+    a ``timer``, each phase ends at a device barrier."""
     n = keys.shape[0]
     device = keys.device
+    timed = timer is not None
+    timer = timer or NoOpHashJoinTimer()
+    timer.set_build_phase_begin()
     _, rep_row = ht.build_dedup_hash_table(keys, seed, size, valid=valid,
                                            has_valid=has_valid)
+    if timed:
+        sync(device)
+    timer.set_build_phase_end()
+    timer.set_probe_phase_begin()
     # every rep_row value is a row that owns its slot, and an owner is its
     # own representative, so the rows JAX flags by scattering 1 at each
     # row's rep_row are exactly the rows with rep_row[i] == i
@@ -106,16 +135,27 @@ def _group_and_aggregate(keys, payloads, seed, size, valid=None,
     # only rows of a group scatter (JAX drops the others into a dump slot,
     # which on the card would serialize every rejected row on one address)
     rows = torch.nonzero(valid_row).squeeze(1)
-    gid = group_of_row[rows].to(torch.int64)
     pay = payloads[rows]
+    reps = torch.nonzero(is_rep).squeeze(1)
+    # the heaviest keys come first, so they take the smallest group ids, and
+    # ids in one 128-byte line serialize their atomics together in L2: group
+    # g accumulates at g * _SPREAD mod G, a bijection of [0, G) that keeps
+    # the accumulators as compact as the ids, and is gathered back in order
+    groups = max(reps.shape[0], 1)
+    slot = group_of_row[rows].to(torch.int64).mul_(_SPREAD).remainder_(groups)
+    back = torch.arange(reps.shape[0], device=device).mul_(_SPREAD).remainder_(groups)
 
     def scatter(fill, dtype, values, reduce):
-        out = torch.full((n,), fill, dtype=dtype, device=device)
+        acc = torch.full((groups,), fill, dtype=dtype, device=device)
         if reduce == "sum":
-            return out.index_add_(0, gid, values)
-        return out.scatter_reduce_(0, gid, values, reduce)
+            acc.index_add_(0, slot, values)
+        else:
+            acc.scatter_reduce_(0, slot, values, reduce)
+        out = torch.full((n,), fill, dtype=dtype, device=device)
+        out[: back.shape[0]] = acc[back]
+        return out
 
-    count = scatter(0, torch.int32, torch.ones_like(gid, dtype=torch.int32), "sum")
+    count = scatter(0, torch.int32, torch.ones_like(slot, dtype=torch.int32), "sum")
     pdt = payloads.dtype
     if pdt.is_floating_point:
         sum_ = scatter(0, pdt, pay, "sum")
@@ -126,9 +166,8 @@ def _group_and_aggregate(keys, payloads, seed, size, valid=None,
         sum_ = _wrap(scatter(0, torch.int64, pay.to(torch.int64), "sum"), pdt)
         info = torch.iinfo(pdt)
     group_keys = torch.zeros((n,), dtype=keys.dtype, device=device)
-    reps = torch.nonzero(is_rep).squeeze(1)
     group_keys[: reps.shape[0]] = keys[reps]
-    return GroupByResult(
+    result = GroupByResult(
         keys=group_keys,
         count=count,
         sum=sum_,
@@ -137,25 +176,34 @@ def _group_and_aggregate(keys, payloads, seed, size, valid=None,
         num_groups=is_rep.sum(dtype=torch.int32),
         group_of_row=group_of_row,
     )
+    if timed:
+        sync(device)
+    timer.set_probe_phase_end()
+    return result
 
 
-def hash_aggregate(table: Table, seed: int = 0) -> GroupByResult:
-    """GROUP BY ``table.keys``, aggregating ``table.payloads``, through the
-    dedup hash table."""
+def hash_aggregate(table: Table, seed: int = 0,
+                   timer: Optional[IHashJoinTimer] = None) -> GroupByResult:
+    """GROUP BY ``table.keys`` (int32 or int64), aggregating
+    ``table.payloads``, through the dedup hash table; ``timer`` as in the
+    module note."""
     return _group_and_aggregate(table.keys, table.payloads, seed & 0xFFFFFFFF,
-                                ht.table_size_for(table.size))
+                                ht.table_size_for(table.size), timer=timer)
 
 
-def filter_aggregate(table: Table, predicate, seed: int = 0):
+def filter_aggregate(table: Table, predicate, seed: int = 0,
+                     timer: Optional[IHashJoinTimer] = None):
     """Filter → hash-aggregate pipeline (BASELINE.json configs[3]): rows
     failing ``predicate(keys, payloads)`` are never inserted into the dedup
     table and join no group, so no filtered table is
     materialized.  Returns ``(GroupByResult of the selected rows,
-    selected_row_count)``; ``group_of_row`` is -1 for filtered-out rows."""
+    selected_row_count)``; ``group_of_row`` is -1 for filtered-out rows.
+    The predicate runs before the timer's build phase."""
     mask = predicate(table.keys, table.payloads).to(torch.bool)
     g = _group_and_aggregate(
         table.keys, table.payloads, seed & 0xFFFFFFFF,
         ht.table_size_for(table.size), valid=mask, has_valid=True,
+        timer=timer,
     )
     return g, mask.sum()
 

@@ -14,7 +14,7 @@ the same names and the same results bit for bit:
   whatever order the device applies the updates in.  A probe walks the chain
   in lockstep to a key match, an empty slot or the recorded ``max_probe``.
   Slot occupancy lives in ``slot_rows`` (-1 = empty), so keys may take any
-  int32 value.
+  value of their width.  ``CLAIM_ROUNDS`` counts the loop's rounds.
 - **Chained** (``build_chained``, ``probe_chained_*``): one stable sort by
   bucket; rows sorted by bucket are the chains, and ``offsets`` delimit
   them.  One pass over the sorted bucket ids and the sort's permutation
@@ -23,8 +23,6 @@ the same names and the same results bit for bit:
   row's chain; both are hand-written kernels (``kernels/chained_probe``,
   their plain versions on a CPU tensor) with no JAX counterpart.  The other
   probes compare a window of ``PROBE_WINDOW`` chain entries per pass.
-  It takes int32 and int64 keys (``_chained_keys``); the other tables take
-  int32 keys only (``_as_i32_keys``).
 - **Dedup** (``build_dedup_hash_table``): the claim loop where a row that
   finds its own key in a slot resolves to that slot's owner, so chains grow
   with distinct-key collisions only.  A key's representative is always its
@@ -38,11 +36,14 @@ kernel K7 (``ops/kernels/generate.hash_keys``) on a CUDA tensor and through
 its plain version on a CPU tensor: ``hashing.hash32`` of an int32 key,
 ``hashing.hash64_pair`` of an int64 key's two words.
 
-int64 keys are the port's own: the JAX package's hash layer is 32-bit, so
-an int64 chained table has no JAX counterpart.  An int64 table's entries
-keep their 8 bytes and every compare runs at int64; a probe of the other
+Every table takes int32 and int64 keys (``_table_keys``).  int64 keys are
+the port's own: the JAX package's hash layer is 32-bit, so an int64 table
+has no JAX counterpart.  An int64 table keeps its keys' 8 bytes in its
+slots or entries and every compare runs at int64; a probe of the other
 width compares at int64 too, and takes its bucket from the table's hash
-(``_probe_keys``).
+(``_probe_keys``).  Only the radix fan-out (``radix.partition_ids``) and
+the radix joiner's chained mode still narrow keys to int32
+(``_as_i32_keys``).
 
 Not ported: ``dispatch_chunks`` (the TPU watchdog's probe windows).
 ``probe_chained_count`` still takes ``num_chunks`` and counts the same.
@@ -73,10 +74,17 @@ SEGMENT_GRANULE = 8
 _INT32_MAX = 2**31 - 1
 _MASK = 0xFFFFFFFF
 
+#: Rounds of the open-addressing and dedup builds' claim loop, over every
+#: build since the module was loaded (set it to 0 to reset).  The loop
+#: reads its rows back once a round anyway, so counting costs nothing.
+CLAIM_ROUNDS = 0
+
 
 def _as_i32_keys(keys) -> torch.Tensor:
-    """int32 keys; 64-bit keys raise ``TypeError`` (a silent cast would make
-    distinct keys collide: they take the sort-merge path)."""
+    """int32 keys for the 32-bit radix fan-out (``radix.partition_ids``) and
+    the radix joiner's chained mode; 64-bit keys raise ``TypeError`` (a
+    silent cast would make distinct keys collide: they take the sort-merge
+    path)."""
     keys = torch.as_tensor(keys)
     if keys.dtype in (torch.int64, torch.uint64):
         raise TypeError(
@@ -85,15 +93,15 @@ def _as_i32_keys(keys) -> torch.Tensor:
     return keys.to(torch.int32)
 
 
-def _chained_keys(keys) -> torch.Tensor:
-    """Keys of the chained table: int64 stays int64 (uint64 is viewed as
-    int64), other integer keys are int32 as in ``_as_i32_keys``; floats and
-    bools raise ``TypeError``."""
+def _table_keys(keys) -> torch.Tensor:
+    """Keys of every table: int64 stays int64 (uint64 is viewed as int64),
+    other integer keys are int32 as in ``_as_i32_keys``; floats and bools
+    raise ``TypeError``."""
     keys = torch.as_tensor(keys)
     if keys.dtype in (torch.int64, torch.uint64):
         return keys.view(torch.int64)
     if keys.is_floating_point() or keys.is_complex() or keys.dtype == torch.bool:
-        raise TypeError(f"chained-table keys must be integers, got {keys.dtype}")
+        raise TypeError(f"hash-table keys must be integers, got {keys.dtype}")
     return keys.to(torch.int32)
 
 
@@ -133,12 +141,12 @@ def _scalar(value, dtype, device) -> torch.Tensor:
 class HashTable:
     """A built open-addressing table.
 
-    ``slot_keys[s]`` is meaningful iff ``slot_rows[s] >= 0``; ``slot_rows``
-    holds the build row index.  ``max_probe`` (0-dim int32) bounds every
-    probe loop.  ``overflowed`` (0-dim bool) is True iff the build hit its
-    iteration bound with rows still pending (only possible with a validity
-    mask hiding more valid rows than slots); probing such a table
-    undercounts.
+    ``slot_keys[s]`` (int32 or int64, the build keys' width) is meaningful
+    iff ``slot_rows[s] >= 0``; ``slot_rows`` holds the build row index.
+    ``max_probe`` (0-dim int32) bounds every probe loop.  ``overflowed``
+    (0-dim bool) is True iff the build hit its iteration bound with rows
+    still pending (only possible with a validity mask hiding more valid rows
+    than slots); probing such a table undercounts.
     """
 
     slot_keys: torch.Tensor
@@ -150,6 +158,10 @@ class HashTable:
     @property
     def size(self) -> int:
         return self.slot_keys.shape[0]
+
+    @property
+    def key_dtype(self) -> torch.dtype:
+        return self.slot_keys.dtype
 
     @classmethod
     def from_numpy(cls, slot_keys, slot_rows, max_probe, seed,
@@ -168,14 +180,15 @@ class HashTable:
 def _claim_loop(keys, seed, size, valid, dedup):
     """The build's claim/resolve loop: ``(table, rep_row)``, ``rep_row``
     only with ``dedup`` (the representative row of each row's key, -1 for
-    rows never inserted)."""
-    keys = _as_i32_keys(keys)
+    rows never inserted).  The slots keep the keys' width."""
+    global CLAIM_ROUNDS
+    keys = _table_keys(keys)
     n = keys.shape[0]
     device = keys.device
     mask = size - 1
     seed = _seed(seed)
     home = _bucket_of(keys, seed, mask)
-    slot_keys = torch.zeros((size,), dtype=torch.int32, device=device)
+    slot_keys = torch.zeros((size,), dtype=keys.dtype, device=device)
     slot_rows = torch.full((size,), -1, dtype=torch.int32, device=device)
     # only the rows trying a slot claim it, and the claimed entries are
     # reset after each round (JAX scatters every row, losers into a dump
@@ -221,6 +234,7 @@ def _claim_loop(keys, seed, size, valid, dedup):
         live, rows, l_keys, l_home, dist = (
             x[keep] for x in (live, rows, l_keys, l_home, dist))
         it += 1
+        CLAIM_ROUNDS += 1
     table = HashTable(
         slot_keys=slot_keys,
         slot_rows=slot_rows,
@@ -253,11 +267,11 @@ def build_hash_table(
 def _probe_loop(table: HashTable, keys, count_all: bool, valid=None):
     """Lockstep probe: ``(found, first_row, match_count)``.  Rows with
     ``valid == False`` never probe and never match."""
-    keys = _as_i32_keys(keys)
+    keys, hashed = _probe_keys(table, keys)
     n = keys.shape[0]
     device = keys.device
     mask = table.size - 1
-    home = _bucket_of(keys, table.seed, mask)
+    home = _bucket_of(hashed, table.seed, mask)
     first_row = torch.full((n,), -1, dtype=torch.int32, device=device)
     matches = torch.zeros((n,), dtype=torch.int32, device=device)
     live = (torch.arange(n, device=device) if valid is None
@@ -330,6 +344,10 @@ class ChainedHashTable:
     def num_buckets(self) -> int:
         return self.offsets.shape[0] - 1
 
+    @property
+    def key_dtype(self) -> torch.dtype:
+        return self.entry_keys.dtype
+
     @classmethod
     def from_numpy(cls, entry_keys, entry_rows, offsets, max_chain, seed,
                    device="cpu") -> "ChainedHashTable":
@@ -366,7 +384,7 @@ def build_chained_from_buckets(
     gathered in sorted order.  The radix join computes its
     partition-segmented bucket ids itself; plain tables use
     ``build_chained``."""
-    keys = _chained_keys(keys)
+    keys = _table_keys(keys)
     sorted_bucket, order = torch.sort(bucket, stable=True)
     entry_rows, offsets, max_chain = kchained.chained_build(
         sorted_bucket, order, num_buckets)
@@ -381,21 +399,21 @@ def build_chained_from_buckets(
 
 def build_chained(keys: torch.Tensor, seed, num_buckets: int) -> ChainedHashTable:
     """One-sort bucket-chained build (``num_buckets`` a power of two)."""
-    keys = _chained_keys(keys)
+    keys = _table_keys(keys)
     bucket = _bucket_of(keys, _seed(seed), num_buckets - 1)
     return build_chained_from_buckets(bucket, keys, seed, num_buckets)
 
 
-def _probe_keys(table: ChainedHashTable, keys):
-    """``(keys, hashed)`` of a probe: ``keys`` to compare with the entries
-    and ``hashed`` for the table's hash.  Keys of the table's width serve as
-    both.  An int32 probe of an int64 table is widened.  An int64 probe of
-    an int32 table is compared at int64 (``_window``'s ``==`` promotes the
-    int32 entries) and hashed by its low word, as ``hash32`` of an int32
-    key: a key outside int32's range shares a bucket with its low word and
-    equals no entry there."""
-    keys = _chained_keys(keys)
-    if keys.dtype == table.entry_keys.dtype:
+def _probe_keys(table, keys):
+    """``(keys, hashed)`` of a probe of either table: ``keys`` to compare
+    with the table's keys and ``hashed`` for the table's hash.  Keys of the
+    table's width serve as both.  An int32 probe of an int64 table is
+    widened.  An int64 probe of an int32 table is compared at int64 (``==``
+    promotes the int32 keys) and hashed by its low word, as ``hash32`` of an
+    int32 key: a key outside int32's range shares a bucket with its low
+    word and equals no key there."""
+    keys = _table_keys(keys)
+    if keys.dtype == table.key_dtype:
         return keys, keys
     if keys.dtype == torch.int32:
         keys = keys.to(torch.int64)
@@ -478,7 +496,7 @@ def _probe_chained_count_chunk(table: ChainedHashTable, keys, bucket=None,
     overrides the hash-derived bucket (the radix join's partition-segmented
     bucket map).  One call of ``kernels/chained_probe.chained_count``: K7's
     hashes under the table's mask, or ``bucket`` under an all-ones mask."""
-    keys = _chained_keys(keys)
+    keys = _table_keys(keys)
     if bucket is None:
         hashes = hash_bits(_probe_keys(table, keys)[1], table.seed)
         mask = table.num_buckets - 1
@@ -495,7 +513,7 @@ def probe_chained_count(table: ChainedHashTable, keys: torch.Tensor,
     probe into calls of ``ceil(n / num_chunks)`` rows each, which bounds the
     temporaries; the last window ends at n and skips the rows the previous
     one counted, so the count is the same for any ``num_chunks``."""
-    keys = _chained_keys(keys)
+    keys = _table_keys(keys)
     n = keys.shape[0]
     num_chunks = min(num_chunks, max(1, n))
     if num_chunks <= 1:

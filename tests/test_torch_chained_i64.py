@@ -184,9 +184,8 @@ def test_chained_key_widths():
             ht.build_chained(bad, 1, 4)
         with pytest.raises(TypeError, match="integers"):
             ht.probe_chained_count(table, bad)
-    # the other tables and the radix fan-out stay 32-bit
-    with pytest.raises(TypeError, match="32-bit"):
-        ht.build_dedup_hash_table(wide, 1, 4)
+    # the dedup table keeps int64 keys too
+    assert ht.build_dedup_hash_table(wide, 1, 4)[0].slot_keys.dtype == torch.int64
 
 
 def test_int32_chained_table_runs_the_int32_hash(monkeypatch):

@@ -1255,6 +1255,64 @@ def test_int64_chained_join_at_full_size(cuda):
     assert gen.LAUNCHES_HASH64 == before + 2 and gen.LAUNCHES_HASH == before32
 
 
+def test_int64_hash_aggregate_on_card(cuda):
+    """The hash GROUP BY over 4M int64 keys with a Zipf(1.05) head (the head
+    key takes ~7% of the rows), keys that differ only above bit 31: every
+    group exact against a plain sort GROUP BY, in first-row order, every
+    hash through K7's int64 kernel; ``filter_aggregate`` too."""
+    from partitionedhashjoin_tpu_torch.ops import hash_table as ht
+
+    n, domain = 4_000_000, 1_000_000
+    g = torch.Generator(device=cuda).manual_seed(26)
+    cdf = torch.cumsum(torch.arange(1, domain + 1, dtype=torch.float64,
+                                    device=cuda).pow_(-1.05), 0)
+    idx = torch.searchsorted(cdf / cdf[-1], torch.rand(n, dtype=torch.float64,
+                                                       generator=g, device=cuda))
+    keys = idx.clamp_(max=domain - 1) + (idx % 3 - 1) * 2**32
+    pay = torch.randint(-(2**40), 2**40, (n,), generator=g, device=cuda)
+
+    def plain(k, p):
+        """``(key, count, sum, min, max, first row)`` by key, from sorts."""
+        order = torch.sort(p, stable=True).indices
+        order = order[torch.sort(k[order], stable=True).indices]
+        ks, ps = k[order], p[order]
+        new = torch.ones_like(ks, dtype=torch.bool)
+        new[1:] = ks[1:] != ks[:-1]
+        first = torch.nonzero(new).squeeze(1)
+        last = torch.cat([first[1:], first.new_tensor([ks.numel()])]) - 1
+        cs = torch.cumsum(ps, 0)
+        rows = torch.full_like(ks, ks.numel()).scatter_reduce_(
+            0, torch.cumsum(new, 0) - 1, order, "amin")[: first.numel()]
+        return (ks[first], last - first + 1, cs[last] - cs[first] + ps[first],
+                ps[first], ps[last], rows)
+
+    def check(got, k, p):
+        want = plain(k, p)
+        m = int(got.num_groups)
+        assert m == want[0].numel()
+        by_key = torch.sort(got.keys[:m]).indices
+        for col, w in zip((got.keys, got.count, got.sum, got.min, got.max), want):
+            assert torch.equal(col[:m][by_key].to(torch.int64), w)
+        # groups in the order of their keys' first rows
+        first_rows = torch.empty_like(want[5])
+        first_rows[by_key] = want[5]
+        assert bool((first_rows[1:] > first_rows[:-1]).all())
+
+    before, before32 = gen.LAUNCHES_HASH64, gen.LAUNCHES_HASH
+    t = make_table(keys, pay)
+    got = aggregate.hash_aggregate(t, seed=0x5EED)
+    assert int(got.count.max()) > n // 20  # the Zipf head
+    check(got, keys, pay)
+    even = lambda k, p: (p % 2) == 0  # noqa: E731
+    got, kept = aggregate.filter_aggregate(t, even, seed=0x5EED)
+    mask = even(keys, pay)
+    assert int(kept) == int(mask.sum())
+    check(got, keys[mask], pay[mask])
+    torch.cuda.synchronize()
+    assert gen.LAUNCHES_HASH64 == before + 2 and gen.LAUNCHES_HASH == before32
+    assert ht.CLAIM_ROUNDS > 0
+
+
 def test_tail_and_fallback_on_card_match_cpu(cuda):
     """The chained count on the JAX package's tail and fallback shapes (a
     64-entry chain, and a 4,096-row chain that every probe row walks)

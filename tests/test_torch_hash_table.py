@@ -134,9 +134,8 @@ def test_errors_match_jax():
     with pytest.raises(ValueError, match="< number of keys"):
         ht.build_hash_table(torch.from_numpy(keys), 1, 8)
     wide = torch.arange(4, dtype=torch.int64)
-    with pytest.raises(TypeError, match="32-bit"):
-        ht.build_hash_table(wide, 1, 8)
-    # the port's chained table takes int64 keys (JAX's raises, below)
+    # the port's tables keep int64 keys' 8 bytes (JAX's raise, below)
+    assert ht.build_hash_table(wide, 1, 8).slot_keys.dtype == torch.int64
     assert ht.build_chained(wide, 1, 4).entry_keys.dtype == torch.int64
     with pytest.raises(TypeError, match="integers"):
         ht.build_chained(wide.to(torch.float32), 1, 4)
